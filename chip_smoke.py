@@ -7,27 +7,40 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, in parallel) and print the card's name and power limit;
-2. kernel vs twin: K1 (``bm25_resident_score_topk``) and K2
-   (``bm25_block_score_topk``) on the card against their plain torch
-   twins on CPU copies of the same inputs, at moderate shapes, three
-   variants (robertson's negative IDF among them), k in {1, 7, 100} and
-   B in {8, 64}: bitwise equal;
+2. kernel vs twin at moderate shapes (100,003 docs), three variants
+   (robertson's negative IDF among them), k in {1, 7, 100} and B in
+   {8, 64}: K1 (``bm25_resident_score_topk``), K2
+   (``bm25_block_score_topk``) and K3 (``bm25_resident_score_topk_pruned``,
+   on the batch's whole table and its block bounds, so that its in-kernel
+   skip does the pruning; the B = 8 batches are one-token queries, whose
+   bounds prune, and K3 must skip somewhere) on the card against their plain torch twins on
+   CPU copies: bitwise equal; K3 also bitwise equal to K1 on the card on
+   the same table; the device
+   fragment planner on the card byte-equal to the host ``fragment_plan``
+   and ``default_doc_ids``;
 3. full width (``repro.configs.bm25s``: 2,097,152 docs, V = 200,000,
    ~120 unique tokens a doc, doc block 512, batches of 256 queries of at
    most 32 tokens, k = 100, lucene k1 = 1.5, b = 0.75; queries of five
    Zipf tokens as ``repro.data.corpus.zipf_queries`` draws them): build a
-   ``DeviceRetriever`` on cuda and serve batches under ``auto``,
-   ``gathered`` and ``blocked``; zero posting bytes after the build, both
-   launch counters > 0, and sampled queries exact against the port's
-   ``ScipyBM25`` (scores within atol 1e-4, ids carrying their oracle
-   scores, so ties may come in either order);
-4. the kernels at the full-width shapes: each bitwise equal to its CPU
-   twin on the first 32 query columns (one B-tile; every column is
-   scored on its own), timed with CUDA events beside its twin on the
-   card (atomics there, so values agree within atol 1e-4 + rtol 1e-6,
-   and where an id differs from the twin's the kernel's id must carry
-   its exact score from the index), and the least time the card could
-   take (bytes over 3.35 TB/s, FP32 operations over 67 TFLOP/s).
+   ``DeviceRetriever`` on cuda with its defaults (``plan="device"``, a
+   block-max table of the ``auto`` dtype) and serve each batch under
+   ``auto``, ``gathered``, ``blocked`` and ``pruned``; every pruned board
+   bitwise equal to the gathered board of the same batch, ``auto`` equal
+   to the regime it chose; zero posting AND descriptor bytes after the
+   build, every launch counter > 0, and sampled queries of every regime
+   exact against the port's ``ScipyBM25`` (scores within atol 1e-4, ids
+   carrying their oracle scores, so ties may come in either order);
+4. at the full-width shapes: the device planner timed with CUDA events
+   beside the host ``fragment_plan`` (tables byte-equal) and profiled
+   with ``torch.profiler``, ``torch.cummax`` and ``torch.cumsum`` timed
+   over a stream of the planner's size, the host survivor estimate
+   timed; each kernel bitwise equal to its CPU twin on
+   the first 32 query columns (one B-tile; every column is scored on its
+   own), timed with CUDA events beside its twin on the card (atomics
+   there, so values agree within atol 1e-4 + rtol 1e-6, and where an id
+   differs from the twin's the kernel's id must carry its exact score from
+   the index), and the least time the card could take (bytes over
+   3.35 TB/s, FP32 operations over 67 TFLOP/s).
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last is the ``{"ok": true, ...}``
@@ -62,6 +75,7 @@ FP32_OPS_PER_S = 67e12         # CUDA-core FP32 (FMA counted as 2)
 EXACT_ATOL = 1e-4              # boards vs ScipyBM25 (different sum order)
 ATOL, RTOL = 1e-4, 1e-6        # kernel vs twin on the card (atomics there)
 TWIN_COLS = 32                 # query columns held bitwise at full width
+REGIMES = ("auto", "gathered", "blocked", "pruned")
 
 
 def check(ok, what: str) -> None:
@@ -115,18 +129,24 @@ def bits_equal(a, b) -> bool:
 
 
 def phase_kernels_vs_twins(seed: int) -> None:
-    """Phase 2: each kernel on the card bitwise equal to its CPU twin."""
+    """Phase 2: each kernel on the card bitwise equal to its CPU twin, and
+    the device planner on the card byte-equal to the host plan."""
     import torch
 
     from repro_torch.core import BM25Params, build_index
+    from repro_torch.core.retrieval import default_doc_ids
     from repro_torch.kernels import bm25_block_score as k2
     from repro_torch.kernels import bm25_gather_score as k1
     from repro_torch.serve import DeviceRetriever
-    from repro_torch.sparse.block_csr import fragment_plan
+    from repro_torch.sparse.block_csr import (DeviceIndex,
+                                              block_upper_bounds,
+                                              fragment_plan)
+    from repro_torch.sparse.fragment_device import plan_fragments_device
     rng = np.random.default_rng(seed)
     n_docs, n_vocab = 100_003, 30_000
     corpus = zipf_corpus(rng, n_docs, n_vocab, 60)
     cuda = torch.device("cuda")
+    skipped = 0
     for method, cases in (("robertson", ((1, 8), (100, 64))),
                           ("lucene", ((7, 64), (100, 8))),
                           ("bm25l", ((7, 8), (1, 64)))):
@@ -134,10 +154,22 @@ def phase_kernels_vs_twins(seed: int) -> None:
         cpu = DeviceRetriever(idx, block_size=DOC_BLOCK, q_max=Q_MAX,
                               device="cpu")
         di = cpu.dindex
+        di_cuda = DeviceIndex.build(idx, device=cuda, block_size=DOC_BLOCK,
+                                    with_blocked=False, with_bmax=False)
         for k, b in cases:
-            pk = cpu.pack_batch(zipf_queries(rng, b, n_vocab))
+            qs = zipf_queries(rng, b, n_vocab)
+            if b == 64:
+                qs[-1] = np.zeros(0, np.int32)       # a real empty query
+            else:                  # one-token queries: bounds that prune
+                qs = [q[:1] for q in qs]
+            pk = cpu.pack_batch(qs)
             w = torch.as_tensor(pk.weights)
             fp = fragment_plan(idx, pk.uniq_batch, block_size=DOC_BLOCK)
+            # K3 on the whole table (no seed compaction), so that its
+            # in-kernel skip does the pruning
+            desc3 = torch.as_tensor(fp.desc)
+            bounds = torch.as_tensor(block_upper_bounds(
+                di.bmax, pk.uniq_tab, pk.weights))
             kw = dict(block_size=DOC_BLOCK, k=k, n_docs=n_docs)
             oks = []
             for fn, ops, extra in (
@@ -146,7 +178,10 @@ def phase_kernels_vs_twins(seed: int) -> None:
                       di.csc_scores), dict(frag=di.frag)),
                     (k2.bm25_block_score_topk,
                      (di.blk_tok, di.blk_loc, di.blk_sc,
-                      torch.as_tensor(pk.uniq_tab), w), {})):
+                      torch.as_tensor(pk.uniq_tab), w), {}),
+                    (k1.bm25_resident_score_topk_pruned,
+                     (desc3, w, bounds, di.csc_doc_ids, di.csc_scores),
+                     dict(frag=di.frag))):
                 ref = fn(*ops, **kw, **extra)
                 got = fn(*(t.to(cuda) for t in ops), **kw, **extra)
                 torch.cuda.synchronize()
@@ -155,11 +190,43 @@ def phase_kernels_vs_twins(seed: int) -> None:
                     bad = (got[0].cpu() != ref[0]).nonzero()[:5].tolist()
                     print(f"[kernel-vs-twin] {fn.__name__} differs at {bad}")
                 oks.append(ok)
+            # K3 against K1 on the card, on the same table
+            k1c = k1.bm25_resident_score_topk(
+                desc3.to(cuda), w.to(cuda), di_cuda.csc_doc_ids,
+                di_cuda.csc_scores, frag=di.frag, **kw)
+            oks.append(bits_equal(got[0], k1c[0])
+                       and bits_equal(got[1], k1c[1]))
+            if b <= 32:
+                # one B-tile and one CTA: the kernel walks the table in
+                # order, as the twin does, and must skip what it skips
+                ctas, k1._CTAS = k1._CTAS, 1
+                one = k1.bm25_resident_score_topk_pruned(
+                    *(t.to(cuda) for t in (desc3, w, bounds,
+                                           di.csc_doc_ids, di.csc_scores)),
+                    frag=di.frag, **kw)
+                k1._CTAS = ctas
+                oks[2] = oks[2] and bits_equal(one[0], ref[0]) \
+                    and int(one[2]) == int(ref[2])
+                skipped += int(one[2])
+            # the device planner on the card against the host plan
+            desc_d, dids_d, _ = plan_fragments_device(
+                di_cuda, pk.uniq_tab, sum_df=fp.sum_df, k=k,
+                block_size=DOC_BLOCK, nf_bucket=fp.nf_pad)
+            oks.append(bits_equal(desc_d, torch.as_tensor(fp.desc))
+                       and bits_equal(dids_d, torch.as_tensor(
+                           default_doc_ids(fp.vis_blocks, k, n_docs,
+                                           DOC_BLOCK))))
             print(f"[kernel-vs-twin] {method:9s} k={k:3d} B={b:2d} "
                   f"nf={fp.n_frags} sum_df={fp.sum_df} "
-                  f"K1 bitwise={oks[0]} K2 bitwise={oks[1]}", flush=True)
-            check(all(oks), f"kernels bitwise equal to twins ({method}, "
-                            f"k={k}, B={b})")
+                  f"K3 twin skipped={int(ref[2])} card={int(got[2])} "
+                  f"K1 bitwise={oks[0]} K2 bitwise={oks[1]} "
+                  f"K3 bitwise={oks[2]} K3=K1 {oks[3]} "
+                  f"device plan=host plan {oks[4]}", flush=True)
+            check(all(oks), f"kernels bitwise equal to twins, device plan "
+                            f"equal to host plan ({method}, k={k}, B={b})")
+    print(f"[kernel-vs-twin] K3 with one CTA skipped {skipped} fragments "
+          "over the B = 8 cases, as its twin did", flush=True)
+    check(skipped > 0, "K3 skipped spans on the card in phase 2")
 
 
 def exact_raw_scores(sub_csr, w, docs, cols) -> np.ndarray:
@@ -206,13 +273,47 @@ def ids_hold_their_scores(v, ids, ref_ids, gdoc, n_docs, sub_csr, w,
     return distinct and pad_ok and not bad.any()
 
 
-def twin_bitwise(fn, ops, w_at: int, got, kw, what: str) -> bool:
+def device_profile(fn, n: int = 6) -> str:
+    """The ``n`` torch operators of one ``fn()`` call with the most self
+    device time, by ``torch.profiler``, as ``name ms`` pairs and their
+    total. Only operator rows are read: a kernel's time appears again
+    under its own row, which would count it twice."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in rows)
+    if total == 0:
+        return "the trace holds no device time"
+    top = "; ".join(f"{e.key} {dev_us(e) / 1e3:.2f}" for e in rows[:n])
+    return f"{total / 1e3:.2f} ms of device time: {top}"
+
+
+def boards_equal(a, b) -> bool:
+    """Two results' ``[B, k]`` boards equal bit for bit (ids and scores)."""
+    return (np.array_equal(a.ids, b.ids)
+            and np.array_equal(a.scores.view(np.int32),
+                               b.scores.view(np.int32)))
+
+
+def twin_bitwise(fn, ops, col_at, got, kw, what: str) -> bool:
     """The kernel's first ``TWIN_COLS`` query columns against the wrapper
     on CPU copies of the same operands (so its twin runs) with only those
-    columns of the weights (operand ``w_at``): bit for bit."""
+    columns of the operands at ``col_at`` (weights, bounds): bit for bit."""
     t0 = time.perf_counter()
     cpu = [t.cpu() for t in ops]
-    cpu[w_at] = cpu[w_at][:, :TWIN_COLS].contiguous()
+    for i in col_at:
+        cpu[i] = cpu[i][:, :TWIN_COLS].contiguous()
     ref = fn(*cpu, **kw)
     ok = (bits_equal(got[0][..., :TWIN_COLS], ref[0])
           and bits_equal(got[1][..., :TWIN_COLS], ref[1]))
@@ -235,13 +336,17 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from repro_torch.core import BM25Params, ScipyBM25, build_index
-    from repro_torch.core.retrieval import topk_numpy
+    from repro_torch.core.retrieval import default_doc_ids, topk_numpy
+    from repro_torch.core.scoring import bucket_pow2
     from repro_torch.kernels import COUNTERS, _build
     from repro_torch.kernels import bm25_block_score as k2
     from repro_torch.kernels import bm25_gather_score as k1
     from repro_torch.serve import DeviceRetriever
-    from repro_torch.sparse.block_csr import (TRANSFERS, fragment_plan,
+    from repro_torch.sparse.block_csr import (TRANSFERS,
+                                              estimate_prune_survivors,
+                                              fragment_plan,
                                               reset_transfer_stats)
+    from repro_torch.sparse.fragment_device import plan_fragments_device
     t_all = time.perf_counter()
 
     # -- phase 1: build + card ------------------------------------------
@@ -280,22 +385,29 @@ def main(argv=None) -> int:
     t_index = time.perf_counter() - t0 - t_gen
     reset_transfer_stats()
     t0 = time.perf_counter()
-    dr = DeviceRetriever(idx, regime="auto", block_size=DOC_BLOCK,
-                         q_max=Q_MAX, device="cuda")
+    dr = DeviceRetriever(idx, block_size=DOC_BLOCK, q_max=Q_MAX,
+                         device="cuda")
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
+    bm = dr.dindex.bmax
     print(f"[full] n_docs={n_docs} V={N_VOCAB} nnz={idx.nnz} "
           f"({idx.nnz / n_docs:.1f} unique tokens a doc); corpus "
           f"{t_gen:.1f}s, index {t_index:.1f}s, device build {t_dev:.1f}s, "
-          f"posting bytes uploaded {TRANSFERS.posting_bytes}", flush=True)
-    dr.warmup(k=TOP_K)
+          f"posting bytes uploaded {TRANSFERS.posting_bytes}; "
+          f"plan={dr.plan_mode}", flush=True)
+    print(f"[full] block-max table: {'u8' if bm.quantized else 'f32'} "
+          f"[{bm.host.shape[0]}, {bm.nb_pad}], {bm.nbytes} bytes on the "
+          f"card, over_budget={bm.over_budget}, built in "
+          f"{bm.build_s * 1e3:.1f} ms (host, upload included)", flush=True)
+    check(dr.plan_mode == "device", 'cuda resolves to plan="device"')
     reset_transfer_stats()
+    dr.warmup(k=TOP_K)
     for c in COUNTERS:
         c.reset()
-    served, last = [], {}
-    for regime in ("auto", "gathered", "blocked"):
-        for i in range(args.batches):
-            qs = zipf_queries(rng, QUERY_BATCH, N_VOCAB)
+    served, boards = [], {}
+    for i in range(args.batches):
+        qs = zipf_queries(rng, QUERY_BATCH, N_VOCAB)
+        for regime in REGIMES:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -305,27 +417,41 @@ def main(argv=None) -> int:
             p = res.plan
             check(res.ids.shape == (QUERY_BATCH, TOP_K), "board shape")
             check(np.isfinite(res.scores).all(), "finite board")
+            frac = ("-" if p.survivor_frac is None
+                    else f"{p.survivor_frac:.4f}")
             print(f"[full] regime={regime:8s} batch={i} chose={p.regime:8s}"
                   f" sum_df={p.sum_df} nnz={p.nnz} "
                   f"sum_df/nnz={p.sum_df / p.nnz:.3f} "
-                  f"frags={p.frags_planned} "
+                  f"frags_planned={p.frags_planned} "
+                  f"frags_pruned={p.frags_pruned} "
+                  f"frags_skipped={p.frags_skipped} survivor_frac={frac} "
                   f"pack_ms={res.timings['pack_s'] * 1e3:.1f} "
                   f"ms={start.elapsed_time(end):.1f}", flush=True)
-            served.append((regime, qs, res))
-            last[p.regime] = qs
+            served.append((regime, i, qs, res))
+            boards[regime, i] = res
+        chose = boards["auto", i].plan.regime
+        pruned_same = boards_equal(boards["pruned", i], boards["gathered", i])
+        auto_same = boards_equal(boards["auto", i], boards[chose, i])
+        print(f"[full] batch={i}: pruned board bitwise equal to gathered "
+              f"{pruned_same}; auto ({chose}) equal to {chose} {auto_same}",
+              flush=True)
+        check(pruned_same, "pruned board == gathered board")
+        check(auto_same, "auto board == the chosen regime's board")
     launches = {c.name: c.n for c in COUNTERS}
-    print(f"[full] launches {launches}; posting bytes after build "
-          f"{TRANSFERS.posting_bytes}; descriptor bytes "
+    print(f"[full] launches {launches}; after the build: posting bytes "
+          f"{TRANSFERS.posting_bytes}, descriptor bytes "
           f"{TRANSFERS.descriptor_bytes}", flush=True)
     check(TRANSFERS.posting_bytes == 0, "postings crossed after the build")
+    check(TRANSFERS.descriptor_bytes == 0,
+          "descriptors crossed after the build")
     for name, n in launches.items():
         check(n > 0, f"{name} launched on the main path")
 
     t0 = time.perf_counter()
     oracle = ScipyBM25(idx)
     checked, worst = 0, 0.0
-    for regime, qs, res in served[::args.batches]:
-        for qi in rng.choice(QUERY_BATCH, size=6, replace=False):
+    for regime, i, qs, res in served[:len(REGIMES)]:
+        for qi in rng.choice(QUERY_BATCH, size=5, replace=False):
             s = oracle.score(qs[qi])
             _, ref_v = topk_numpy(s[None], TOP_K)
             np.testing.assert_allclose(res.scores[qi], ref_v[0], rtol=0,
@@ -335,10 +461,10 @@ def main(argv=None) -> int:
             check(len(set(res.ids[qi].tolist())) == TOP_K, "distinct ids")
             worst = max(worst, float(np.abs(res.scores[qi] - ref_v[0]).max()))
             checked += 1
-    check(checked >= 16, "at least 16 sampled queries")
-    print(f"[full] {checked} sampled queries exact against ScipyBM25, max "
-          f"|score - oracle| {worst:.3g} (atol {EXACT_ATOL}; "
-          f"{time.perf_counter() - t0:.1f}s)", flush=True)
+    check(checked >= 20, "at least 20 sampled queries")
+    print(f"[full] {checked} sampled queries ({len(REGIMES)} regimes) exact "
+          f"against ScipyBM25, max |score - oracle| {worst:.3g} (atol "
+          f"{EXACT_ATOL}; {time.perf_counter() - t0:.1f}s)", flush=True)
 
     # -- phase 4: the kernels at the main path's shapes -------------------
     dev = dr.device
@@ -346,17 +472,52 @@ def main(argv=None) -> int:
     tol = f"atol {ATOL} + rtol {RTOL} vs the twin on the card"
     bitwise_at = (f"full width, query columns 0-{TWIN_COLS - 1}, CPU twin; "
                   "phase 2: all columns, 100,003 docs, B 8 and 64")
-    # K1 on the last gathered batch's operands
-    pk = dr.pack_batch(last["gathered"])
+    # every kernel on the last batch's operands (served under each regime)
+    pk = dr.pack_batch(served[-1][2])
     n_u = pk.uniq_batch.size
     check(np.array_equal(pk.uniq_tab[:n_u], pk.uniq_batch),
           "weights rows follow the batch's sorted unique tokens")
     sub_csr = oracle.matrix[:, pk.uniq_batch].tocsr()
+    # the fragment planners: host numpy against the device builder
     t0 = time.perf_counter()
     fp = fragment_plan(idx, pk.uniq_batch, block_size=DOC_BLOCK)
-    print(f"[kernels] host fragment_plan of the last gathered batch: "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms for {fp.n_frags} "
-          f"fragments", flush=True)
+    host_plan_ms = (time.perf_counter() - t0) * 1e3
+
+    def plan_on_device():
+        return plan_fragments_device(dr.dindex, pk.uniq_tab,
+                                     sum_df=fp.sum_df, k=TOP_K,
+                                     block_size=DOC_BLOCK,
+                                     state=dr._nf_state)
+
+    dev_plan_ms = cuda_ms(plan_on_device, reps=3)
+    desc_d, dids_d, nf_pad = plan_on_device()
+    host_fp = (fp if nf_pad == fp.nf_pad else
+               fragment_plan(idx, pk.uniq_batch, block_size=DOC_BLOCK,
+                             nf_bucket=nf_pad))
+    plan_equal = (bits_equal(desc_d, torch.as_tensor(host_fp.desc))
+                  and bits_equal(dids_d, torch.as_tensor(default_doc_ids(
+                      host_fp.vis_blocks, TOP_K, n_docs, DOC_BLOCK))))
+    print(f"[plan] {fp.n_frags} fragments from sum_df={fp.sum_df}: host "
+          f"fragment_plan {host_plan_ms:.1f} ms, device planner "
+          f"{dev_plan_ms:.3f} ms (CUDA events, 3 calls, nf bucket "
+          f"{nf_pad}); tables byte-equal {plan_equal}", flush=True)
+    check(plan_equal, "device plan == host plan at full width")
+    print(f"[plan] profile of one device planner call (self device ms): "
+          f"{device_profile(plan_on_device)}", flush=True)
+    stream = torch.zeros(bucket_pow2(fp.sum_df, floor=8), dtype=torch.int32,
+                         device=dev)
+    print(f"[plan] over a {stream.numel()}-position int32 stream alone: "
+          f"torch.cummax {cuda_ms(lambda: torch.cummax(stream, 0)):.1f} ms, "
+          f"torch.cumsum "
+          f"{cuda_ms(lambda: torch.cumsum(stream, 0, dtype=torch.int32)):.1f}"
+          f" ms", flush=True)
+    del stream
+    t0 = time.perf_counter()
+    frac, _ = estimate_prune_survivors(dr.dindex.bmax, pk.uniq_tab,
+                                       pk.weights, k=TOP_K, b_true=pk.b)
+    print(f"[plan] host estimate_prune_survivors: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, survivor_frac "
+          f"{frac:.4f}", flush=True)
     desc = torch.as_tensor(fp.desc, device=dev)
     w = pk.weights
     ops1 = (desc, torch.as_tensor(w, device=dev), dr.dindex.csc_doc_ids,
@@ -365,7 +526,7 @@ def main(argv=None) -> int:
     got = k1.bm25_resident_score_topk(*ops1, frag=dr.dindex.frag, **kw1)
     ms = cuda_ms(lambda: k1.bm25_resident_score_topk(
         *ops1, frag=dr.dindex.frag, **kw1), reps=5)
-    bitwise = twin_bitwise(k1.bm25_resident_score_topk, ops1, 1, got,
+    bitwise = twin_bitwise(k1.bm25_resident_score_topk, ops1, (1,), got,
                            dict(kw1, frag=dr.dindex.frag), "K1")
     check(bitwise, "K1 bitwise equal to its CPU twin at full width")
     ref = k1.bm25_resident_score_topk_plain(*ops1, **kw1)
@@ -377,7 +538,7 @@ def main(argv=None) -> int:
     check(ids_hold_their_scores(got[0], got[1], ref[1], got[1], n_docs,
                                 sub_csr, w[:n_u], "K1"), "K1 ids vs twin")
     b = w.shape[1]
-    nbytes = fp.nf_pad * 24 + w.nbytes + fp.sum_df * 8 + TOP_K * b * 8
+    nbytes = fp.n_frags * 24 + w.nbytes + fp.sum_df * 8 + TOP_K * b * 8
     nops = 2.0 * fp.sum_df * b
     kernels.append(dict(
         name="bm25_resident_score_topk", route="cuda",
@@ -386,20 +547,16 @@ def main(argv=None) -> int:
         launches=launches["bm25_resident_score_topk"], max_abs_err=err,
         tolerance=tol, twin_bitwise=bitwise, twin_bitwise_at=bitwise_at,
         ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=nops))
-    # K2 on the last blocked batch's operands
-    pk = dr.pack_batch(last["blocked"])
+    # K2
     tab, w = pk.uniq_tab, pk.weights
-    n_u = pk.uniq_batch.size
-    check(np.array_equal(tab[:n_u], pk.uniq_batch),
-          "weights rows follow the batch's sorted unique tokens")
-    sub_csr = oracle.matrix[:, pk.uniq_batch].tocsr()
     di = dr.dindex
     ops2 = (di.blk_tok, di.blk_loc, di.blk_sc,
             torch.as_tensor(tab, device=dev), torch.as_tensor(w, device=dev))
     kw2 = dict(block_size=DOC_BLOCK, k=TOP_K, n_docs=n_docs)
     got = k2.bm25_block_score_topk(*ops2, **kw2)
     ms = cuda_ms(lambda: k2.bm25_block_score_topk(*ops2, **kw2), reps=3)
-    bitwise = twin_bitwise(k2.bm25_block_score_topk, ops2, 4, got, kw2, "K2")
+    bitwise = twin_bitwise(k2.bm25_block_score_topk, ops2, (4,), got, kw2,
+                           "K2")
     check(bitwise, "K2 bitwise equal to its CPU twin at full width")
     ref = k2.bm25_block_score_topk_plain(*ops2, **kw2)
     plain_ms = cuda_ms(lambda: k2.bm25_block_score_topk_plain(*ops2, **kw2))
@@ -424,6 +581,55 @@ def main(argv=None) -> int:
         launches=launches["bm25_block_score_topk"], max_abs_err=err,
         tolerance=tol, twin_bitwise=bitwise, twin_bitwise_at=bitwise_at,
         ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=nops))
+    # K3 on the same batch's pruned operands (seed pass + compaction)
+    w_dev = torch.as_tensor(pk.weights, device=dev)
+    desc3, bounds3, _, nf_planned, n_surv = dr._plan_pruned(
+        pk, w_dev, TOP_K, fp.sum_df)
+    ops3 = (desc3, w_dev, bounds3, di.csc_doc_ids, di.csc_scores)
+    kw3 = dict(block_size=DOC_BLOCK, frag=di.frag, k=TOP_K, n_docs=n_docs)
+    got = k1.bm25_resident_score_topk_pruned(*ops3, **kw3)
+    ms = cuda_ms(lambda: k1.bm25_resident_score_topk_pruned(*ops3, **kw3),
+                 reps=5)
+    bitwise = twin_bitwise(k1.bm25_resident_score_topk_pruned, ops3,
+                           (1, 2), got, kw3, "K3")
+    check(bitwise, "K3 bitwise equal to its CPU twin at full width")
+    k1_got = k1.bm25_resident_score_topk(*ops3[:2], *ops3[3:], **kw3)
+    same_k1 = bits_equal(got[0], k1_got[0]) and bits_equal(got[1],
+                                                           k1_got[1])
+    print(f"[kernels] K3: {nf_planned} fragments planned, {n_surv} after "
+          f"the seed compaction, {int(got[2])} skipped in the kernel "
+          f"(mean over B-tiles); board bitwise equal to K1 on the same "
+          f"table {same_k1}", flush=True)
+    check(same_k1, "K3 board == K1 board on the same table")
+    del k1_got
+    kw3p = dict(block_size=DOC_BLOCK, k=TOP_K, n_docs=n_docs)
+    ref = k1.bm25_resident_score_topk_pruned_plain(*ops3, **kw3p)
+    plain_ms = cuda_ms(lambda: k1.bm25_resident_score_topk_pruned_plain(
+        *ops3, **kw3p))
+    err = float((got[0] - ref[0]).abs().max())
+    check(bool(torch.allclose(got[0], ref[0], atol=ATOL, rtol=RTOL)),
+          f"K3 values vs twin (max abs err {err})")
+    check(ids_hold_their_scores(got[0], got[1], ref[1], got[1], n_docs,
+                                sub_csr, pk.weights[:n_u], "K3"),
+          "K3 ids vs twin")
+    del ref
+    # what K3 must read: the real fragments' descriptors, one bound row per
+    # span (at its first fragment), the postings and the weights
+    n_post = int(desc3[1].sum())
+    n_spans = int(desc3[4].sum())
+    b = pk.weights.shape[1]
+    nbytes = (n_surv * 24 + pk.weights.nbytes + n_spans * b * 4
+              + n_post * 8 + TOP_K * b * 8)
+    nops = 2.0 * n_post * b
+    kernels.append(dict(
+        name="bm25_resident_score_topk_pruned", route="cuda",
+        source="src/repro_torch/kernels/csrc/bm25_resident.cu",
+        replaces="src/repro/kernels/bm25_gather_score.py:521",
+        launches=launches["bm25_resident_score_topk_pruned"],
+        max_abs_err=err, tolerance=tol, twin_bitwise=bitwise,
+        twin_bitwise_at=bitwise_at, fragments=int(desc3.shape[1]),
+        survivors=n_surv, skipped=int(got[2]), ms=ms, plain_ms=plain_ms,
+        bytes=nbytes, ops=nops))
     for kd in kernels:
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = kd.pop("ops") / FP32_OPS_PER_S * 1e3

@@ -4,8 +4,9 @@ A system whose state is an index carries its "weights" as index arrays:
 :func:`index_from_reference` reads a ``repro`` ``BM25Index`` (or the
 ``host`` index of a ``repro`` ``DeviceIndex``) duck-typed, as numpy
 arrays, and returns the port's :class:`~repro_torch.core.index.BM25Index`
-holding equal arrays — so both packages serve the same state. It imports
-nothing of ``repro``.
+holding equal arrays — so both packages serve the same state.
+:func:`block_max_from_reference` does the same for the pruned regime's
+block-max table. It imports nothing of ``repro``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 
 from .core.index import BM25Index
 from .core.variants import BM25Params
+from .sparse.block_csr import BlockMaxTable, put_descriptor_array
 
 
 def index_from_reference(obj) -> BM25Index:
@@ -41,3 +43,23 @@ def index_from_reference(obj) -> BM25Index:
         params=BM25Params(k1=float(p.k1), b=float(p.b),
                           delta=float(p.delta), method=str(p.method)),
         doc_offset=int(src.doc_offset))
+
+
+def block_max_from_reference(bmax, *, device=None) -> BlockMaxTable:
+    """The port's ``BlockMaxTable`` with the arrays and metadata of ``bmax``.
+
+    ``bmax`` is shaped like ``repro.sparse.block_csr.BlockMaxTable``; its
+    host table and scales are copied as numpy. With ``device`` the table
+    is uploaded there (counted as descriptor traffic, as a build does), so
+    it can replace a ``DeviceIndex``'s ``bmax`` on that device.
+    """
+    host = np.array(bmax.host)
+    scale = np.array(bmax.scale, dtype=np.float32)
+    bm = BlockMaxTable(host=host, scale=scale, quantized=bool(bmax.quantized),
+                       block_size=int(bmax.block_size),
+                       n_blocks=int(bmax.n_blocks), nb_pad=int(bmax.nb_pad),
+                       over_budget=bool(bmax.over_budget))
+    if device is not None:
+        bm.device = put_descriptor_array(host, device=device)
+        bm.scale_dev = put_descriptor_array(scale, device=device)
+    return bm

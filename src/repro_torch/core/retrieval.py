@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 
-# -- retrieval planner (cost model over the two device regimes) --------------
+# -- retrieval planner (cost model over the three device regimes) ------------
 #
 # The full-scan regime streams EVERY posting tile: O(nnz) per batch. The
 # gathered regime touches only the batch's posting runs: O(Σ df) plus
@@ -29,50 +29,97 @@ import torch
 #
 #     work_ratio = nnz / Σ df(batch uniq tokens)   vs   CROSSOVER
 #
-# The crossover is the reference's; it was calibrated off the card and is
-# re-derived on the H100 by the port's benchmark slice.
+# The constants are the reference's; they were calibrated off the card and
+# are re-derived on the H100 by the port's benchmark slice.
 
 DEFAULT_CROSSOVER = 2.0
+
+# With DEVICE-side fragment planning (``sparse.fragment_device``) the
+# gathered regime no longer pays the per-batch host descriptor walk or its
+# upload, so the default crossover is scaled by this discount when the
+# caller plans on the device.
+DEVICE_PLAN_DISCOUNT = 0.75
+
+# The PRUNED regime runs the gathered machinery over the fragments whose
+# block-max bound can still beat the top-k threshold: its modeled cost is
+# the gathered cost × the estimated surviving fraction / this discount (the
+# bound product, the seed pass and the re-scored seed blocks are overhead),
+# so pruning must be expected to cut at least (1 - PRUNE_DISCOUNT) of the
+# gathered work before the planner picks it.
+PRUNE_DISCOUNT = 0.5
 
 
 @dataclass
 class RetrievalPlan:
     """One batch's regime decision plus the evidence it was made on.
 
-    ``frags_planned`` is filled in by the executing retriever (zero until
-    then, and for the full-scan regime).
+    The ``frags_*`` counters are filled in by the executing retriever (zero
+    until then): ``frags_planned`` is the batch's full fragment count,
+    ``frags_pruned`` how many the pre-launch threshold compaction removed,
+    ``frags_skipped`` how many more the in-kernel board test skipped.
     """
 
-    regime: str             # "blocked" | "gathered"
+    regime: str             # "blocked" | "gathered" | "pruned"
     sum_df: int             # Σ df over the batch's unique tokens
     nnz: int                # the shard's posting count (full-scan work)
     work_ratio: float       # nnz / max(sum_df, 1)
     crossover: float        # threshold used
     forced: bool            # True when the operator pinned the regime
+    plan: str = "host"      # where the fragment table is built
+    survivor_frac: float | None = None  # pruning-work estimate fed to auto
     frags_planned: int = 0
+    frags_pruned: int = 0
+    frags_skipped: int = 0
 
 
 def plan_retrieval(sum_df: int, nnz: int, *, regime: str = "auto",
-                   crossover: float | None = None) -> RetrievalPlan:
-    """Pick full-scan vs gathered for one batch (free — no device work).
+                   crossover: float | None = None,
+                   plan: str = "host",
+                   survivor_frac: float | None = None) -> RetrievalPlan:
+    """Pick full-scan vs gathered vs pruned for one batch (free — no
+    device work).
 
-    ``regime="blocked"``/``"gathered"`` force that regime (the plan still
-    records the evidence); ``"auto"`` compares modeled per-batch costs:
-    blocked ``nnz`` against gathered ``crossover × Σ df``. A batch with no
-    postings at all is trivially gathered; a cost tie picks gathered.
+    ``regime="blocked"``/``"gathered"``/``"pruned"`` force that regime (the
+    plan still records the evidence); ``"auto"`` compares modeled costs:
+
+    * blocked   — ``nnz``;
+    * gathered  — ``crossover × Σ df``;
+    * pruned    — the gathered cost × ``survivor_frac / PRUNE_DISCOUNT``
+      (only when the caller supplies ``survivor_frac``).
+
+    A batch with no postings is trivially gathered. Cost ties keep the
+    earlier regime (gathered over blocked, either over pruned).
+    ``plan="device"`` scales the DEFAULT crossover by
+    :data:`DEVICE_PLAN_DISCOUNT` (an explicit ``crossover`` is used
+    verbatim).
     """
-    if regime not in ("auto", "blocked", "gathered"):
+    if regime not in ("auto", "blocked", "gathered", "pruned"):
         raise ValueError(f"unknown regime {regime!r}")
-    c = DEFAULT_CROSSOVER if crossover is None else float(crossover)
+    if plan not in ("host", "device"):
+        raise ValueError(f"unknown plan mode {plan!r}")
+    if crossover is None:
+        c = DEFAULT_CROSSOVER * (DEVICE_PLAN_DISCOUNT if plan == "device"
+                                 else 1.0)
+    else:
+        c = float(crossover)
     ratio = nnz / max(sum_df, 1)
     if regime != "auto":
         chosen, forced = regime, True
+    elif sum_df == 0:
+        chosen, forced = "gathered", False
     else:
-        chosen = "gathered" if c * sum_df <= nnz else "blocked"
+        costs = {"gathered": c * sum_df, "blocked": float(nnz)}
+        if survivor_frac is not None:
+            costs["pruned"] = (c * sum_df * float(survivor_frac)
+                               / PRUNE_DISCOUNT)
+        # first-listed wins ties
+        chosen = min(costs, key=lambda r: (costs[r],
+                                           list(costs).index(r)))
         forced = False
     return RetrievalPlan(regime=chosen, sum_df=int(sum_df), nnz=int(nnz),
                          work_ratio=float(ratio), crossover=c,
-                         forced=forced)
+                         forced=forced, plan=plan,
+                         survivor_frac=survivor_frac)
 
 
 def validate_query_batch(query_tokens, n_vocab: int, *,

@@ -6,13 +6,17 @@ tensor), the twin, and a launch counter. Sources live in ``csrc/`` and are
 built by ``_build`` at first use.
 
 Kernels:
-  bm25_gather_score — K1, resident gather→score→top-k (gathered regime)
+  bm25_gather_score — K1, resident gather→score→top-k (gathered regime),
+                      and K3, the same with the block-max skip (pruned)
   bm25_block_score  — K2, fused full-scan score→top-k (full-scan regime)
 """
 
 from . import bm25_block_score, bm25_gather_score
-from .ops import bm25_retrieve_blocked, bm25_retrieve_resident
+from .ops import (bm25_retrieve_blocked, bm25_retrieve_resident,
+                  bm25_retrieve_resident_pruned)
 
-COUNTERS = (bm25_gather_score.LAUNCHES, bm25_block_score.LAUNCHES)
+COUNTERS = (bm25_gather_score.LAUNCHES, bm25_block_score.LAUNCHES,
+            bm25_gather_score.LAUNCHES_PRUNED)
 
-__all__ = ["COUNTERS", "bm25_retrieve_blocked", "bm25_retrieve_resident"]
+__all__ = ["COUNTERS", "bm25_retrieve_blocked", "bm25_retrieve_resident",
+           "bm25_retrieve_resident_pruned"]

@@ -12,7 +12,8 @@ import torch
 
 from ..core.retrieval import rank_order, splice_default_docs
 from .bm25_block_score import bm25_block_score_topk
-from .bm25_gather_score import bm25_resident_score_topk
+from .bm25_gather_score import (bm25_resident_score_topk,
+                                bm25_resident_score_topk_pruned)
 
 
 def bm25_retrieve_blocked(token_ids, local_doc, scores, uniq_tokens,
@@ -63,3 +64,26 @@ def bm25_retrieve_resident(desc, weights, doc_ids_res, scores_res, def_ids,
     ids, mvals = splice_default_docs(vals.T, gids.T, kk, n_docs,
                                      default_ids=def_ids)
     return ids, mvals + nonocc_shift[:, None]
+
+
+def bm25_retrieve_resident_pruned(desc, weights, doc_ids_res, scores_res,
+                                  bounds, def_ids, nonocc_shift, *,
+                                  block_size: int, frag: int, k: int,
+                                  n_docs: int):
+    """Pruned-regime resident retrieval: ``(ids, scores, skipped)``.
+
+    :func:`bm25_retrieve_resident` with the block-max skip (K3): ``desc``
+    is the threshold-COMPACTED fragment table, ``bounds`` the batch's
+    ``[nb, B]`` block upper bounds. ``def_ids`` MUST come from
+    the UNPRUNED visited-block set: a pruned block's documents score below
+    the threshold, not zero, so they are neither candidates nor defaults.
+    ``skipped`` is K3's in-kernel skip count (a 0-d tensor). The
+    ``(ids, scores)`` board equals the unpruned path's on the same batch.
+    """
+    kk = min(k, n_docs)
+    vals, gids, skipped = bm25_resident_score_topk_pruned(
+        desc, weights, bounds, doc_ids_res, scores_res,
+        block_size=block_size, frag=frag, k=kk, n_docs=n_docs)
+    ids, mvals = splice_default_docs(vals.T, gids.T, kk, n_docs,
+                                     default_ids=def_ids)
+    return ids, mvals + nonocc_shift[:, None], skipped

@@ -15,6 +15,7 @@ arrays are the gathered regime's layout: the per-batch fragment table
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -287,6 +288,250 @@ def fragment_plan(index, uniq_tokens: np.ndarray, *, block_size: int,
                         frag)
 
 
+# -- block-max bounds (the pruned regime's build-time byproduct) -------------
+#
+# Every posting's final contribution is known at build time, so the
+# per-(token, doc-block) maximum is one ``np.maximum.reduceat`` over the CSC
+# run boundaries. The table is clamped at zero (a document MISSING a
+# posting contributes exactly 0, and robertson's negative-IDF differentials
+# never bound anything below zero), which makes the bound valid on all five
+# variants:
+#
+#     score(d in block b, q) = Σ_t w_t · s(t, d)  ≤  Σ_t w_t · bmax[t, b]
+#
+# for nonnegative query weights w. The pruned regime compares that bound with
+# a per-query threshold (a REAL document's full score, so a certified lower
+# bound on the final k-th score) and skips every fragment whose block cannot
+# alter the board.
+
+_BOUND_SLACK = 1e-3   # relative inflation covering f32 kernel accumulation
+_BOUND_ABS = 1e-6     # absolute floor so equal-to-zero bounds stay strict
+
+
+@dataclass
+class BlockMaxTable:
+    """Dense per-(token, doc-block) score upper bounds, host + device.
+
+    ``host[t, b]`` bounds the stored (shifted) score any document of block
+    ``b`` can receive from token ``t``, clamped at 0. The column dimension
+    is pow2-bucketed (``nb_pad``); columns ≥ ``n_blocks`` are zero.
+
+    ``quantized=True`` stores u8 codes with a PER-TOKEN scale, CEIL-quantized
+    (``dequant ≥ true max``) so the bound stays conservative; the auto
+    builder picks u8 whenever the f32 table would exceed a quarter of the
+    posting bytes. ``device``/``scale_dev`` are the same table and scales as
+    torch tensors on the index's device (uploaded once, counted as
+    descriptor traffic); ``build_s`` is the host seconds the build took.
+    """
+
+    host: np.ndarray        # [V, nb_pad] float32, or uint8 codes
+    scale: np.ndarray       # [V] f32 per-token dequant scale (1s for f32)
+    quantized: bool
+    block_size: int
+    n_blocks: int           # true block count (before pow2 padding)
+    nb_pad: int
+    over_budget: bool       # even u8 exceeded the ≤1/4-posting-bytes target
+    device: torch.Tensor = None     # [V, nb_pad] on the index's device
+    scale_dev: torch.Tensor = None  # [V] f32 on the index's device
+    build_s: float = 0.0
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.host.nbytes
+                   + (self.scale.nbytes if self.quantized else 0))
+
+    def rows(self, tokens: np.ndarray) -> np.ndarray:
+        """Dequantized f32 bound rows for ``tokens`` (clipped to range)."""
+        safe = np.clip(np.asarray(tokens, dtype=np.int64), 0,
+                       self.host.shape[0] - 1)
+        r = self.host[safe].astype(np.float32)
+        return r * self.scale[safe][:, None] if self.quantized else r
+
+
+def build_block_max(index, *, block_size: int, dtype: str = "auto",
+                    device=None) -> BlockMaxTable:
+    """One vectorized pass CSC → block-max table (the reference's table).
+
+    The CSC invariant (postings sorted by token, then doc id) makes every
+    (token, doc-block) pair a contiguous run of the posting stream, so the
+    per-run maxima are one ``np.maximum.reduceat`` over the run boundaries.
+
+    ``dtype``: ``"f32"`` / ``"u8"`` force the storage; ``"auto"`` picks f32
+    when it fits the ≤1/4-posting-bytes budget, else the u8 ceil-quantized
+    form (kept even when it too overflows the budget: ``over_budget``).
+
+    The u8 codes are computed from the runs alone: an element no run
+    touches is 0 and quantizes to code 0, so the dense f32 table (3.3 GB at
+    2M docs × 200k tokens) and its int64 codes are never materialized. Each
+    code is the same f32 division, ceil and clip as the reference's dense
+    pass, so the table is byte-identical to it. ``device`` (if given)
+    receives the table and scales through :func:`put_descriptor_array`.
+    """
+    if dtype not in ("auto", "f32", "u8"):
+        raise ValueError(f"unknown block-max dtype {dtype!r}")
+    t0 = time.perf_counter()
+    v = int(index.n_vocab)
+    n_docs = int(index.doc_lens.size)
+    n_blocks = max(1, -(-n_docs // block_size))
+    nb_pad = bucket_pow2(n_blocks, floor=8)
+    nnz = int(index.doc_ids.size)
+    run_tok = run_blk = np.zeros(0, np.int64)
+    run_max = np.zeros(0, np.float32)
+    if nnz:
+        df = np.diff(index.indptr)
+        tok = np.repeat(np.arange(v, dtype=np.int64), df)
+        blk = index.doc_ids.astype(np.int64) // block_size
+        new = np.empty(nnz, dtype=bool)
+        new[0] = True
+        new[1:] = (tok[1:] != tok[:-1]) | (blk[1:] != blk[:-1])
+        run_at = np.flatnonzero(new)
+        # clamp: docs without the posting contribute 0, so the bound is
+        # max(0, run max) — also neutralizes negative-IDF differentials
+        run_max = np.maximum(np.maximum.reduceat(index.scores, run_at), 0.0)
+        run_tok, run_blk = tok[run_at], blk[run_at]
+        del tok, blk, new, run_at
+    posting_budget = nnz * 8 // 4            # doc_ids i32 + scores f32
+    f32_bytes = v * nb_pad * 4
+    if dtype == "auto":
+        dtype = "f32" if f32_bytes <= posting_budget else "u8"
+    if dtype == "u8":
+        # PER-TOKEN scales: each row quantizes against its own maximum
+        # (runs are token-sorted: one reduceat over the token boundaries)
+        mx = np.zeros(v, np.float32)
+        if run_tok.size:
+            at = np.flatnonzero(np.r_[True, run_tok[1:] != run_tok[:-1]])
+            mx[run_tok[at]] = np.maximum.reduceat(run_max, at)
+        scale = np.where(mx > 0, mx / 255.0, 1.0).astype(np.float32)
+        codes = np.ceil(run_max / scale[run_tok]).astype(np.int64)
+        host = np.zeros((v, nb_pad), np.uint8)
+        host[run_tok, run_blk] = np.clip(codes, 0, 255).astype(np.uint8)
+        quantized = True
+    else:
+        host = np.zeros((v, nb_pad), dtype=np.float32)
+        host[run_tok, run_blk] = run_max
+        scale, quantized = np.ones(v, np.float32), False
+    bm = BlockMaxTable(host=host, scale=scale, quantized=quantized,
+                       block_size=block_size, n_blocks=n_blocks,
+                       nb_pad=nb_pad,
+                       over_budget=host.nbytes > max(posting_budget, 1))
+    if device is not None:
+        bm.device = put_descriptor_array(host, device=device)
+        bm.scale_dev = put_descriptor_array(scale, device=device)
+    bm.build_s = time.perf_counter() - t0
+    return bm
+
+
+def block_upper_bounds(bmax: BlockMaxTable, uniq_tab: np.ndarray,
+                       weights: np.ndarray) -> np.ndarray:
+    """Per-(block, query) score upper bounds for one packed batch.
+
+    ``uniq_tab``/``weights`` are the kernel's own query operands (sentinel
+    rows carry zero weight, so clipping their token id is harmless).
+    Computed in f64 and inflated by ``_BOUND_SLACK`` so the f32 kernel's
+    accumulation rounding can never push a real score past its bound.
+    Returns ``[nb_pad, B]`` float32.
+    """
+    rows = bmax.rows(uniq_tab).astype(np.float64)        # [U, nb_pad]
+    ub = rows.T @ weights.astype(np.float64)             # [nb_pad, B]
+    return (ub * (1.0 + _BOUND_SLACK) + _BOUND_ABS).astype(np.float32)
+
+
+def prune_fragment_plan(fp: FragmentPlan, keep_blocks: np.ndarray
+                        ) -> FragmentPlan:
+    """Compact a fragment table to the fragments of surviving blocks.
+
+    ``keep_blocks`` is a boolean mask over block ids. Pruning is
+    BLOCK-granular, so surviving fragments keep their relative order and
+    their first/last flags. ``vis_blocks`` stays UNPRUNED — the default
+    splice must keep treating pruned blocks as visited (their documents
+    score below the threshold, not zero) — while ``sum_df`` reflects the
+    surviving work and ``nf_pad`` re-buckets.
+    """
+    n = fp.n_frags
+    d = fp.desc[:, :n]
+    keep = keep_blocks[d[3]] if n else np.zeros(0, dtype=bool)
+    sel = d[:, keep]
+    nf = int(sel.shape[1])
+    nf_pad = bucket_pow2(max(nf, 1), floor=8)
+    desc = np.zeros((6, nf_pad), np.int32)
+    desc[:, :nf] = sel
+    return FragmentPlan(desc, fp.vis_blocks, nf, int(sel[1].sum()),
+                        fp.block_size, fp.frag)
+
+
+def estimate_prune_survivors(bmax: BlockMaxTable, uniq_tab: np.ndarray,
+                             weights: np.ndarray, *, k: int,
+                             b_true: int | None = None
+                             ) -> tuple[float, np.ndarray]:
+    """Host estimate of the pruning win, BEFORE any device work.
+
+    Each block's best single-term score ``max_t w_t · bmax[t, b]``
+    approximates a score some document of the block reaches, so the k-th
+    largest across blocks approximates the final k-th score from below.
+    Survivors are the visited blocks whose full upper bound reaches the
+    estimate for any query; the fraction is over visited blocks. Only the
+    regime CHOICE consumes it — execution stays exact either way.
+
+    Columns past ``b_true`` are pow2 padding: excluded here, their bound
+    columns returned as -inf (a padding column's trivial threshold would
+    veto every prune; a REAL empty query keeps that veto on purpose).
+
+    Returns ``(survivor_frac, ub [nb_pad, B])``; host planning reuses the
+    bounds so the product is paid once per batch.
+    """
+    ub = block_upper_bounds(bmax, uniq_tab, weights)
+    b = weights.shape[1]
+    if b_true is not None and b_true < b:
+        ub[:, b_true:] = -np.inf
+    else:
+        b_true = b
+    if b_true == 0:
+        return 1.0, ub
+    visited = ub[:, :b_true].max(axis=1) > 2.0 * _BOUND_ABS
+    nv = int(visited.sum())
+    if nv == 0:
+        return 1.0, ub
+    rows = bmax.rows(uniq_tab)                           # [U, nb_pad]
+    kb = min(k, nv)
+    tau_hat = np.empty(b_true, dtype=np.float32)
+    for q in range(b_true):                              # B is small
+        lb = (rows * weights[:, q:q + 1]).max(axis=0)    # [nb_pad]
+        lb = lb[visited]
+        tau_hat[q] = np.partition(lb, lb.size - kb)[lb.size - kb]
+    surv = visited & (ub[:, :b_true] >= tau_hat[None, :]).any(axis=1)
+    return float(surv.sum() / nv), ub
+
+
+def seed_block_budget(k: int) -> int:
+    """How many highest-bound blocks the threshold-seeding pass scores.
+
+    The k winners can sit in up to k distinct blocks, so a tight seed
+    threshold wants ~k blocks; the cap bounds the re-scored seed work for
+    large k (the in-kernel skip refines whatever the seed pass missed).
+    """
+    return max(2, min(16, k))
+
+
+def select_seed_blocks(ub: np.ndarray, vis_blocks: np.ndarray, *,
+                       k: int, block_size: int) -> np.ndarray:
+    """Threshold-seeding block choice: PER QUERY, the visited blocks with
+    the highest upper bounds (:func:`seed_block_budget` each, unioned
+    across the batch). Returns a boolean keep-mask over block ids, shaped
+    like ``ub``'s block axis."""
+    keep = np.zeros(ub.shape[0], dtype=bool)
+    if vis_blocks.size == 0:
+        return keep
+    n_seed = min(int(vis_blocks.size), seed_block_budget(k))
+    score = ub[vis_blocks]                               # [nv, B]
+    for q in range(score.shape[1]):                      # B is small
+        if not np.isfinite(score[:, q]).any():
+            continue                                     # padding column
+        top = vis_blocks[np.argsort(-score[:, q],
+                                    kind="stable")[:n_seed]]
+        keep[top] = True
+    return keep
+
+
 @dataclass
 class DeviceIndex:
     """Device-resident eager index: posting arrays uploaded ONCE per build.
@@ -300,8 +545,13 @@ class DeviceIndex:
     ``df``) the planner and fragment compiler need.
 
     Pass ``with_blocked`` / ``with_csc`` False to drop the regime you will
-    never force. Block-max tables, doc-id reordering, donor reuse and
-    snapshots are later slices of the port.
+    never force. ``with_bmax`` (default: ``with_csc``) adds the pruned
+    regime's :class:`BlockMaxTable` (``bmax_dtype`` as in
+    :func:`build_block_max`). With device fragment planning
+    (``sparse.fragment_device``) nothing on the serving path reads the host
+    CSC copy, so ``host_arrays="drop"`` releases it (``host`` becomes None;
+    the O(V) ``indptr``/``df`` metadata stays). Doc-id reordering, donor
+    reuse and snapshots are later slices of the port.
     """
 
     host: object            # BM25Index — descriptor metadata
@@ -321,12 +571,19 @@ class DeviceIndex:
     blk_tok: torch.Tensor = None       # [nb, p_pad] int32 (or None)
     blk_loc: torch.Tensor = None
     blk_sc: torch.Tensor = None
+    bmax: BlockMaxTable = None         # pruned regime's bounds (or None)
 
     @staticmethod
     def build(index, *, device, block_size: int = 512, tile: int = 512,
               frag: int = 512, with_blocked: bool = True,
-              with_csc: bool = True) -> "DeviceIndex":
+              with_csc: bool = True, with_bmax: bool | None = None,
+              bmax_dtype: str = "auto",
+              host_arrays: str = "keep") -> "DeviceIndex":
         """Upload a shard's resident layouts to ``device``."""
+        if host_arrays not in ("keep", "drop"):
+            raise ValueError(f"unknown host_arrays mode {host_arrays!r}")
+        if with_bmax is None:
+            with_bmax = with_csc
         nnz = int(index.doc_ids.size)
         n_docs = int(index.doc_lens.size)
         di = DeviceIndex(
@@ -359,6 +616,11 @@ class DeviceIndex:
             di.tile_p = min(tile, bp.nnz_pad)
             di.blk_tok, di.blk_loc, di.blk_sc = put_posting_arrays(
                 bp.token_ids, bp.local_doc, bp.scores, device=di.device)
+        if with_bmax and with_csc:
+            di.bmax = build_block_max(index, block_size=block_size,
+                                      dtype=bmax_dtype, device=di.device)
+        if host_arrays == "drop":
+            di.host = None               # serving must never read it again
         return di
 
     def sum_df(self, uniq_tokens: np.ndarray) -> int:

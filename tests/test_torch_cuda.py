@@ -8,7 +8,10 @@ GPU (a CUDA kernel has no CPU mode). On a machine with one, run
 The kernels run on CUDA copies of the inputs, the twins on the CPU
 tensors, and results must agree bit for bit: the kernels add in the same
 fixed order as the CPU twins' ``index_add_`` and round each product and
-sum separately. The file imports neither jax nor ``repro``, so it runs on
+sum separately. K3 is held in the columns whose bounds are finite (in
+padding columns the kernel decides per B-tile, the twin over the whole
+batch); the device planner on the card must equal the host plan byte for
+byte, and the pruned retriever on the card the CPU path. The file imports neither jax nor ``repro``, so it runs on
 a machine that has only the port's dependencies.
 """
 
@@ -21,9 +24,11 @@ from repro_torch.core import BM25Params, build_index
 from repro_torch.core.scoring import pad_queries
 from repro_torch.kernels import bm25_block_score as k2
 from repro_torch.kernels import bm25_gather_score as k1
+from repro_torch.core.retrieval import default_doc_ids
 from repro_torch.serve import DeviceRetriever
-from repro_torch.sparse.block_csr import (DeviceIndex, fragment_plan,
-                                          pack_query_batch)
+from repro_torch.sparse.block_csr import (DeviceIndex, block_upper_bounds,
+                                          fragment_plan, pack_query_batch)
+from repro_torch.sparse.fragment_device import plan_fragments_device
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +89,123 @@ def test_retriever_on_cuda_equals_cpu_twin_path(cuda_device):
                                  device="cpu").retrieve_batch(queries, 7)
         np.testing.assert_array_equal(on_gpu.ids, on_cpu.ids)
         np.testing.assert_array_equal(on_gpu.scores, on_cpu.scores)
+
+
+@pytest.mark.parametrize("method", ["robertson", "lucene", "bm25l"])
+@pytest.mark.parametrize("k", [1, 7, 16])
+def test_k3_bitwise_equal_twin_and_k1(cuda_device, method, k):
+    """K3 on the card equals its CPU twin, and K1 on the card, in every
+    column whose bounds are finite."""
+    rng = np.random.default_rng(100 + k)
+    corpus = make_corpus(rng, n_docs=1000, n_vocab=60, max_len=25)
+    idx = build_index(corpus, 60, params=BM25Params(method=method))
+    di = DeviceIndex.build(idx, device="cpu", block_size=16, tile=16,
+                           frag=8, with_blocked=False)
+    qs = [rng.integers(0, 60, size=rng.integers(0, 6)).astype(np.int32)
+          for _ in range(40)]
+    toks, wts, uniq = pad_queries(qs, 8, return_uniq=True)
+    tab, w = pack_query_batch(toks, wts, 64, uniq=uniq)
+    w = np.concatenate([w, np.zeros((64, 8), np.float32)], axis=1)
+    fp = fragment_plan(idx, uniq, block_size=16, frag=8)
+    ub = block_upper_bounds(di.bmax, tab, w)
+    ub[:, 40:] = -np.inf                             # eight padding columns
+    ops = (torch.as_tensor(fp.desc), torch.as_tensor(w),
+           torch.as_tensor(ub), di.csc_doc_ids, di.csc_scores)
+    kw = dict(block_size=16, frag=8, k=k, n_docs=idx.n_docs)
+    ref = k1.bm25_resident_score_topk_pruned(*ops, **kw)
+    n0 = k1.LAUNCHES_PRUNED.n
+    got = k1.bm25_resident_score_topk_pruned(
+        *(t.to(cuda_device) for t in ops), **kw)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES_PRUNED.n == n0 + 1
+    plain = k1.bm25_resident_score_topk(
+        *(t.to(cuda_device) for t in ops[:2] + ops[3:]), **kw)
+    for a in (ref, plain):
+        assert torch.equal(_bits(got[0])[:, :40], _bits(a[0])[:, :40])
+        assert torch.equal(_bits(got[1])[:, :40], _bits(a[1])[:, :40])
+
+
+def _late_saturating_index(rng):
+    """Loose decoy blocks 0-1, the tight winner in block 2, and twenty
+    victim blocks the board beats once block 2 has folded."""
+    def filler():
+        return rng.integers(5, 40, size=8).astype(np.int32)
+
+    docs = [filler() for _ in range(23 * 16)]
+
+    def setdoc(i, tf0=0, tf1=0):
+        docs[i] = np.concatenate([np.zeros(tf0, np.int32),
+                                  np.ones(tf1, np.int32), filler()])
+
+    for b in (0, 1):
+        setdoc(b * 16, tf0=25)
+        setdoc(b * 16 + 1, tf1=25)
+    setdoc(2 * 16, tf0=15, tf1=15)
+    for b in range(3, 23):
+        setdoc(b * 16, tf0=4)
+        setdoc(b * 16 + 1, tf1=4)
+    return build_index(docs, 40, params=BM25Params())
+
+
+def test_k3_one_cta_per_tile_counts_as_twin(cuda_device, monkeypatch):
+    """With one CTA per B-tile K3 walks the table in order, as the twin
+    does: the same board and the same skip count, above half the table."""
+    idx = _late_saturating_index(np.random.default_rng(0))
+    di = DeviceIndex.build(idx, device="cpu", block_size=16, tile=16,
+                           frag=8, with_blocked=False)
+    toks, wts, uniq = pad_queries([np.array([0, 1], np.int32)], 8,
+                                  return_uniq=True)
+    tab, w = pack_query_batch(toks, wts, 8, uniq=uniq)
+    fp = fragment_plan(idx, uniq, block_size=16, frag=8)
+    ub = block_upper_bounds(di.bmax, tab, w)
+    ops = (torch.as_tensor(fp.desc), torch.as_tensor(w),
+           torch.as_tensor(ub), di.csc_doc_ids, di.csc_scores)
+    kw = dict(block_size=16, frag=8, k=1, n_docs=idx.n_docs)
+    ref = k1.bm25_resident_score_topk_pruned(*ops, **kw)
+    monkeypatch.setattr(k1, "_CTAS", 1)
+    got = k1.bm25_resident_score_topk_pruned(
+        *(t.to(cuda_device) for t in ops), **kw)
+    assert torch.equal(_bits(got[0]), _bits(ref[0]))
+    assert torch.equal(_bits(got[1]), _bits(ref[1]))
+    assert int(got[2]) == int(ref[2]) > fp.n_frags // 2
+
+
+@pytest.mark.parametrize("profile", ["head", "dense"])
+def test_device_planner_on_card_equals_host_plan(cuda_device, profile):
+    rng = np.random.default_rng(11)
+    corpus = make_corpus(rng, n_docs=3000, n_vocab=80, max_len=30)
+    idx = build_index(corpus, 80, params=BM25Params())
+    di = DeviceIndex.build(idx, device=cuda_device, block_size=64, tile=16,
+                           frag=8, with_blocked=False, with_bmax=False)
+    uniq = (np.arange(80, dtype=np.int64) if profile == "dense"
+            else np.unique(rng.integers(0, 10, size=6)).astype(np.int64))
+    tab = np.full(128, np.iinfo(np.int32).max, np.int32)
+    tab[:uniq.size] = uniq
+    fp = fragment_plan(idx, uniq, block_size=64, frag=8)
+    desc, dids, nf_pad = plan_fragments_device(di, tab, sum_df=fp.sum_df,
+                                               k=9, block_size=64)
+    host = fragment_plan(idx, uniq, block_size=64, frag=8,
+                         nf_bucket=nf_pad)
+    assert torch.equal(desc.cpu(), torch.as_tensor(host.desc))
+    assert torch.equal(dids.cpu(), torch.as_tensor(default_doc_ids(
+        host.vis_blocks, 9, idx.n_docs, 64)))
+
+
+def test_pruned_retriever_on_cuda_equals_cpu_path(cuda_device):
+    rng = np.random.default_rng(6)
+    corpus = make_corpus(rng, n_docs=700, n_vocab=80, max_len=30)
+    idx = build_index(corpus, 80, params=BM25Params(method="bm25l"))
+    queries = [rng.integers(0, 80, size=5).astype(np.int32)
+               for _ in range(9)] + [np.array([3], np.int32)]
+    for k in (1, 7):
+        on_gpu = DeviceRetriever(idx, regime="pruned", block_size=64,
+                                 device=cuda_device)
+        on_cpu = DeviceRetriever(idx, regime="pruned", block_size=64,
+                                 plan="device", device="cpu")
+        assert on_gpu.plan_mode == "device"
+        a = on_gpu.retrieve_batch(queries, k)
+        b = on_cpu.retrieve_batch(queries, k)
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.scores.view(np.int32),
+                                      b.scores.view(np.int32))
+        assert a.plan.frags_pruned == b.plan.frags_pruned

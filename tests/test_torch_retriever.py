@@ -1,11 +1,11 @@
 """The port's slice end to end on ``device="cpu"``: DeviceRetriever exact.
 
-The retriever's query path — pack, plan, the gathered (K1) or full-scan
-(K2) regime, default splice and shift — runs here on the CPU through the
-kernels' plain twins, and every board must be exact against the port's
-``ScipyBM25`` oracle (atol 1e-4, as the reference's device tests hold
-theirs), for all variants, both regimes and ``auto``, k in {1, 7,
-≥ n_docs}, empty queries and robertson's negative IDF.
+The retriever's query path — pack, plan, the gathered (K1), pruned (K1
+seed + K3) or full-scan (K2) regime, default splice and shift — runs here
+on the CPU through the kernels' plain twins, and every board must be exact
+against the port's ``ScipyBM25`` oracle (atol 1e-4, as the reference's
+device tests hold theirs), for all variants, every regime and ``auto``,
+k in {1, 7, ≥ n_docs}, empty queries and robertson's negative IDF.
 """
 
 import numpy as np
@@ -35,7 +35,7 @@ def _check_exact(idx, queries, ids, vals, k, atol=1e-4):
 
 
 @pytest.mark.parametrize("method", ALL_VARIANTS)
-@pytest.mark.parametrize("regime", ["auto", "gathered", "blocked"])
+@pytest.mark.parametrize("regime", ["auto", "gathered", "blocked", "pruned"])
 def test_slice_exact_against_scipy_oracle(method, regime, rng):
     corpus = make_corpus(rng, n_docs=90, n_vocab=64, max_len=20)
     idx = build_index(corpus, 64, params=BM25Params(method=method))
@@ -131,12 +131,14 @@ def test_no_gpu_without_device_raises(monkeypatch):
         DeviceRetriever(idx, device="cuda")
 
 
-@pytest.mark.parametrize("kwargs", [dict(regime="pruned"),
+@pytest.mark.parametrize("kwargs", [dict(regime="pruned", gather="host"),
                                     dict(gather="host"),
-                                    dict(plan="device"),
+                                    dict(plan="device", gather="host"),
+                                    dict(host_arrays="drop", plan="host"),
                                     dict(regime="nope"),
                                     dict(gather="nope"),
-                                    dict(plan="nope")])
+                                    dict(plan="nope"),
+                                    dict(host_arrays="nope")])
 def test_unported_and_unknown_modes_raise(kwargs):
     idx = build_index([np.array([0, 1], np.int32)], 2)
     with pytest.raises(RetrievalConfigError):
@@ -153,8 +155,9 @@ def test_forced_regime_needs_its_layout(rng):
     with pytest.raises(ResidencyError):
         DeviceRetriever(idx, regime="blocked", **SMALL).retrieve_batch(
             q, 3, regime="gathered")
-    with pytest.raises(RetrievalConfigError):
-        DeviceRetriever(idx, **SMALL).retrieve_batch(q, 3, regime="pruned")
+    with pytest.raises(ResidencyError):
+        DeviceRetriever(idx, regime="blocked", **SMALL).retrieve_batch(
+            q, 3, regime="pruned")
 
 
 def test_non_finite_board_raises_score_integrity(monkeypatch, rng):
