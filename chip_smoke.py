@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's resident BM25 query path on one GPU and check it.
+"""Drive the PyTorch port's BM25 query path and its ladder on one GPU.
 
     python3 chip_smoke.py [--n-docs N] [--seed S] [--batches N]
 
@@ -10,14 +10,15 @@ Phases (any failure exits non-zero; nothing is caught):
 2. kernel vs twin at moderate shapes (100,003 docs), three variants
    (robertson's negative IDF among them), k in {1, 7, 100} and B in
    {8, 64}: K1 (``bm25_resident_score_topk``), K2
-   (``bm25_block_score_topk``) and K3 (``bm25_resident_score_topk_pruned``,
+   (``bm25_block_score_topk``), K3 (``bm25_resident_score_topk_pruned``,
    on the batch's whole table and its block bounds, so that its in-kernel
    skip does the pruning; the B = 8 batches are one-token queries, whose
-   bounds prune, and K3 must skip somewhere) on the card against their plain torch twins on
-   CPU copies: bitwise equal; K3 also bitwise equal to K1 on the card on
-   the same table; the device
-   fragment planner on the card byte-equal to the host ``fragment_plan``
-   and ``default_doc_ids``;
+   bounds prune, and K3 must skip somewhere) and K4
+   (``bm25_gather_score_topk``, on the batch's host gather, per chunk and
+   two-level) on the card against their plain torch twins on CPU copies:
+   bitwise equal, all columns; K3 also bitwise equal to K1 on the card on
+   the same table; the device fragment planner on the card byte-equal to
+   the host ``fragment_plan`` and ``default_doc_ids``;
 3. full width (``repro.configs.bm25s``: 2,097,152 docs, V = 200,000,
    ~120 unique tokens a doc, doc block 512, batches of 256 queries of at
    most 32 tokens, k = 100, lucene k1 = 1.5, b = 0.75; queries of five
@@ -27,20 +28,37 @@ Phases (any failure exits non-zero; nothing is caught):
    ``auto``, ``gathered``, ``blocked`` and ``pruned``; every pruned board
    bitwise equal to the gathered board of the same batch, ``auto`` equal
    to the regime it chose; zero posting AND descriptor bytes after the
-   build, every launch counter > 0, and sampled queries of every regime
-   exact against the port's ``ScipyBM25`` (scores within atol 1e-4, ids
-   carrying their oracle scores, so ties may come in either order);
-4. at the full-width shapes: the device planner timed with CUDA events
+   build, the launch counters of K1-K3 > 0, and sampled queries of every
+   regime exact against the port's ``ScipyBM25`` (scores within atol
+   1e-4, ids carrying their oracle scores, so ties may come in either
+   order);
+4. the degradation ladder at full width through the engine: the same
+   index cut into 4 shards of 524,288 documents on the one card, one
+   ``RetrievalEngine(scorer="auto", quorum=1.0)`` with every shard's entry
+   rung pinned at pruned, serving five batches of the same traffic: a
+   healthy one (pruned serves, no trail, not degraded), one with
+   ``kernel.resident_pruned`` armed (``nan_board``: pruned→resident), one
+   with the pruned and resident breakers tripped (the host rung: host
+   gather and K4), one with the host breaker tripped too (blocked) and one
+   with every device rung tripped (the oracle). Each shard's trail and the
+   engine's ``health()`` are printed; the rung that served is checked on
+   every shard, each batch's launch counter of its rung must grow, every
+   batch but the host rung's ships zero posting and descriptor bytes, all
+   four kernels launched, and 20 sampled queries of each batch are exact
+   against ``ScipyBM25`` on the whole index (as in phase 3);
+5. at the full-width shapes: the device planner timed with CUDA events
    beside the host ``fragment_plan`` (tables byte-equal) and profiled
    with ``torch.profiler``, ``torch.cummax`` and ``torch.cumsum`` timed
    over a stream of the planner's size, the host survivor estimate
-   timed; each kernel bitwise equal to its CPU twin on
-   the first 32 query columns (one B-tile; every column is scored on its
-   own), timed with CUDA events beside its twin on the card (atomics
-   there, so values agree within atol 1e-4 + rtol 1e-6, and where an id
-   differs from the twin's the kernel's id must carry its exact score from
-   the index), and the least time the card could take (bytes over
-   3.35 TB/s, FP32 operations over 67 TFLOP/s).
+   timed; each kernel bitwise equal to its CPU twin on the first 32 query
+   columns (one B-tile; every column is scored on its own), timed with
+   CUDA events beside its twin on the card (atomics there, so values agree
+   within atol 1e-4 + rtol 1e-6, and where an id differs from the twin's
+   the kernel's id must carry its exact score from the index), and the
+   least time the card could take (bytes over 3.35 TB/s, FP32 operations
+   over 67 TFLOP/s). K1-K3 at the single retriever's shapes; K4 at the
+   host rung's (shard 0's gather of the host-rung batch), beside the host
+   gather's own time.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last is the ``{"ok": true, ...}``
@@ -76,6 +94,22 @@ EXACT_ATOL = 1e-4              # boards vs ScipyBM25 (different sum order)
 ATOL, RTOL = 1e-4, 1e-6        # kernel vs twin on the card (atomics there)
 TWIN_COLS = 32                 # query columns held bitwise at full width
 REGIMES = ("auto", "gathered", "blocked", "pruned")
+N_SHARDS = 4                   # engine shards on the one card (phase 4)
+LADDER_SAMPLES = 20            # sampled queries held exact per ladder batch
+# the ladder batches: (rung that must serve, fault armed, breakers tripped
+# on every shard before the batch, added to the earlier ones)
+LADDER_STEPS = (
+    ("pruned", None, ()),
+    ("resident", {"site": "kernel.resident_pruned", "kind": "nan_board",
+                  "times": N_SHARDS, "seed": 3}, ()),
+    ("host", None, ("pruned", "resident")),
+    ("blocked", None, ("host",)),
+    ("oracle", None, ("blocked",)),
+)
+RUNG_KERNEL = {"pruned": "bm25_resident_score_topk_pruned",
+               "resident": "bm25_resident_score_topk",
+               "host": "bm25_gather_score_topk",
+               "blocked": "bm25_block_score_topk", "oracle": None}
 
 
 def check(ok, what: str) -> None:
@@ -140,7 +174,8 @@ def phase_kernels_vs_twins(seed: int) -> None:
     from repro_torch.serve import DeviceRetriever
     from repro_torch.sparse.block_csr import (DeviceIndex,
                                               block_upper_bounds,
-                                              fragment_plan)
+                                              fragment_plan,
+                                              gather_posting_runs)
     from repro_torch.sparse.fragment_device import plan_fragments_device
     rng = np.random.default_rng(seed)
     n_docs, n_vocab = 100_003, 30_000
@@ -208,6 +243,21 @@ def phase_kernels_vs_twins(seed: int) -> None:
                 oks[2] = oks[2] and bits_equal(one[0], ref[0]) \
                     and int(one[2]) == int(ref[2])
                 skipped += int(one[2])
+            # K4 on the batch's host gather, per chunk and two-level
+            gp = gather_posting_runs(idx, pk.uniq_batch, acc_block=DOC_BLOCK,
+                                     tile=DOC_BLOCK)
+            ops4 = tuple(torch.as_tensor(a) for a in (
+                gp.token_ids, gp.slot_ids, gp.scores, pk.uniq_tab,
+                pk.weights, gp.candidates))
+            k4_ok = True
+            for two_level in (False, True):
+                kw4 = dict(acc_block=DOC_BLOCK, k=k, two_level=two_level)
+                ref4 = k1.bm25_gather_score_topk(*ops4, **kw4)
+                got4 = k1.bm25_gather_score_topk(
+                    *(t.to(cuda) for t in ops4), **kw4)
+                torch.cuda.synchronize()
+                k4_ok = (k4_ok and bits_equal(got4[0], ref4[0])
+                         and bits_equal(got4[1], ref4[1]))
             # the device planner on the card against the host plan
             desc_d, dids_d, _ = plan_fragments_device(
                 di_cuda, pk.uniq_tab, sum_df=fp.sum_df, k=k,
@@ -216,12 +266,15 @@ def phase_kernels_vs_twins(seed: int) -> None:
                        and bits_equal(dids_d, torch.as_tensor(
                            default_doc_ids(fp.vis_blocks, k, n_docs,
                                            DOC_BLOCK))))
+            oks.append(k4_ok)
             print(f"[kernel-vs-twin] {method:9s} k={k:3d} B={b:2d} "
                   f"nf={fp.n_frags} sum_df={fp.sum_df} "
                   f"K3 twin skipped={int(ref[2])} card={int(got[2])} "
                   f"K1 bitwise={oks[0]} K2 bitwise={oks[1]} "
                   f"K3 bitwise={oks[2]} K3=K1 {oks[3]} "
-                  f"device plan=host plan {oks[4]}", flush=True)
+                  f"device plan=host plan {oks[4]} K4 bitwise "
+                  f"(per chunk and two-level, nc={gp.n_chunks}, "
+                  f"p_pad={gp.p_pad}) {oks[5]}", flush=True)
             check(all(oks), f"kernels bitwise equal to twins, device plan "
                             f"equal to host plan ({method}, k={k}, B={b})")
     print(f"[kernel-vs-twin] K3 with one CTA skipped {skipped} fragments "
@@ -323,6 +376,141 @@ def twin_bitwise(fn, ops, col_at, got, kw, what: str) -> bool:
     return ok
 
 
+def split_index(idx, n: int) -> list:
+    """Cut a whole-corpus index into ``n`` contiguous document ranges, the
+    shards ``build_sharded_indexes`` would build (global statistics, so
+    every score is unchanged): one mask a shard over the token-major
+    postings, which keeps each token's run in document order. The port's
+    ``reshard_index`` does the same with one global lexsort, a minute at
+    this size."""
+    from dataclasses import replace
+    tok = np.repeat(np.arange(idx.n_vocab, dtype=np.int32),
+                    np.diff(idx.indptr))
+    bounds = np.linspace(0, idx.doc_lens.size, n + 1).astype(np.int64)
+    shards = []
+    for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        m = (idx.doc_ids >= lo) & (idx.doc_ids < hi)
+        indptr = np.zeros(idx.n_vocab + 1, np.int64)
+        np.cumsum(np.bincount(tok[m], minlength=idx.n_vocab),
+                  out=indptr[1:])
+        shards.append(replace(
+            idx, indptr=indptr, doc_ids=(idx.doc_ids[m] - lo).astype(
+                np.int32), scores=idx.scores[m], doc_lens=idx.doc_lens[lo:hi],
+            n_docs=hi - lo, doc_offset=lo))
+    return shards
+
+
+def sampled_exact(oracle, qs, res, rng, n: int) -> float:
+    """``n`` sampled queries of a ``[B, k]`` result exact against the
+    oracle: the score vector within ``EXACT_ATOL`` of the oracle's top-k,
+    each id carrying its oracle score (ties may come in either order), no
+    id repeated. Returns the largest |score - oracle| seen."""
+    from repro_torch.core.retrieval import topk_numpy
+    worst = 0.0
+    for qi in rng.choice(len(qs), size=n, replace=False):
+        s = oracle.score(qs[qi])
+        _, ref_v = topk_numpy(s[None], TOP_K)
+        np.testing.assert_allclose(res.scores[qi], ref_v[0], rtol=0,
+                                   atol=EXACT_ATOL)
+        np.testing.assert_allclose(s[res.ids[qi]], res.scores[qi], rtol=0,
+                                   atol=EXACT_ATOL)
+        check(len(set(res.ids[qi].tolist())) == TOP_K, "distinct ids")
+        worst = max(worst, float(np.abs(res.scores[qi] - ref_v[0]).max()))
+    return worst
+
+
+def phase_ladder(idx, oracle, rng):
+    """Phase 4: the exact ladder at full width through the engine.
+
+    Returns ``(launches, shards, retrievers, host_rung_queries)``."""
+    import torch
+
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.serve import RetrievalEngine
+    from repro_torch.serve.faults import inject_faults
+    from repro_torch.sparse.block_csr import TRANSFERS, reset_transfer_stats
+    t0 = time.perf_counter()
+    shards = split_index(idx, N_SHARDS)
+    t_split = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = RetrievalEngine(shards, k=TOP_K, deadline_s=3600.0, quorum=1.0,
+                          scorer="auto",
+                          scorer_opts=dict(block_size=DOC_BLOCK, q_max=Q_MAX,
+                                           device="cuda"))
+    torch.cuda.synchronize()
+    print(f"[ladder] {N_SHARDS} shards of {shards[0].doc_lens.size} docs "
+          f"(split {t_split:.1f}s); engine built and warmed in "
+          f"{time.perf_counter() - t0:.1f}s, build {eng.last_build_stats}",
+          flush=True)
+    retrievers = [rt._scorer for rt in eng.runtimes]
+    for dr in retrievers:
+        check(dr.plan_mode == "device", 'shards resolve to plan="device"')
+        dr.regime = "pruned"            # the operator pins the entry rung
+    for c in COUNTERS:
+        c.reset()
+    host_qs = None
+    for rung, fault, trip in LADDER_STEPS:
+        qs = zipf_queries(rng, QUERY_BATCH, N_VOCAB)
+        for dr in retrievers:
+            for hop in trip:
+                dr.trip_breaker(hop, cooldown_s=3600.0)
+        before = {c.name: c.n for c in COUNTERS}
+        reset_transfer_stats()
+        t0 = time.perf_counter()
+        if fault is None:
+            res = eng.retrieve_batch(qs)
+        else:
+            with inject_faults(dict(fault)) as specs:
+                res = eng.retrieve_batch(qs)
+            check(specs[0].fired == N_SHARDS,
+                  f"the {fault['site']} fault fired on every shard")
+        ms = (time.perf_counter() - t0) * 1e3
+        grew = {c.name: c.n - before[c.name] for c in COUNTERS}
+        trails = [dr.last_plan.degradations for dr in retrievers]
+        served = [t[-1]["to"] if t else "pruned" for t in trails]
+        print(f"[ladder] rung={rung:8s} ms={ms:.1f} degraded={res.degraded}"
+              f" shards_answered={res.shards_answered} served={served} "
+              f"launches {grew} posting bytes {TRANSFERS.posting_bytes} "
+              f"descriptor bytes {TRANSFERS.descriptor_bytes}", flush=True)
+        print(f"[ladder] rung={rung:8s} shard 0 trail "
+              + json.dumps([{k: t[k] for k in ("from", "to", "error")}
+                            for t in trails[0]]), flush=True)
+        h = eng.health()
+        print(f"[ladder] rung={rung:8s} health " + json.dumps(
+            {"served": h["served"], "degraded": h["degraded"],
+             "faults": h["faults"],
+             "shards": [{"served": sh["served"], "degraded": sh["degraded"],
+                         "degradations": sh["degradations"]}
+                        for sh in h["shards"]]}), flush=True)
+        check(res.ids.shape == (QUERY_BATCH, TOP_K), "board shape")
+        check(np.isfinite(res.scores).all(), "finite board")
+        check(not res.degraded and res.shards_answered == N_SHARDS,
+              "every shard answered")
+        check(all(x == rung for x in served), f"{rung} served every shard")
+        if rung == "pruned":
+            check(not any(trails), "the healthy batch took no hop")
+        if RUNG_KERNEL[rung] is not None:
+            check(grew[RUNG_KERNEL[rung]] > 0,
+                  f"{RUNG_KERNEL[rung]} launched for the {rung} rung")
+        if rung == "host":
+            check(TRANSFERS.posting_bytes > 0, "the host rung ships postings")
+            host_qs = qs
+        else:
+            check(TRANSFERS.posting_bytes == 0
+                  and TRANSFERS.descriptor_bytes == 0,
+                  f"the {rung} rung ships no posting or descriptor bytes")
+        t0 = time.perf_counter()
+        worst = sampled_exact(oracle, qs, res, rng, LADDER_SAMPLES)
+        print(f"[ladder] rung={rung:8s} {LADDER_SAMPLES} sampled queries "
+              f"exact against ScipyBM25, max |score - oracle| {worst:.3g} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    launches = {c.name: c.n for c in COUNTERS}
+    print(f"[ladder] launches {launches}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched on the ladder path")
+    return launches, shards, retrievers, host_qs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=2_097_152)
@@ -336,7 +524,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from repro_torch.core import BM25Params, ScipyBM25, build_index
-    from repro_torch.core.retrieval import default_doc_ids, topk_numpy
+    from repro_torch.core.retrieval import default_doc_ids
     from repro_torch.core.scoring import bucket_pow2
     from repro_torch.kernels import COUNTERS, _build
     from repro_torch.kernels import bm25_block_score as k2
@@ -345,6 +533,7 @@ def main(argv=None) -> int:
     from repro_torch.sparse.block_csr import (TRANSFERS,
                                               estimate_prune_survivors,
                                               fragment_plan,
+                                              gather_posting_runs,
                                               reset_transfer_stats)
     from repro_torch.sparse.fragment_device import plan_fragments_device
     t_all = time.perf_counter()
@@ -445,28 +634,26 @@ def main(argv=None) -> int:
     check(TRANSFERS.descriptor_bytes == 0,
           "descriptors crossed after the build")
     for name, n in launches.items():
-        check(n > 0, f"{name} launched on the main path")
+        if name != k1.LAUNCHES_GATHER.name:   # the ladder's host rung only
+            check(n > 0, f"{name} launched on the main path")
 
     t0 = time.perf_counter()
     oracle = ScipyBM25(idx)
-    checked, worst = 0, 0.0
+    worst = 0.0
     for regime, i, qs, res in served[:len(REGIMES)]:
-        for qi in rng.choice(QUERY_BATCH, size=5, replace=False):
-            s = oracle.score(qs[qi])
-            _, ref_v = topk_numpy(s[None], TOP_K)
-            np.testing.assert_allclose(res.scores[qi], ref_v[0], rtol=0,
-                                       atol=EXACT_ATOL)
-            np.testing.assert_allclose(s[res.ids[qi]], res.scores[qi],
-                                       rtol=0, atol=EXACT_ATOL)
-            check(len(set(res.ids[qi].tolist())) == TOP_K, "distinct ids")
-            worst = max(worst, float(np.abs(res.scores[qi] - ref_v[0]).max()))
-            checked += 1
-    check(checked >= 20, "at least 20 sampled queries")
-    print(f"[full] {checked} sampled queries ({len(REGIMES)} regimes) exact "
-          f"against ScipyBM25, max |score - oracle| {worst:.3g} (atol "
-          f"{EXACT_ATOL}; {time.perf_counter() - t0:.1f}s)", flush=True)
+        worst = max(worst, sampled_exact(oracle, qs, res, rng, 5))
+    print(f"[full] {5 * len(REGIMES)} sampled queries ({len(REGIMES)} "
+          f"regimes) exact against ScipyBM25, max |score - oracle| "
+          f"{worst:.3g} (atol {EXACT_ATOL}; "
+          f"{time.perf_counter() - t0:.1f}s)", flush=True)
 
-    # -- phase 4: the kernels at the main path's shapes -------------------
+    # -- phase 4: the ladder through the engine ---------------------------
+    t0 = time.perf_counter()
+    ladder_launches, shards, shard_drs, host_qs = phase_ladder(idx, oracle,
+                                                               rng)
+    print(f"[ladder] done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- phase 5: the kernels at the main path's shapes -------------------
     dev = dr.device
     kernels = []
     tol = f"atol {ATOL} + rtol {RTOL} vs the twin on the card"
@@ -630,6 +817,61 @@ def main(argv=None) -> int:
         twin_bitwise_at=bitwise_at, fragments=int(desc3.shape[1]),
         survivors=n_surv, skipped=int(got[2]), ms=ms, plain_ms=plain_ms,
         bytes=nbytes, ops=nops))
+    # K4 at the host rung's shapes: shard 0's gather of the host-rung batch
+    sh0, dr0 = shards[0], shard_drs[0]
+    pk0 = dr0.pack_batch(host_qs)
+    n_u0 = pk0.uniq_batch.size
+    t0 = time.perf_counter()
+    gp = gather_posting_runs(sh0, pk0.uniq_batch, acc_block=DOC_BLOCK,
+                             tile=DOC_BLOCK)
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ops4 = [torch.as_tensor(a, device=dev) for a in (
+        gp.token_ids, gp.slot_ids, gp.scores, pk0.uniq_tab, pk0.weights,
+        gp.candidates)]
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    kw4 = dict(acc_block=gp.acc_block, k=TOP_K, two_level=True)
+    got = k1.bm25_gather_score_topk(*ops4, **kw4)
+    ms = cuda_ms(lambda: k1.bm25_gather_score_topk(*ops4, **kw4), reps=3)
+    print(f"[kernels] K4 at shard 0's host-rung shapes: sum_df={gp.sum_df} "
+          f"candidates={gp.n_candidates} nc={gp.n_chunks} p_pad={gp.p_pad}; "
+          f"host gather_posting_runs {gather_ms:.1f} ms, upload "
+          f"{gp.token_ids.nbytes * 3 + gp.candidates.nbytes} bytes in "
+          f"{upload_ms:.1f} ms, K4 (two-level) {ms:.3f} ms", flush=True)
+    bitwise = twin_bitwise(k1.bm25_gather_score_topk, ops4, (4,), got, kw4,
+                           "K4")
+    check(bitwise, "K4 bitwise equal to its CPU twin at full width")
+    ref = k1.bm25_gather_score_topk_plain(*ops4, **kw4)
+    plain_ms = cuda_ms(lambda: k1.bm25_gather_score_topk_plain(*ops4,
+                                                               **kw4))
+    err = float((got[0] - ref[0]).abs().max())
+    check(bool(torch.allclose(got[0], ref[0], atol=ATOL, rtol=RTOL)),
+          f"K4 values vs twin (max abs err {err})")
+    sub0 = ScipyBM25(sh0).matrix[:, pk0.uniq_batch].tocsr()
+    check(ids_hold_their_scores(got[0], got[1], ref[1], got[1],
+                                sh0.doc_lens.size, sub0,
+                                pk0.weights[:n_u0], "K4"), "K4 ids vs twin")
+    del ref, ops4
+    b = pk0.weights.shape[1]
+    nbytes = (gp.token_ids.nbytes + gp.slot_ids.nbytes + gp.scores.nbytes
+              + gp.candidates.nbytes + pk0.uniq_tab.nbytes
+              + pk0.weights.nbytes + TOP_K * b * 8)
+    nops = 2.0 * gp.sum_df * b
+    kernels.append(dict(
+        name="bm25_gather_score_topk", route="cuda",
+        source="src/repro_torch/kernels/csrc/bm25_gather_score.cu",
+        replaces="src/repro/kernels/bm25_gather_score.py:177",
+        launches=ladder_launches["bm25_gather_score_topk"],
+        max_abs_err=err, tolerance=tol, twin_bitwise=bitwise,
+        twin_bitwise_at=(f"shard 0's host-rung gather, query columns "
+                         f"0-{TWIN_COLS - 1}, CPU twin; phase 2: all "
+                         "columns, 100,003 docs, B 8 and 64"),
+        n_chunks=gp.n_chunks, p_pad=gp.p_pad, sum_df=gp.sum_df,
+        gather_ms=gather_ms, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+        ops=nops))
+    for kd in kernels[:3]:
+        kd["launches_ladder"] = ladder_launches[kd["name"]]
     for kd in kernels:
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = kd.pop("ops") / FP32_OPS_PER_S * 1e3

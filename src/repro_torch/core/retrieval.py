@@ -14,7 +14,7 @@ every kernel, twin and merge follows it.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -57,6 +57,10 @@ class RetrievalPlan:
     until then): ``frags_planned`` is the batch's full fragment count,
     ``frags_pruned`` how many the pre-launch threshold compaction removed,
     ``frags_skipped`` how many more the in-kernel board test skipped.
+
+    ``degradations`` is the batch's fallback trail: one entry per ladder
+    hop the executing retriever was forced to take (empty on the healthy
+    path), each a dict ``{"from", "to", "error", "detail"}``.
     """
 
     regime: str             # "blocked" | "gathered" | "pruned"
@@ -70,6 +74,7 @@ class RetrievalPlan:
     frags_planned: int = 0
     frags_pruned: int = 0
     frags_skipped: int = 0
+    degradations: list = field(default_factory=list)
 
 
 def plan_retrieval(sum_df: int, nnz: int, *, regime: str = "auto",
@@ -296,6 +301,27 @@ def rank_order(vals: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     desc = 0xFFFFFFFF - asc - 0x80000000                 # signed, desc
     key = desc * (1 << 32) + (ids.to(torch.int64) + 1)
     return torch.sort(key, dim=-1).indices
+
+
+def missing_doc_ids(candidates: torch.Tensor, k: int,
+                    n_docs: int) -> torch.Tensor:
+    """First ``k`` doc ids NOT in a sorted candidate list (the j-th missing
+    element trick, O(k log C)), as ``[k]`` int32 on ``candidates``' device.
+
+    ``candidates`` is sorted ascending over its valid prefix, then -1
+    padding (the ``GatheredPostings`` candidate table, flattened).
+    ``missing_before[i] = candidates[i] - i`` counts the doc ids below
+    ``candidates[i]`` that are absent; the j-th missing id (0-based) is
+    then ``j + searchsorted(missing_before, j + 1)``. Returned entries
+    ``>= n_docs`` mean fewer than ``k`` ids are missing — callers mask
+    them.
+    """
+    dev = candidates.device
+    iota = torch.arange(candidates.numel(), dtype=torch.int64, device=dev)
+    miss_before = torch.where(candidates >= 0,
+                              candidates.to(torch.int64) - iota, n_docs + 1)
+    j = torch.arange(k, dtype=torch.int64, device=dev)
+    return (j + torch.searchsorted(miss_before, j + 1)).to(torch.int32)
 
 
 def splice_default_docs(cand_vals: torch.Tensor, cand_ids: torch.Tensor,

@@ -7,16 +7,19 @@ built by ``_build`` at first use.
 
 Kernels:
   bm25_gather_score — K1, resident gather→score→top-k (gathered regime),
-                      and K3, the same with the block-max skip (pruned)
+                      K3, the same with the block-max skip (pruned), and
+                      K4, host-gathered candidate chunks (the ladder's
+                      host rung)
   bm25_block_score  — K2, fused full-scan score→top-k (full-scan regime)
 """
 
 from . import bm25_block_score, bm25_gather_score
-from .ops import (bm25_retrieve_blocked, bm25_retrieve_resident,
-                  bm25_retrieve_resident_pruned)
+from .ops import (bm25_retrieve_blocked, bm25_retrieve_gathered,
+                  bm25_retrieve_resident, bm25_retrieve_resident_pruned)
 
 COUNTERS = (bm25_gather_score.LAUNCHES, bm25_block_score.LAUNCHES,
-            bm25_gather_score.LAUNCHES_PRUNED)
+            bm25_gather_score.LAUNCHES_PRUNED,
+            bm25_gather_score.LAUNCHES_GATHER)
 
-__all__ = ["COUNTERS", "bm25_retrieve_blocked", "bm25_retrieve_resident",
-           "bm25_retrieve_resident_pruned"]
+__all__ = ["COUNTERS", "bm25_retrieve_blocked", "bm25_retrieve_gathered",
+           "bm25_retrieve_resident", "bm25_retrieve_resident_pruned"]

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
-SOURCES = ("bm25_resident", "bm25_block_score")
+SOURCES = ("bm25_resident", "bm25_block_score", "bm25_gather_score")
 SMEM_LIMIT = 232448       # dynamic shared memory a CTA may use on Hopper
 
 _lock = threading.Lock()
@@ -104,18 +104,25 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class LaunchCounter:
-    """Launches of one kernel wrapper: ``n`` grows by one where the
-    wrapper launches its kernel, and nowhere else (the plain twin on a
-    CPU tensor does not count). ``chip_smoke.py`` resets it before the
+    """Launches of one kernel wrapper: ``n`` grows by one (:meth:`add`)
+    where the wrapper launches its kernel, and nowhere else (the plain twin
+    on a CPU tensor does not count). ``chip_smoke.py`` resets it before the
     main path and reads it after, to show the path went through the
-    kernel."""
+    kernel. The engine's pool and the watchdog launch from several
+    threads, so the count changes under a lock."""
 
     def __init__(self, name: str):
         self.name = name
         self.n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.n += 1
 
     def reset(self) -> None:
-        self.n = 0
+        with self._lock:
+            self.n = 0
 
 
 def check(err: int, what: str) -> None:

@@ -49,18 +49,52 @@ def _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
                          f"block_size={block_size}")
 
 
+def block_accumulate(token_ids, local_doc, scores, uniq_tokens, weights,
+                     *, block_size: int) -> torch.Tensor:
+    """``[g, P]`` token-sorted postings of ``g`` blocks -> their
+    ``[g, block_size, B]`` sums.
+
+    Each posting whose token is in the sorted table ``uniq_tokens`` (row
+    ``u``) adds ``fl(score · weights[u, b])`` to its row ``local_doc`` of
+    its block, with ``index_add_``. On the CPU ``index_add_`` adds source
+    rows serially in index order, so each element sums its postings in
+    posting order — the order of the kernels that share
+    ``csrc/block_scatter.cuh`` (K2, K4) — and equals them bit for bit. On a
+    CUDA tensor ``index_add_`` uses atomics: then it agrees only to
+    rounding. Matched postings are added ``_ROWS_PER_STEP`` at a time to
+    bound memory.
+    """
+    g, p = token_ids.shape
+    b = weights.shape[1]
+    dev = weights.device
+    tok = token_ids.reshape(-1)
+    idx = torch.searchsorted(uniq_tokens, tok).clamp_(
+        max=uniq_tokens.numel() - 1)
+    loc = local_doc.reshape(-1)
+    hit = torch.nonzero((uniq_tokens[idx] == tok) & (loc >= 0)
+                        & (loc < block_size)).squeeze(1)
+    dst = torch.div(hit, p, rounding_mode="floor") * block_size + loc[hit]
+    src_sc = scores.reshape(-1)[hit]
+    src_u = idx[hit]
+    acc = torch.zeros((g * block_size, b), dtype=torch.float32, device=dev)
+    for lo in range(0, hit.numel(), _ROWS_PER_STEP):
+        hi = lo + _ROWS_PER_STEP
+        acc.index_add_(0, dst[lo:hi],
+                       src_sc[lo:hi][:, None] * weights[src_u[lo:hi]])
+    return acc.view(g, block_size, b)
+
+
 def bm25_block_score_topk_plain(token_ids, local_doc, scores, uniq_tokens,
                                 weights, *, block_size: int, k: int,
                                 n_docs: int
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain torch twin (same operands, same result).
 
-    ``index_add_`` on the CPU adds source rows serially in index order, so
-    each accumulator element sums its postings in posting order — the
-    kernel's order — and the twin on the CPU equals the kernel bit for
-    bit. On a CUDA tensor ``index_add_`` uses atomics: then the twin
-    agrees only to rounding. Blocks are processed ``_ROWS_PER_STEP``
-    accumulator rows (and matched postings) at a time to bound memory.
+    The sums are :func:`block_accumulate`'s (bitwise the kernel's on the
+    CPU); rows of documents ``≥ n_docs`` take the float minimum and each
+    column is ranked by (score desc, row asc) with :func:`rank_order`.
+    Blocks are processed ``_ROWS_PER_STEP`` accumulator rows at a time to
+    bound memory.
     """
     nb, _p = token_ids.shape
     _u, b = weights.shape
@@ -72,21 +106,9 @@ def bm25_block_score_topk_plain(token_ids, local_doc, scores, uniq_tokens,
     rows = torch.arange(block_size, device=dev)
     for g0 in range(0, nb, step):
         g1 = min(nb, g0 + step)
-        tok = token_ids[g0:g1].reshape(-1)
-        idx = torch.searchsorted(uniq_tokens, tok).clamp_(
-            max=uniq_tokens.numel() - 1)
-        hit = torch.nonzero(uniq_tokens[idx] == tok).squeeze(1)
-        blk_of = torch.div(hit, token_ids.shape[1], rounding_mode="floor")
-        dst = blk_of * block_size + local_doc[g0:g1].reshape(-1)[hit]
-        src_sc = scores[g0:g1].reshape(-1)[hit]
-        src_u = idx[hit]
-        acc = torch.zeros(((g1 - g0) * block_size, b), dtype=torch.float32,
-                          device=dev)
-        for lo in range(0, hit.numel(), _ROWS_PER_STEP):
-            hi = lo + _ROWS_PER_STEP
-            acc.index_add_(0, dst[lo:hi],
-                           src_sc[lo:hi][:, None] * weights[src_u[lo:hi]])
-        acc = acc.view(g1 - g0, block_size, b)
+        acc = block_accumulate(token_ids[g0:g1], local_doc[g0:g1],
+                               scores[g0:g1], uniq_tokens, weights,
+                               block_size=block_size)
         gdoc = (torch.arange(g0, g1, device=dev)[:, None] * block_size
                 + rows[None, :])
         acc[gdoc >= n_docs] = neg
@@ -148,5 +170,5 @@ def bm25_block_score_topk(token_ids, local_doc, scores, uniq_tokens,
                      block_size, k, n_docs, out_v.data_ptr(),
                      out_i.data_ptr(), stream)
     _build.check(err, "bm25_block_score_topk")
-    LAUNCHES.n += 1
+    LAUNCHES.add()
     return out_v, out_i

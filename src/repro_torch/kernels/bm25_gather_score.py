@@ -1,13 +1,19 @@
-"""K1 and K3: resident gather → score → top-k over fragment descriptors.
+"""K1, K3 and K4: the gathered BM25 kernels, score → top-k.
 
-Ports of ``repro.kernels.bm25_gather_score.bm25_resident_score_topk`` (K1,
-the gathered regime) and ``bm25_resident_score_topk_pruned`` (K3, the
-pruned regime: K1 plus the block-max skip). The CUDA kernels are
-``csrc/bm25_resident.cu`` (its header note gives the design and the
-bounds); this module holds their wrappers, plain torch twins and launch
-counters.
+Ports of ``repro.kernels.bm25_gather_score``:
 
-Contract: ``desc`` is the ``[6, nf]`` int32 table of
+* ``bm25_resident_score_topk`` (K1, the gathered regime) and
+  ``bm25_resident_score_topk_pruned`` (K3, the pruned regime: K1 plus the
+  block-max skip) walk fragment descriptors over the resident index; their
+  CUDA kernels are ``csrc/bm25_resident.cu``;
+* ``bm25_gather_score_topk`` (K4, the ladder's host-gather rung) scores
+  host-gathered candidate chunks; its CUDA kernel is
+  ``csrc/bm25_gather_score.cu``.
+
+Each source's header note gives the design and the bound; this module
+holds the wrappers, plain torch twins and launch counters.
+
+K1/K3 contract: ``desc`` is the ``[6, nf]`` int32 table of
 ``sparse.block_csr.fragment_plan`` (rows start, valid, uniq, block, first,
 last; each block's fragments contiguous — a *span*). Every span's block
 accumulator sums ``fl(score · weights[uniq, b])`` over its fragments'
@@ -16,6 +22,14 @@ the ``[k, B]`` board over all visited blocks in (score desc, doc id asc)
 order — values and global doc ids, id -1 where the value is the padding
 float minimum. Blocks the batch never visits are absent: their documents
 score raw 0 and the caller splices them in as defaults.
+
+K4 contract: the operands are ``sparse.block_csr.GatheredPostings``;
+chunk ``c``'s accumulator row ``r`` sums ``fl(score · weights[u, b])`` over
+the chunk's postings with slot ``r`` whose token is row ``u`` of the sorted
+unique table, in posting order; slots whose candidate is -1 are padding.
+The result is each chunk's ``[k, B]`` board with global doc ids
+(``candidates[c, slot]``), or with ``two_level`` the ``[k, B]`` board over
+all chunks, both in (score desc, id asc) order.
 """
 
 from __future__ import annotations
@@ -26,9 +40,11 @@ import torch
 
 from ..core.retrieval import rank_order
 from . import _build
+from .bm25_block_score import block_accumulate
 
 LAUNCHES = _build.LaunchCounter("bm25_resident_score_topk")
 LAUNCHES_PRUNED = _build.LaunchCounter("bm25_resident_score_topk_pruned")
+LAUNCHES_GATHER = _build.LaunchCounter("bm25_gather_score_topk")
 
 _CTAS = 4096                   # scoring CTAs per launch, across B-tiles
 _POSTINGS_PER_STEP = 1 << 20   # twin: postings added per index_add_
@@ -200,7 +216,7 @@ def bm25_resident_score_topk(desc, weights, doc_ids_res, scores_res, *,
                      board_g.data_ptr(), out_v.data_ptr(), out_g.data_ptr(),
                      stream)
     _build.check(err, "bm25_resident_score_topk")
-    LAUNCHES.n += 1
+    LAUNCHES.add()
     return out_v, out_g
 
 
@@ -319,5 +335,161 @@ def bm25_resident_score_topk_pruned(desc, weights, bounds, doc_ids_res,
                      skips.data_ptr(), out_v.data_ptr(), out_g.data_ptr(),
                      stream)
     _build.check(err, "bm25_resident_score_topk_pruned")
-    LAUNCHES_PRUNED.n += 1
+    LAUNCHES_PRUNED.add()
     return out_v, out_g, skips.sum(dtype=torch.int64) // n_tiles
+
+
+# -- K4: host-gathered candidate chunks ---------------------------------------
+
+_CHUNK_ROWS_PER_STEP = 1 << 18  # twin: accumulator rows a step
+
+
+def _check_gather_operands(token_ids, slot_ids, scores, uniq_tokens,
+                           weights, candidates, acc_block: int,
+                           k: int) -> None:
+    if token_ids.dim() != 2:
+        raise ValueError("token_ids must be [n_chunks, p_pad]")
+    nc, p = token_ids.shape
+    if weights.dim() != 2:
+        raise ValueError("weights must be [U, B]")
+    u = weights.shape[0]
+    for name, t, dt, shape in (
+            ("token_ids", token_ids, torch.int32, (nc, p)),
+            ("slot_ids", slot_ids, torch.int32, (nc, p)),
+            ("scores", scores, torch.float32, (nc, p)),
+            ("uniq_tokens", uniq_tokens, torch.int32, (u,)),
+            ("weights", weights, torch.float32, None),
+            ("candidates", candidates, torch.int32, (nc, acc_block))):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.device != token_ids.device:
+            raise ValueError(f"{name} is on {t.device}, token_ids on "
+                             f"{token_ids.device}")
+    if not 1 <= k <= acc_block:
+        raise ValueError(f"need 1 <= k <= acc_block, got k={k}, "
+                         f"acc_block={acc_block}")
+
+
+def gather_fold_fits(n_chunks: int) -> bool:
+    """Can the two-level fold merge ``n_chunks`` boards in one launch?
+    (One warp keeps a 4-byte head per board in shared memory.)"""
+    return 4 * n_chunks <= _build.SMEM_LIMIT
+
+
+def bm25_gather_score_topk_plain(token_ids, slot_ids, scores, uniq_tokens,
+                                 weights, candidates, *, acc_block: int,
+                                 k: int, two_level: bool = False
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's plain torch twin: the reference's schedule.
+
+    Each chunk's sums are ``block_accumulate``'s (``index_add_`` in
+    posting order, bitwise the kernel's on the CPU); padding slots take
+    the float minimum; each column of a chunk is ranked by (score desc,
+    candidate id asc) with :func:`rank_order` — the candidates are
+    sorted, so that is slot order. ``two_level`` folds the chunk boards
+    one after another into a running ``[k, B]`` board, as the reference's
+    sequential grid does; the fold's board is the top-k of the union, so
+    it equals the kernel's merge bit for bit.
+    """
+    nc = token_ids.shape[0]
+    b = weights.shape[1]
+    dev = weights.device
+    neg = torch.finfo(torch.float32).min
+    out_v = torch.empty((nc, k, b), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nc, k, b), dtype=torch.int32, device=dev)
+    step = max(1, _CHUNK_ROWS_PER_STEP // acc_block)
+    for g0 in range(0, nc, step):
+        g1 = min(nc, g0 + step)
+        acc = block_accumulate(token_ids[g0:g1], slot_ids[g0:g1],
+                               scores[g0:g1], uniq_tokens, weights,
+                               block_size=acc_block)
+        cand = candidates[g0:g1]
+        acc[cand < 0] = neg
+        vals = acc.permute(0, 2, 1)                       # [g, B, slots]
+        ids = cand[:, None, :].expand_as(vals)
+        order = rank_order(vals, ids)[..., :k]
+        out_v[g0:g1] = torch.gather(vals, 2, order).permute(0, 2, 1)
+        out_i[g0:g1] = torch.gather(ids, 2, order).permute(0, 2, 1)
+    if not two_level:
+        return out_v, out_i
+    board_v = torch.full((k, b), neg, dtype=torch.float32, device=dev)
+    board_i = torch.full((k, b), -1, dtype=torch.int32, device=dev)
+    for c in range(nc):
+        vals = torch.cat([board_v, out_v[c]]).T           # [B, 2k]
+        ids = torch.cat([board_i, out_i[c]]).T
+        sel = rank_order(vals, ids)[:, :k]
+        board_v = torch.gather(vals, 1, sel).T.contiguous()
+        board_i = torch.gather(ids, 1, sel).T.contiguous()
+    return board_v, board_i
+
+
+def _gather_fns(lib):
+    f = lib.bm25_gather_score_topk_launch
+    if f.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = [p, p, p, i, i, p, i, p, i, p, i, i, p, p, i, p, p, p]
+        f.restype = ctypes.c_int
+        s = lib.bm25_gather_score_topk_smem
+        s.argtypes = [i, i]
+        s.restype = ctypes.c_longlong
+    return f
+
+
+def bm25_gather_score_topk(token_ids, slot_ids, scores, uniq_tokens,
+                           weights, candidates, *, acc_block: int, k: int,
+                           two_level: bool = False
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: gathered candidate chunks × ``[U, B]`` query table → (values,
+    GLOBAL doc ids).
+
+    The operands are the ``GatheredPostings`` layout: ``[nc, p_pad]``
+    token-sorted postings whose ``slot_ids`` index a ``[acc_block, B]``
+    accumulator, and the ``[nc, acc_block]`` candidate table (-1 = pad).
+    ``two_level=False`` returns the per-chunk boards ``[nc, k, B]``;
+    ``two_level=True`` their fold into one ``[k, B]`` board (the kernel
+    merges the chunk boards in the same launch function; see
+    :func:`gather_fold_fits` for its limit). A CPU tensor runs the plain
+    twin; a CUDA tensor launches the kernel (and raises if it cannot).
+    """
+    _check_gather_operands(token_ids, slot_ids, scores, uniq_tokens,
+                           weights, candidates, acc_block, k)
+    dev = token_ids.device
+    if dev.type == "cpu":
+        return bm25_gather_score_topk_plain(
+            token_ids, slot_ids, scores, uniq_tokens, weights, candidates,
+            acc_block=acc_block, k=k, two_level=two_level)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    nc, p = token_ids.shape
+    u, b = weights.shape
+    if nc > 65535:
+        raise ValueError(f"{nc} chunks exceed the grid's 65535")
+    if two_level and not gather_fold_fits(nc):
+        raise ValueError(f"{nc} chunk boards do not fit the two-level "
+                         "fold's shared memory; use two_level=False")
+    lib = _build.load("bm25_gather_score")
+    launch = _gather_fns(lib)
+    if lib.bm25_gather_score_topk_smem(acc_block, u) > _build.SMEM_LIMIT:
+        raise ValueError(f"acc_block={acc_block} with {u} unique tokens "
+                         "does not fit a CTA's shared memory")
+    ops = [t.contiguous() for t in (token_ids, slot_ids, scores,
+                                    uniq_tokens, weights, candidates)]
+    out_v = torch.empty((nc, k, b), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nc, k, b), dtype=torch.int32, device=dev)
+    fold_v = torch.empty((k, b), dtype=torch.float32, device=dev) \
+        if two_level else out_v
+    fold_i = torch.empty((k, b), dtype=torch.int32, device=dev) \
+        if two_level else out_i
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+                     nc, p, ops[3].data_ptr(), u, ops[4].data_ptr(), b,
+                     ops[5].data_ptr(), acc_block, k, out_v.data_ptr(),
+                     out_i.data_ptr(), int(two_level), fold_v.data_ptr(),
+                     fold_i.data_ptr(), stream)
+    _build.check(err, "bm25_gather_score_topk")
+    LAUNCHES_GATHER.add()
+    return (fold_v, fold_i) if two_level else (out_v, out_i)

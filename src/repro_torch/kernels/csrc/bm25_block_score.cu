@@ -25,30 +25,21 @@
 //   32 query columns (66 KB at 512 x 32, rows padded to 33 words so the
 //   column-wise selection reads distinct banks). The B-tiles of one block
 //   are adjacent in launch order, so they share its posting tiles in L2.
-// * Postings within a block are token-sorted and several hit the same
-//   document, so threads over postings would collide. Instead a chunk of
-//   256 postings is read one a thread; each thread binary-searches its
-//   posting's token in the shared unique table, and the matched postings
-//   are staged in shared memory partitioned by owning warp (warp w owns
-//   rows r with r % 8 == w), stably, with ballots. Each warp then walks
-//   only its own entries in posting order, a lane per query column. Each
-//   accumulator element therefore has exactly one writer and a fixed
-//   summation order: no atomics, bitwise equal to the twin.
-// * Products and sums are __fmul_rn then __fadd_rn: nvcc would otherwise
-//   contract acc + s * w into one FMA, which rounds once where the twin
-//   rounds twice.
+// * The scatter is block_scatter.cuh (shared with K4): matched postings
+//   are staged by owning warp with ballots, so each accumulator element has
+//   one writer and sums in posting order, with __fmul_rn / __fadd_rn — no
+//   atomics, bitwise equal to the twin.
 // * Selection is the shared select_topk.cuh (a warp per column).
 
+#include "block_scatter.cuh"
 #include "select_topk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;  // = row owners; the scan assumes 8
-constexpr int kCols = 32;              // query columns a CTA (a lane each)
-constexpr int kLd = kCols + 1;         // acc row stride: a column's rows
-                                       // fall in distinct shared banks
-constexpr int kChunk = kThreads;       // postings read per round
+constexpr int kThreads = bm25::kScatterThreads;
+constexpr int kWarps = bm25::kScatterWarps;
+constexpr int kCols = bm25::kScatterCols;
+constexpr int kLd = bm25::kScatterLd;
 
 __global__ void __launch_bounds__(kThreads) block_score_topk_kernel(
     const int* __restrict__ tok, const int* __restrict__ loc,
@@ -60,18 +51,11 @@ __global__ void __launch_bounds__(kThreads) block_score_topk_kernel(
   float* acc = reinterpret_cast<float*>(smem_raw);  // [block_size * kLd]
   int* uniq_s = reinterpret_cast<int*>(
       acc + static_cast<size_t>(block_size) * kLd);     // [n_uniq]
-  int* e_row = uniq_s + n_uniq;                         // [kChunk]
-  int* e_loc = e_row + kChunk;                          // [kChunk]
-  float* e_sc = reinterpret_cast<float*>(e_loc + kChunk);  // [kChunk]
-  // matched counts and staging offsets, [owner * kWarps + warp]
-  __shared__ int s_cnt[kWarps * kWarps];
-  __shared__ int s_off[kWarps * kWarps];
-  __shared__ int s_end[kWarps];          // end of each owner's entries
+  unsigned char* staging = reinterpret_cast<unsigned char*>(uniq_s + n_uniq);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int col = blockIdx.x * kCols + lane;
   const long long blk = blockIdx.y;
 
   for (int i = tid; i < block_size * kLd; i += kThreads) acc[i] = 0.f;
@@ -79,65 +63,10 @@ __global__ void __launch_bounds__(kThreads) block_score_topk_kernel(
   __syncthreads();
 
   const size_t row_base = static_cast<size_t>(blk) * p_pad;
-  for (int base = 0; base < p_pad; base += kChunk) {
-    const int p = base + tid;
-    int t = -1, l = 0, r = -1;
-    float s = 0.f;
-    if (p < p_pad) {
-      t = tok[row_base + p];
-      l = loc[row_base + p];
-      s = sc[row_base + p];
-    }
-    if (t >= 0 && static_cast<unsigned>(l) < static_cast<unsigned>(block_size)) {
-      int lo = 0, hi = n_uniq;  // lower bound of t in the sorted table
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (uniq_s[mid] < t) lo = mid + 1; else hi = mid;
-      }
-      if (lo < n_uniq && uniq_s[lo] == t) r = lo;
-    }
-    // stable partition of the matched postings by owner warp (l % 8)
-    const int owner = r >= 0 ? (l & (kWarps - 1)) : -1;
-    int rank = 0;
-#pragma unroll
-    for (int q = 0; q < kWarps; ++q) {
-      const unsigned m = __ballot_sync(0xffffffffu, owner == q);
-      if (lane == 0) s_cnt[q * kWarps + warp] = __popc(m);
-      if (owner == q) rank = __popc(m & ((1u << lane) - 1u));
-    }
-    if (!__syncthreads_or(owner >= 0)) continue;  // nothing matched
-    if (warp == 0) {  // exclusive scan of the 64 counts, two a lane
-      const int c0 = s_cnt[2 * lane], c1 = s_cnt[2 * lane + 1];
-      int x = c0 + c1;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, d);
-        if (lane >= d) x += y;
-      }
-      s_off[2 * lane] = x - c0 - c1;
-      s_off[2 * lane + 1] = x - c1;
-      if ((lane & 3) == 3) s_end[lane >> 2] = x;  // owner lane/4 ends here
-    }
-    __syncthreads();
-    if (owner >= 0) {
-      const int e = s_off[owner * kWarps + warp] + rank;
-      e_row[e] = r;
-      e_loc[e] = l;
-      e_sc[e] = s;
-    }
-    __syncthreads();
-    if (col < n_cols) {
-      const int e1 = s_end[warp];
-#pragma unroll 4
-      for (int e = warp == 0 ? 0 : s_end[warp - 1]; e < e1; ++e) {
-        const float prod = __fmul_rn(
-            e_sc[e], w[static_cast<size_t>(e_row[e]) * n_cols + col]);
-        float* a = acc + static_cast<size_t>(e_loc[e]) * kLd + lane;
-        *a = __fadd_rn(*a, prod);
-      }
-    }
-    __syncthreads();
-  }
+  bm25::scatter_block_postings(tok + row_base, loc + row_base,
+                               sc + row_base, p_pad, uniq_s, n_uniq, w,
+                               n_cols, blockIdx.x * kCols, block_size, acc,
+                               staging);
 
   // documents past n_docs exist only as block padding: a padded doc's 0.0
   // would outrank real negative scores (robertson IDF), so mask first
@@ -171,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) block_score_topk_kernel(
 // Dynamic shared memory the kernel needs, in bytes.
 extern "C" long long bm25_block_score_topk_smem(int block_size, int n_uniq) {
   return static_cast<long long>(block_size) * kLd * 4
-         + static_cast<long long>(n_uniq) * 4 + 3LL * kChunk * 4;
+         + static_cast<long long>(n_uniq) * 4 + bm25::kScatterStagingBytes;
 }
 
 // Launch on `stream`; returns the CUDA error code (0 on success).

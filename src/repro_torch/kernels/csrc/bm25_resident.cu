@@ -54,7 +54,8 @@
 //   better of the accumulator's best untaken row and the head of the CTA's
 //   sorted board (kept in the CTA's slice of the [G, k, B] output). The
 //   cross-CTA merge that the TPU does inside its sequential grid is the
-//   second kernel below: a warp per column merges the G sorted boards.
+//   second kernel, board_merge.cuh: a warp per column merges the G sorted
+//   boards.
 // * K3's skip is decided once per span, at its first fragment, against the
 //   CTA's OWN running board: skip iff bound[block(f), c] < board[k-1, c]
 //   for every column c of the tile. That board holds k real documents with full
@@ -66,13 +67,13 @@
 //   threshold, later work). A skipped span adds and folds nothing. Each
 //   CTA writes its count of skipped real fragments to its own slot (no
 //   atomics); the wrapper sums them.
+#include "board_merge.cuh"
 #include "select_topk.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kInFlight = 4;  // (posting, column) loads a thread keeps open
-constexpr int kMergeWarps = 8;
 
 // Last fragment of the span that starts at f: the first g >= f whose
 // `last` flag is set (or the table's end). Every thread of the CTA calls it
@@ -270,44 +271,6 @@ __global__ void __launch_bounds__(kThreads) resident_topk_kernel(
   }
 }
 
-// Merge the G sorted per-CTA boards [G, k, B] into the [k, B] board.
-__global__ void __launch_bounds__(kMergeWarps * 32) board_merge_kernel(
-    const float* __restrict__ board_v, const int* __restrict__ board_g,
-    int n_boards, int k, int n_cols, float* __restrict__ out_v,
-    int* __restrict__ out_g) {
-  extern __shared__ int heads[];  // [kMergeWarps * n_boards]
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kMergeWarps + warp;
-  int* h = heads + static_cast<size_t>(warp) * n_boards;
-  for (int l = lane; l < n_boards; l += 32) h[l] = 0;
-  __syncwarp();
-  if (col >= n_cols) return;  // warp-uniform
-  for (int r = 0; r < k; ++r) {
-    float v = -INFINITY;
-    int g = INT_MAX, p = INT_MAX;
-    for (int l = lane; l < n_boards; l += 32) {
-      const int hl = h[l];
-      if (hl >= k) continue;
-      const size_t o = (static_cast<size_t>(l) * k + hl) * n_cols + col;
-      const float x = board_v[o];
-      const int id = board_g[o];
-      if (bm25::rank_before(x, id, v, g)) {
-        v = x;
-        g = id;
-        p = l;
-      }
-    }
-    bm25::warp_best(v, g, p);
-    if (lane == (p & 31)) h[p] += 1;
-    if (lane == 0) {
-      out_v[static_cast<size_t>(r) * n_cols + col] = v;
-      out_g[static_cast<size_t>(r) * n_cols + col] = g;
-    }
-    __syncwarp();
-  }
-}
-
 }  // namespace
 
 // Dynamic shared memory of the scoring kernel, in bytes.
@@ -345,17 +308,10 @@ int launch_resident(const void* desc, int nf_pad, const void* w, int n_cols,
           static_cast<int*>(skips));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t msmem = static_cast<size_t>(kMergeWarps) * n_boards * 4;
-  err = cudaFuncSetAttribute(board_merge_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(msmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  board_merge_kernel<<<(n_cols + kMergeWarps - 1) / kMergeWarps,
-                       kMergeWarps * 32, msmem, s>>>(
+  return static_cast<int>(bm25::launch_board_merge(
       static_cast<const float*>(board_v), static_cast<const int*>(board_g),
       n_boards, k, n_cols, static_cast<float*>(out_v),
-      static_cast<int*>(out_g));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<int*>(out_g), s));
 }
 
 }  // namespace

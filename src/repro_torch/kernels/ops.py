@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from ..core.retrieval import rank_order, splice_default_docs
+from ..core.retrieval import (missing_doc_ids, rank_order,
+                              splice_default_docs)
 from .bm25_block_score import bm25_block_score_topk
-from .bm25_gather_score import (bm25_resident_score_topk,
+from .bm25_gather_score import (bm25_gather_score_topk, gather_fold_fits,
+                                bm25_resident_score_topk,
                                 bm25_resident_score_topk_pruned)
 
 
@@ -40,6 +42,48 @@ def bm25_retrieve_blocked(token_ids, local_doc, scores, uniq_tokens,
     sel = rank_order(flat_v, flat_i)[:, :min(k, n_docs, nb * kb)]
     return (torch.gather(flat_i, 1, sel),
             torch.gather(flat_v, 1, sel) + nonocc_shift[:, None])
+
+
+def bm25_retrieve_gathered(token_ids, slot_ids, scores, uniq_tokens,
+                           weights, candidates, nonocc_shift, *,
+                           acc_block: int, k: int, n_docs: int,
+                           two_level: bool = True
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Host-gathered retrieval (the ladder's host rung): O(Σ df) postings
+    -> (ids, scores) ``[B, k]``.
+
+    Stage 1 is K4 (:func:`~.bm25_gather_score.bm25_gather_score_topk`).
+    With ``two_level=True`` (default) the chunk winners are folded into
+    one ``[kb, B]`` board in the same launch; ``two_level=False`` keeps the
+    per-chunk ``[nc, kb, B]`` boards and merges them here. The fold keeps
+    only ``kb = min(k, acc_block)`` winners, so when ``kb < k`` — or when
+    the chunk boards outgrow the fold's shared memory — the chunked path
+    runs instead. It is exact: with ``kb < k`` each chunk's top-``kb`` is
+    its whole candidate set (a chunk holds at most ``acc_block``), and
+    otherwise the merge of the chunk boards is the fold's board. Stage 2
+    splices in default documents: a document outside the candidate set
+    contributes no posting, so its exact raw score is 0 —
+    :func:`~repro_torch.core.retrieval.missing_doc_ids` names ``k`` of them
+    from the sorted candidate table. The §2.1 shift is added last.
+    """
+    kk = min(k, n_docs)
+    kb = min(kk, acc_block)
+    nc = token_ids.shape[0]
+    if two_level and (kb < kk or not gather_fold_fits(nc)):
+        two_level = False
+    vals, gids = bm25_gather_score_topk(
+        token_ids, slot_ids, scores, uniq_tokens, weights, candidates,
+        acc_block=acc_block, k=kb, two_level=two_level)
+    if two_level:
+        flat_v, flat_i = vals.T, gids.T                 # [B, kb]
+    else:
+        b = vals.shape[2]
+        flat_v = vals.permute(2, 0, 1).reshape(b, nc * kb)
+        flat_i = gids.permute(2, 0, 1).reshape(b, nc * kb)
+    ids, mvals = splice_default_docs(
+        flat_v, flat_i, kk, n_docs,
+        default_ids=missing_doc_ids(candidates.reshape(-1), kk, n_docs))
+    return ids, mvals + nonocc_shift[:, None]
 
 
 def bm25_retrieve_resident(desc, weights, doc_ids_res, scores_res, def_ids,
@@ -79,6 +123,12 @@ def bm25_retrieve_resident_pruned(desc, weights, doc_ids_res, scores_res,
     the threshold, not zero, so they are neither candidates nor defaults.
     ``skipped`` is K3's in-kernel skip count (a 0-d tensor). The
     ``(ids, scores)`` board equals the unpruned path's on the same batch.
+
+    Fault-injection site ``kernel.resident_pruned``
+    (``repro_torch.serve.faults``): an armed ``nan_board``/``inf_board``
+    fault poisons the ``[B, k]`` board built from K3's — exactly the
+    non-finite entry a broken launch would produce, caught downstream by
+    the retriever's finite-check.
     """
     kk = min(k, n_docs)
     vals, gids, skipped = bm25_resident_score_topk_pruned(
@@ -86,4 +136,9 @@ def bm25_retrieve_resident_pruned(desc, weights, doc_ids_res, scores_res,
         block_size=block_size, frag=frag, k=kk, n_docs=n_docs)
     ids, mvals = splice_default_docs(vals.T, gids.T, kk, n_docs,
                                      default_ids=def_ids)
-    return ids, mvals + nonocc_shift[:, None], skipped
+    mvals = mvals + nonocc_shift[:, None]
+    import sys
+    _f = sys.modules.get("repro_torch.serve.faults")
+    if _f is not None and _f.ACTIVE:
+        mvals = _f.fire("kernel.resident_pruned", mvals)
+    return ids, mvals, skipped

@@ -1,10 +1,54 @@
-"""Serving surface of the PyTorch port: the device retriever and its types."""
+"""Serving surface of the PyTorch port: the device retriever with its exact
+degradation ladder, the sharded engine, and their types.
 
-from .errors import (InvalidQueryError, ResidencyError, RetrievalConfigError,
-                     RetrievalError, ScoreIntegrityError)
+Every retrieval entry point (``DeviceRetriever.retrieve`` /
+``retrieve_batch``, ``RetrievalEngine.retrieve`` / ``retrieve_batch``)
+returns a :class:`~repro_torch.serve.results.RetrievalResult`; every
+level's ``health()`` returns the schema-2 envelope of
+:func:`~repro_torch.serve.health.health_envelope`, whose common keys mean
+the same at every level:
+
+* ``schema``  — :data:`~repro_torch.serve.health.HEALTH_SCHEMA` (``2``);
+* ``served``  — batches for a retriever or shard, scatter-gather rounds
+  for the engine;
+* ``degraded`` — how many of those were served degraded: ladder hops
+  (retriever/shard), missed shards under quorum + deadline hedging
+  (engine). Degraded responses are still exact;
+* ``faults``  — typed-fault counts keyed by ``RetrievalError`` subclass
+  name, summed upward;
+* ``queries`` — sanitizer repair counters
+  (``core.retrieval.validate_query_batch`` keys).
+
+The overload knobs are the reference's: ``watchdog_s`` (None),
+``retry_budget`` (0), ``retry_backoff_s`` (0.005),
+``breaker_threshold`` (3; None disables), ``breaker_window_s`` (30.0) and
+``breaker_cooldown_s`` (5.0) on ``DeviceRetriever``. The front-end's
+admission gate (:class:`AdmissionController`) is here; the front-end that
+uses it, and snapshots, come with later slices of the port.
+"""
+
+from .errors import (AdmissionRejectedError, DeadlineExceededError,
+                     ExecutionStalledError, InvalidQueryError,
+                     PlanOverflowError, QueueOverflowError, ResidencyError,
+                     RetrievalConfigError, RetrievalError,
+                     ScoreIntegrityError, SnapshotIntegrityError,
+                     SnapshotVersionError, StageFailedError,
+                     TruncationWarning)
+from .health import HEALTH_SCHEMA, health_envelope
+from .overload import (AdmissionController, CircuitBreaker, RetryPolicy,
+                       WatchdogExecutor)
 from .results import PackedBatch, RetrievalResult
-from .retrieval_engine import DeviceRetriever
+from .retrieval_engine import (BlockedRetriever, DeviceRetriever,
+                               GatheredRetriever, PrunedRetriever,
+                               RetrievalEngine, ShardRuntime)
 
-__all__ = ["DeviceRetriever", "InvalidQueryError", "PackedBatch",
-           "ResidencyError", "RetrievalConfigError", "RetrievalError",
-           "RetrievalResult", "ScoreIntegrityError"]
+__all__ = ["AdmissionController", "AdmissionRejectedError",
+           "BlockedRetriever", "CircuitBreaker", "DeadlineExceededError",
+           "DeviceRetriever", "ExecutionStalledError", "GatheredRetriever",
+           "HEALTH_SCHEMA", "InvalidQueryError", "PackedBatch",
+           "PlanOverflowError", "PrunedRetriever", "QueueOverflowError",
+           "ResidencyError", "RetrievalConfigError", "RetrievalEngine",
+           "RetrievalError", "RetrievalResult", "RetryPolicy",
+           "ScoreIntegrityError", "ShardRuntime", "SnapshotIntegrityError",
+           "SnapshotVersionError", "StageFailedError", "TruncationWarning",
+           "WatchdogExecutor", "health_envelope"]

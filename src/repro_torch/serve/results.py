@@ -6,17 +6,20 @@
   (single-query) winner board;
 * ``plan`` — the :class:`~repro_torch.core.retrieval.RetrievalPlan` this
   batch executed under;
+* ``degradations`` — the exact-fallback-ladder trail for THIS response
+  (``[{"from", "to", "error", "detail"}, ...]``, empty on the healthy
+  path);
 * ``timings`` — seconds per serving stage, keyed by stage name
-  (``"pack_s"``, ``"execute_s"``, ``"total_s"``);
-* ``latency_s`` — pack plus execute seconds.
+  (``"total_s"`` always present; a retriever adds ``"pack_s"`` and
+  ``"execute_s"``);
+* ``degraded`` / ``shards_answered`` / ``latency_s`` — the engine-level
+  hedging fields (single-retriever results leave ``shards_answered``
+  None and set ``degraded`` iff the ladder hopped).
 
 **Tuple-unpack compatibility**: the result iterates (and indexes) as the
 two-tuple ``(ids, scores)``, as the reference's does —
 
     ids, scores = retriever.retrieve_batch(queries, k)
-
-The reference's degradation trail and engine fields come with the slices
-that port the ladder and the engine.
 """
 
 from __future__ import annotations
@@ -37,7 +40,10 @@ class RetrievalResult:
     ids: np.ndarray
     scores: np.ndarray
     plan: object | None = None
+    degradations: list = field(default_factory=list)
     timings: dict = field(default_factory=dict)
+    degraded: bool = False
+    shards_answered: int | None = None
     latency_s: float | None = None
 
     def __iter__(self):

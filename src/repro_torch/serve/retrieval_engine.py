@@ -1,39 +1,69 @@
-"""The device retriever: one scorer, three regimes, zero per-batch copies.
+"""The device retriever, its exact degradation ladder, and the sharded engine.
 
-The port's counterpart of ``repro.serve.retrieval_engine`` — the query
-path of ``DeviceRetriever`` on a resident index:
+The port's counterpart of ``repro.serve.retrieval_engine``.
 
-1. ``pack_batch`` turns the batch into pow2-bucketed ``[U]`` / ``[U, B]``
+:class:`DeviceRetriever` serves one shard's query path on a resident
+index:
+
+1. ``pack_batch`` runs the ``query.batch`` fault hook and the shared
+   sanitizer, and turns the batch into pow2-bucketed ``[U]`` / ``[U, B]``
    query tables and a ``[B]`` §2.1 shift (host numpy);
 2. ``core.retrieval.plan_retrieval`` picks full scan, gathered or pruned
-   from Σ df, nnz and (under ``auto``) the host survivor estimate;
-3. the regime runs on the device: gathered through the fragment table
-   (built on the device by ``sparse.fragment_device``, or on the host by
-   ``fragment_plan``) and kernel K1; pruned through a seed pass (K1), the
-   threshold compaction and kernel K3; full scan through kernel K2;
+   from Σ df, nnz and (under ``auto``) the host survivor estimate — the
+   entry rung of the ladder;
+3. the rung runs on the device: pruned (a seed pass through K1, the
+   threshold compaction, K3), resident (the fragment table — built on the
+   device by ``sparse.fragment_device`` or on the host by
+   ``fragment_plan`` — and K1), host (the host gather
+   ``gather_posting_runs``, one counted posting upload, K4), blocked (K2),
+   or the oracle (``ScipyBM25`` on the host);
 4. the ``[B, k]`` board is spliced with default documents, shifted, and
    finite-checked.
 
-Not ported yet (later slices, see ROADMAP): the host-gather execution,
-the degradation ladder, breakers and watchdog, doc-id reordering, shards,
-the front-end and snapshots. Asking for one raises
-:class:`~repro_torch.serve.errors.RetrievalConfigError`; a typed failure
-raises, and no fall-back hides a failing kernel.
+Any typed failure (a :class:`~repro_torch.serve.errors.RetrievalError`)
+in a rung walks the exact ladder pruned → resident → host → blocked →
+oracle, under per-rung circuit breakers, a watchdog, and a seeded retry
+of transient residency faults; every hop is recorded in the result's
+``degradations`` and in ``health()``. Any other exception — a kernel that
+does not build or launch raises ``RuntimeError`` — surfaces: no rung hides
+a failing kernel.
+
+:class:`RetrievalEngine` scatters a batch over shard runtimes (each a
+``DeviceRetriever`` or the scipy scorer) on a thread pool, merges the
+shards' top-k with quorum and deadline hedging, and rescales with runtime
+and donor reuse. Unlike the reference, whose engine defaults to
+``scorer="scipy"``, the port's defaults to ``"auto"``: an entry point of
+the port runs on the card unless asked otherwise.
+
+Not ported yet (later slices, see ROADMAP): doc-id reordering, snapshots
+(``save``/``load``/``device_index=``/``device_indexes=``) and the
+micro-batching front-end. Asking for one raises
+:class:`~repro_torch.serve.errors.RetrievalConfigError`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
-from dataclasses import replace
-from typing import Sequence
+import warnings
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+from dataclasses import dataclass, field, replace
+from functools import partial
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from ..core.index import BM25Index
+from ..core.index import BM25Index, reshard_index
+from ..core.reference import ScipyBM25
+from ..core.retrieval import merge_topk
 from ..device import resolve_device
-from .errors import (ResidencyError, RetrievalConfigError,
+from .errors import (ExecutionStalledError, ResidencyError,
+                     RetrievalConfigError, RetrievalError,
                      ScoreIntegrityError)
+from .health import health_envelope, merge_fault_counts
+from .overload import CircuitBreaker, RetryPolicy, WatchdogExecutor
 from .results import PackedBatch, RetrievalResult
 
 
@@ -43,8 +73,24 @@ def _empty_batch(n_queries: int):
     return ids, scores
 
 
+def _faults_module():
+    """The fault harness, if (and only if) something already imported it."""
+    import sys
+    return sys.modules.get("repro_torch.serve.faults")
+
+
+def _host(x) -> np.ndarray:
+    """A rung's output (a torch tensor, or numpy from the oracle) on the
+    host."""
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _not_ported(what: str) -> RetrievalConfigError:
+    return RetrievalConfigError(f"{what} is not yet ported to repro_torch")
+
+
 class DeviceRetriever:
-    """ONE device scorer, three regimes, zero per-batch posting copies.
+    """ONE device scorer, three regimes, the exact ladder around them.
 
     Builds a device-resident ``sparse.block_csr.DeviceIndex`` at
     construction (posting arrays uploaded ONCE — the block-bucketed
@@ -57,38 +103,78 @@ class DeviceRetriever:
       (the gathered cost × the estimated surviving fraction /
       ``PRUNE_DISCOUNT``); the decision and the pruning evidence are kept
       in ``self.last_plan``.
-    * ``regime="blocked"`` / ``"gathered"`` / ``"pruned"`` — force that
-      regime (the planner still runs, so the evidence is logged).
+    * ``regime="blocked"`` / ``"gathered"`` / ``"pruned"`` — that regime
+      is the entry rung (a per-call ``regime=`` forces it strictly).
 
     The pruned regime is the resident gather plus exact block-max pruning
     (:meth:`_retrieve_pruned`): the same board, less work.
 
-    ``gather="resident"`` is the only execution of this slice (the
-    host-gather rung comes with its kernel). Where the fragment table is
-    built is the ``plan`` axis:
+    The gathered regime has two executions (``gather``):
 
-    - ``plan="device"`` (the default on a CUDA device) — built from the
-      resident CSC tensors (``sparse.fragment_device``): per batch the host
-      reads no posting array and uploads zero posting AND zero descriptor
-      bytes. ``host_arrays="drop"`` then releases the host posting copy.
-    - ``plan="host"`` (the default on the CPU) — ``fragment_plan`` walks
-      the host CSC copy and ships the descriptor table per batch.
+    * ``"resident"`` (default) — the fragment table names runs of the
+      resident CSC tensors and K1 reads them. Where the table is built is
+      the ``plan`` axis: ``"device"`` (the default on a CUDA device) builds
+      it from the resident tensors (``sparse.fragment_device``), so a batch
+      uploads zero posting AND zero descriptor bytes (``host_arrays="drop"``
+      then releases the host posting copy); ``"host"`` (the default
+      elsewhere) walks the host CSC copy with ``fragment_plan`` and ships
+      the descriptor table.
+    * ``"host"`` — the candidate-compacted host gather
+      (``gather_posting_runs``) and K4; ships O(Σ df) postings per batch,
+      with a hot-token LRU (``run_cache`` entries,
+      :class:`~repro_torch.sparse.block_csr.PostingRunCache`). It is also
+      the ladder's third rung.
 
-    ``double_buffer`` is accepted for signature parity (one CUDA kernel
-    serves both TPU schedules, which are bit-identical by contract).
+    ``acc_block`` is the host gather's chunk height (candidate slots per
+    K4 CTA). ``double_buffer`` is accepted for signature parity (one CUDA
+    kernel serves both TPU schedules, which are bit-identical by
+    contract). ``reuse_from`` adopts a donor ``DeviceIndex``'s resident
+    tensors when the postings are unchanged (engine rescale).
+
+    Fault handling (``on_fault``): ``"degrade"`` (default) walks the ladder
+    on a typed failure; ``"raise"`` makes every call strict. ``watchdog_s``
+    runs each rung under a deadline (a miss is a typed
+    ``ExecutionStalledError``); ``retry_budget`` retries a transient
+    ``ResidencyError`` on the same rung with seeded backoff
+    (``retry_backoff_s``, ``retry_seed``); ``breaker_threshold`` faults in
+    ``breaker_window_s`` open a rung's breaker for ``breaker_cooldown_s``
+    (None disables the breakers).
+
     ``device`` defaults to ``"cuda"`` and raises without a GPU; the CPU
     tests pass ``device="cpu"``, where every kernel runs its plain twin.
     """
 
     def __init__(self, index: BM25Index, *, regime: str = "auto",
-                 block_size: int = 512, tile: int = 512, q_max: int = 32,
-                 frag: int = 512, crossover: float | None = None,
-                 gather: str | None = None, plan: str | None = None,
-                 double_buffer: bool = True, host_arrays: str = "keep",
-                 bmax_dtype: str = "auto", device=None):
-        from ..sparse.block_csr import DeviceIndex
+                 block_size: int = 512, tile: int = 512,
+                 acc_block: int = 512, q_max: int = 32, frag: int = 512,
+                 crossover: float | None = None, gather: str | None = None,
+                 plan: str | None = None, double_buffer: bool = True,
+                 host_arrays: str = "keep", run_cache: int = 256,
+                 bmax_dtype: str = "auto", reorder: str = "none",
+                 reuse_from=None, device_index=None,
+                 on_fault: str = "degrade",
+                 watchdog_s: float | None = None, retry_budget: int = 0,
+                 retry_backoff_s: float = 0.005, retry_seed: int = 0,
+                 breaker_threshold: int | None = 3,
+                 breaker_window_s: float = 30.0,
+                 breaker_cooldown_s: float = 5.0, device=None):
+        from ..sparse.block_csr import DeviceIndex, PostingRunCache
         if regime not in ("auto", "blocked", "gathered", "pruned"):
             raise RetrievalConfigError(f"unknown regime {regime!r}")
+        if on_fault not in ("degrade", "raise"):
+            raise RetrievalConfigError(f"unknown on_fault mode {on_fault!r}")
+        if watchdog_s is not None and watchdog_s <= 0:
+            raise RetrievalConfigError("watchdog_s must be positive "
+                                       "(or None to disable)")
+        if retry_budget < 0:
+            raise RetrievalConfigError("retry_budget must be >= 0")
+        if breaker_threshold is not None and breaker_threshold < 1:
+            raise RetrievalConfigError("breaker_threshold must be >= 1 "
+                                       "(or None to disable breakers)")
+        if reorder != "none":
+            raise _not_ported(f"reorder={reorder!r}")
+        if device_index is not None:
+            raise _not_ported("device_index= adoption (snapshots)")
         gather = "resident" if gather is None else gather
         if gather not in ("resident", "host"):
             raise RetrievalConfigError(f"unknown gather mode {gather!r}")
@@ -98,7 +184,8 @@ class DeviceRetriever:
                 'block-max table — it requires gather="resident"')
         self.device = resolve_device(device)
         if plan is None:
-            plan = "device" if self.device.type == "cuda" else "host"
+            plan = ("device" if gather == "resident"
+                    and self.device.type == "cuda" else "host")
         if plan not in ("host", "device"):
             raise RetrievalConfigError(f"unknown plan mode {plan!r}")
         if plan == "device" and gather != "resident":
@@ -112,25 +199,55 @@ class DeviceRetriever:
             raise RetrievalConfigError(
                 'host_arrays="drop" removes the arrays the host fragment '
                 'planner reads — it requires plan="device"')
-        if gather == "host":
-            raise RetrievalConfigError(
-                'gather="host" is not yet ported to repro_torch')
         self.index = index
         self.regime = regime
+        self.gather_mode = gather
         self.plan_mode = plan
         self.double_buffer = double_buffer
         self.q_max = q_max                       # bucket floor, not a cap
         self.block_size = block_size
+        self.tile = tile
+        self.acc_block = acc_block               # host-gather chunk height
         self.crossover = crossover
         self.n_docs = int(index.doc_lens.size)
-        with_csc = regime in ("auto", "gathered", "pruned")
+        self.run_cache = (PostingRunCache(run_cache)
+                          if gather == "host" and run_cache > 0 else None)
+        with_csc = (regime in ("auto", "gathered", "pruned")
+                    and gather == "resident")
         self.dindex = DeviceIndex.build(
             index, device=self.device, block_size=block_size, tile=tile,
             frag=frag, with_blocked=regime in ("auto", "blocked"),
             with_csc=with_csc,
             with_bmax=with_csc and regime in ("auto", "pruned"),
-            bmax_dtype=bmax_dtype, host_arrays=host_arrays)
+            bmax_dtype=bmax_dtype, host_arrays=host_arrays,
+            reuse_from=reuse_from)
         self._nf_state = {}                      # steady-state nf bucket
+        self.on_fault = on_fault
+        # overload protection: watchdog-guarded execution, seeded bounded
+        # retry on transient residency faults, and per-rung circuit
+        # breakers giving the ladder memory across batches
+        self.watchdog_s = watchdog_s
+        self._watchdog = (WatchdogExecutor(watchdog_s,
+                                           name="retriever-watchdog")
+                          if watchdog_s is not None else None)
+        self._retry = RetryPolicy(budget=retry_budget,
+                                  base_s=retry_backoff_s, seed=retry_seed)
+        self._breakers = ({hop: CircuitBreaker(
+            threshold=breaker_threshold, window_s=breaker_window_s,
+            cooldown_s=breaker_cooldown_s) for hop in self._LADDER}
+            if breaker_threshold is not None else None)
+        # observability: ladder + sanitizer counters feeding health().
+        # Mutations go through _health_lock — concurrent callers (the
+        # engine's pool) must leave counts that sum exactly.
+        self._health_lock = threading.RLock()
+        self.fault_counters: dict[str, int] = {}
+        self.query_counters: dict[str, int] = {}
+        self.degradation_counts: dict[str, int] = {}
+        self.batches_served = 0
+        self.batches_degraded = 0
+        self.retry_count = 0
+        self.last_queries: list[np.ndarray] = []
+        self._oracle = None                      # lazy ScipyBM25 (last rung)
         if host_arrays == "drop":
             # serving now reads only metadata: a private stripped view (the
             # caller's index object is untouched)
@@ -138,16 +255,11 @@ class DeviceRetriever:
                                  scores=np.zeros(0, np.float32))
         self.last_plan = None
 
-    def _host_postings_intact(self) -> bool:
-        """False once ``host_arrays="drop"`` released the host copy."""
-        return int(self.index.doc_ids.size) == int(self.index.indptr[-1])
-
     def warmup(self, *, k: int) -> None:
-        """Run each regime this retriever serves once (builds the kernels).
-
-        ``auto`` warms blocked and gathered; the pruned kernels build on
-        the first batch the cost model routes there, as in the reference.
-        """
+        """Run each rung this retriever enters on a one-token batch (builds
+        the kernels). ``auto`` warms blocked and gathered (through the
+        configured gather); the pruned kernels build on the first batch
+        the cost model routes there, as in the reference."""
         if self.n_docs == 0 or k <= 0:
             return
         q = np.zeros(1, dtype=np.int32)
@@ -156,10 +268,145 @@ class DeviceRetriever:
                 and self.dindex.blk_tok is not None):
             self.retrieve_batch([q], kk, regime="blocked")
         if (self.regime in ("auto", "gathered")
-                and self.dindex.csc_doc_ids is not None):
+                and (self.gather_mode == "host"
+                     or self.dindex.csc_doc_ids is not None)):
             self.retrieve_batch([q], kk, regime="gathered")
         if self.regime == "pruned":
             self.retrieve_batch([q], kk, regime="pruned")
+
+    def health(self) -> dict:
+        """Schema-2 health report (see ``repro_torch.serve``).
+
+        ``served``/``degraded`` count BATCHES at this level; ``degraded``
+        means the exact-fallback ladder hopped at least once. Level extras:
+        the legacy spellings ``batches_served``/``batches_degraded``,
+        ``degradations`` (hop counts keyed ``"from->to"``), ``breakers``
+        (per-rung state snapshots), ``retries`` (seeded-backoff
+        re-attempts that saved a hop) and ``watchdog`` (armed deadline and
+        stall count).
+        """
+        now = time.monotonic()
+        with self._health_lock:
+            breakers = ({hop: br.snapshot(now)
+                         for hop, br in self._breakers.items()}
+                        if self._breakers is not None else {})
+            return health_envelope(
+                served=self.batches_served,
+                degraded=self.batches_degraded,
+                faults=dict(self.fault_counters),
+                queries=dict(self.query_counters),
+                batches_served=self.batches_served,
+                batches_degraded=self.batches_degraded,
+                degradations=dict(self.degradation_counts),
+                breakers=breakers,
+                retries=self.retry_count,
+                watchdog=({"timeout_s": self._watchdog.timeout_s,
+                           "stalls": self._watchdog.stalls}
+                          if self._watchdog is not None else {}),
+            )
+
+    def save(self, path, *, algo: str | None = None) -> dict:
+        """Persisting the resident index waits for the snapshot slice."""
+        raise _not_ported("DeviceRetriever.save (snapshots)")
+
+    # -- the graceful-degradation ladder ---------------------------------
+    #
+    # Five rungs, all EXACT: pruned -> gathered-resident -> host-gather ->
+    # blocked full-scan -> ScipyBM25 oracle. A typed RetrievalError in one
+    # rung triggers the hop to the next AVAILABLE rung (capability depends
+    # on the layouts this retriever was built with); results never change
+    # across hops — only the cost. The trail is recorded in
+    # ``last_plan.degradations`` and aggregated into ``health()``.
+
+    _LADDER = ("pruned", "resident", "host", "blocked", "oracle")
+
+    def _host_postings_intact(self) -> bool:
+        """False once ``host_arrays="drop"`` released the host copy."""
+        return int(self.index.doc_ids.size) == int(self.index.indptr[-1])
+
+    def _hop_available(self, hop: str, kk: int) -> bool:
+        """Can this rung run with the layouts this retriever holds?"""
+        if hop == "pruned":
+            return (self.gather_mode == "resident"
+                    and self.dindex.bmax is not None
+                    and self.dindex.csc_doc_ids is not None
+                    and kk <= self.dindex.block_size)
+        if hop == "resident":
+            return self.dindex.csc_doc_ids is not None and (
+                self.plan_mode == "device" or self._host_postings_intact())
+        if hop in ("host", "oracle"):
+            return self._host_postings_intact()
+        if hop == "blocked":
+            return self.dindex.blk_tok is not None
+        return False
+
+    def _breaker_allow(self, hop: str) -> bool:
+        """May the ladder run this rung now? (half-open claims its probe)."""
+        if self._breakers is None:
+            return True
+        with self._health_lock:
+            return self._breakers[hop].allow(time.monotonic())
+
+    def _breaker_record(self, hop: str, *, ok: bool) -> None:
+        if self._breakers is None:
+            return
+        with self._health_lock:
+            br = self._breakers[hop]
+            if ok:
+                br.record_success(time.monotonic())
+            else:
+                br.record_fault(time.monotonic())
+
+    def trip_breaker(self, hop: str, *,
+                     cooldown_s: float | None = None) -> None:
+        """Operator override: force a rung's breaker open for a cooldown.
+
+        The ladder then skips ``hop`` (recording a ``BreakerOpen`` trail
+        entry) and serves exactly from the remaining rungs until the
+        cooldown's half-open probe closes the breaker again. Raises
+        :class:`RetrievalConfigError` when breakers are disabled
+        (``breaker_threshold=None``) or ``hop`` is not a ladder rung.
+        """
+        if self._breakers is None:
+            raise RetrievalConfigError(
+                "circuit breakers are disabled on this retriever "
+                "(breaker_threshold=None)")
+        if hop not in self._breakers:
+            raise RetrievalConfigError(
+                f"unknown ladder rung {hop!r}; available: "
+                f"{list(self._LADDER)}")
+        with self._health_lock:
+            self._breakers[hop].force_open(time.monotonic(),
+                                           cooldown_s=cooldown_s)
+
+    def _run_hop(self, hop, packed, weights, shift, kk, plan, prune_ub, *,
+                 strict, guard_cm):
+        """One execution attempt of a rung: the ``kernel.stall`` fault
+        site, then ``_exec_hop`` — under the watchdog deadline when armed.
+
+        The watchdog runs the body on its supervised worker thread, so the
+        ladder guard scope (thread-local) is re-entered ON that thread via
+        ``ctx=``; a deadline miss abandons the stalled worker and surfaces
+        as :class:`ExecutionStalledError` tagged with the rung. Strict
+        calls bypass the watchdog: warmup's forced-regime calls pay
+        one-off kernel builds that a serving-sized deadline would misread
+        as stalls.
+        """
+        def body():
+            _f = _faults_module()
+            if _f is not None and _f.ACTIVE:
+                _f.fire("kernel.stall")
+            return self._exec_hop(hop, packed, weights, shift, kk, plan,
+                                  prune_ub)
+
+        if self._watchdog is not None and not strict:
+            try:
+                return self._watchdog.run(body, ctx=guard_cm)
+            except ExecutionStalledError as e:
+                e.hop = hop
+                raise
+        with guard_cm():
+            return body()
 
     def _pack_batch(self, query_tokens):
         """Batch -> padded query tables, every device dim pow2-bucketed.
@@ -189,16 +436,45 @@ class DeviceRetriever:
                                           wts)
         return b_true, uniq_batch, uniq_tab, weights, shift
 
-    def pack_batch(self, query_tokens: Sequence[np.ndarray]) -> PackedBatch:
-        """Host half of :meth:`retrieve_batch`: sanitizer + pow2 pack.
+    def pack_batch(self, query_tokens: Sequence[np.ndarray], *,
+                   strict: bool | None = None) -> PackedBatch:
+        """Host half of :meth:`retrieve_batch`: fault hook + sanitizer +
+        pow2 pack.
 
+        Runs exactly the stages ``retrieve_batch`` runs before planning —
+        the ``query.batch`` fault site, the shared sanitizer
+        (``core.retrieval.validate_query_batch``, counting repairs into
+        ``query_counters``), and ``_pack_batch``'s pow2 bucketing — so
         ``retrieve_batch(None, k, packed=pack_batch(qs))`` equals
-        ``retrieve_batch(qs, k)``.
+        ``retrieve_batch(qs, k)``. ``strict`` mirrors the retrieve-side
+        strictness (default: the constructor's ``on_fault``); strict packs
+        surface faults instead of entering the recoverable guard scope.
         """
         from ..core.retrieval import validate_query_batch
         t0 = time.perf_counter()
-        qs = validate_query_batch(query_tokens, self.index.n_vocab)
-        if self.n_docs == 0:
+        if strict is None:
+            strict = self.on_fault == "raise"
+        _f = _faults_module()
+        # guarded faults target RECOVERABLE scopes only: a strict call
+        # re-raises instead of degrading, so it never enters the guard
+        guard = (_f.guard if _f is not None and not strict
+                 else contextlib.nullcontext)
+        if _f is not None and _f.ACTIVE:
+            with guard():
+                query_tokens = _f.fire("query.batch", list(query_tokens),
+                                       n_vocab=self.index.n_vocab)
+        # sanitize into a LOCAL counter dict, merged under the health lock
+        # (concurrent callers must not drop increments)
+        local_counts: dict[str, int] = {}
+        qs = validate_query_batch(
+            query_tokens, self.index.n_vocab, counters=local_counts,
+            on_invalid="raise" if self.on_fault == "raise" else "sanitize")
+        if local_counts:
+            with self._health_lock:
+                for key, v in local_counts.items():
+                    self.query_counters[key] = \
+                        self.query_counters.get(key, 0) + v
+        if self.n_docs == 0:                     # empty shard post-rescale
             return PackedBatch(qs, len(qs), np.zeros(0, np.int32), None,
                                None, None,
                                pack_s=time.perf_counter() - t0)
@@ -212,7 +488,8 @@ class DeviceRetriever:
         r = self.retrieve_batch([np.asarray(query_tokens)], k)
         return RetrievalResult(
             ids=r.ids[0], scores=r.scores[0], plan=r.plan,
-            timings=r.timings, latency_s=r.latency_s)
+            degradations=r.degradations, timings=r.timings,
+            degraded=r.degraded, latency_s=r.latency_s)
 
     def retrieve_batch(self, query_tokens: Sequence[np.ndarray] | None,
                        k: int, *, regime: str | None = None,
@@ -220,16 +497,32 @@ class DeviceRetriever:
                        ) -> RetrievalResult:
         """B queries -> :class:`RetrievalResult` with ``[B, k]`` boards.
 
-        ``regime`` overrides this call's plan. Every returned board passes
-        a ``[B, k]`` finite-check; a NaN/Inf entry raises
-        :class:`~repro_torch.serve.errors.ScoreIntegrityError`.
+        ``regime`` overrides this call's plan and makes the call STRICT —
+        a typed failure surfaces instead of degrading (a forced regime that
+        cannot run is an operator error, not traffic to absorb). Normal
+        traffic leaves it None: the cost model picks the entry rung and any
+        typed failure walks the exact ladder, recording each hop in the
+        result's ``degradations`` (also ``last_plan.degradations``).
+        ``on_fault="raise"`` (constructor) makes every call strict. Every
+        returned board passes a ``[B, k]`` finite-check; a NaN/Inf entry
+        is a :class:`~repro_torch.serve.errors.ScoreIntegrityError` —
+        degraded around like any other typed fault.
+
+        ``packed`` resumes from a prior :meth:`pack_batch` (``query_tokens``
+        is then ignored and may be None).
         """
         from ..core.retrieval import plan_retrieval
+        strict = regime is not None or self.on_fault == "raise"
+        _f = _faults_module()
+        guard = (_f.guard if _f is not None and not strict
+                 else contextlib.nullcontext)
         if packed is None:
-            packed = self.pack_batch(query_tokens)
+            packed = self.pack_batch(query_tokens, strict=strict)
         t_start = time.perf_counter()            # exec clock excludes pack
-        if self.n_docs == 0 or k <= 0:
-            ids0, sc0 = _empty_batch(len(packed.qs))
+        qs = packed.qs
+        self.last_queries = qs
+        if self.n_docs == 0 or k <= 0:           # empty shard post-rescale
+            ids0, sc0 = _empty_batch(len(qs))
             return RetrievalResult(
                 ids=ids0, scores=sc0,
                 timings={"pack_s": packed.pack_s, "execute_s": 0.0,
@@ -239,9 +532,7 @@ class DeviceRetriever:
         kk = min(k, self.n_docs)
         # the pruned regime needs the block-max table and an accumulator
         # window matching its block grid (k can outgrow the block height)
-        prune_ok = (self.dindex.bmax is not None
-                    and self.dindex.csc_doc_ids is not None
-                    and kk <= self.dindex.block_size)
+        prune_ok = self._hop_available("pruned", kk)
         want = regime or self.regime
         survivor_frac, prune_ub = None, None
         # the host estimate feeds the auto cost model and (under host
@@ -257,7 +548,11 @@ class DeviceRetriever:
                               self.dindex.nnz, regime=want,
                               crossover=self.crossover, plan=self.plan_mode,
                               survivor_frac=survivor_frac)
+        self.last_plan = plan
         if plan.regime == "pruned" and not prune_ok:
+            if self.gather_mode != "resident":
+                raise RetrievalConfigError('regime="pruned" requires '
+                                           'gather="resident"')
             if self.dindex.csc_doc_ids is None or self.dindex.bmax is None:
                 raise ResidencyError("pruned regime requested but this "
                                      "retriever was built without the "
@@ -269,38 +564,112 @@ class DeviceRetriever:
             plan = plan_retrieval(plan.sum_df, plan.nnz, regime="gathered",
                                   crossover=self.crossover,
                                   plan=self.plan_mode)
-            plan.regime = "pruned"
-            pruned = False
+            plan.regime, plan.forced = "pruned", True
+            self.last_plan = plan
+            entry = "resident"
+        elif plan.regime == "pruned":
+            entry = "pruned"
+        elif plan.regime == "blocked":
+            entry = "blocked"
         else:
-            pruned = plan.regime == "pruned"
-        self.last_plan = plan
+            entry = "resident" if self.gather_mode == "resident" else "host"
+
         dev = self.device
         weights = torch.as_tensor(packed.weights, device=dev)
         shift = torch.as_tensor(packed.shift, device=dev)
-        if pruned:
-            ids, vals = self._retrieve_pruned(packed, weights, shift, kk,
-                                              plan, ub=prune_ub)
-        elif plan.regime == "blocked":
-            ids, vals = self._exec_blocked(packed.uniq_tab, weights, shift,
-                                           kk)
-        else:
-            ids, vals = self._exec_resident(packed.uniq_batch,
-                                            packed.uniq_tab, weights, shift,
-                                            kk, plan)
-        board = vals[:b].cpu().numpy()
-        # cheap integrity gate on the [B, k] board — the full score matrix
-        # never materializes on these paths
-        if not np.isfinite(board).all():
-            raise ScoreIntegrityError(
-                f"non-finite entries in the [{b}, {kk}] score board "
-                f"returned by the {plan.regime!r} regime")
-        ids = ids[:b].cpu().numpy().astype(np.int64)
-        exec_s = time.perf_counter() - t_start
-        return RetrievalResult(
-            ids=ids + self.index.doc_offset, scores=board, plan=plan,
-            timings={"pack_s": packed.pack_s, "execute_s": exec_s,
-                     "total_s": packed.pack_s + exec_s},
-            latency_s=packed.pack_s + exec_s)
+        trail = plan.degradations
+        hops = ((entry,) if strict
+                else self._LADDER[self._LADDER.index(entry):])
+        last_err = None
+        with self._health_lock:
+            self.batches_served += 1
+        for hop in hops:
+            if hop != entry and not self._hop_available(hop, kk):
+                continue
+            if not strict and not self._breaker_allow(hop):
+                # the breaker remembers this rung's recent faults: skip it
+                # WITHOUT execution and let the next rung fill the trail
+                # entry's "to"
+                trail.append({"from": hop, "to": None,
+                              "error": "BreakerOpen",
+                              "detail": f"circuit breaker open for rung "
+                                        f"{hop!r} (skipped without "
+                                        f"execution)"})
+                continue
+            if trail and trail[-1]["to"] is None:
+                trail[-1]["to"] = hop
+            # transient-fault retry: seeded exponential backoff with a
+            # bounded budget before burning a ladder hop (strict calls
+            # surface the first fault instead)
+            delays = self._retry.delays() if not strict else []
+            board = None
+            while board is None:
+                try:
+                    ids, vals = self._run_hop(
+                        hop, packed, weights, shift, kk, plan, prune_ub,
+                        strict=strict, guard_cm=guard)
+                    cand = _host(vals)[:b].astype(np.float32, copy=False)
+                    # cheap integrity gate on the [B, k] board — the full
+                    # score matrix never materializes on these paths
+                    if not np.isfinite(cand).all():
+                        raise ScoreIntegrityError(
+                            f"non-finite entries in the [{b}, {kk}] "
+                            f"score board returned by the {hop!r} hop")
+                    board = cand
+                except RetrievalError as e:
+                    name = type(e).__name__
+                    with self._health_lock:
+                        self.fault_counters[name] = \
+                            self.fault_counters.get(name, 0) + 1
+                    if strict:
+                        raise
+                    if isinstance(e, ResidencyError) and delays:
+                        with self._health_lock:
+                            self.retry_count += 1
+                        time.sleep(delays.pop(0))
+                        continue
+                    self._breaker_record(hop, ok=False)
+                    trail.append({"from": hop, "to": None, "error": name,
+                                  "detail": str(e)})
+                    last_err = e
+                    break
+            if board is None:
+                continue
+            self._breaker_record(hop, ok=True)
+            if trail:
+                with self._health_lock:
+                    self.batches_degraded += 1
+                    for t in trail:
+                        key = f"{t['from']}->{t['to']}"
+                        self.degradation_counts[key] = \
+                            self.degradation_counts.get(key, 0) + 1
+            ids = _host(ids)[:b].astype(np.int64)
+            exec_s = time.perf_counter() - t_start
+            return RetrievalResult(
+                ids=ids + self.index.doc_offset, scores=board, plan=plan,
+                degradations=list(trail), degraded=bool(trail),
+                timings={"pack_s": packed.pack_s, "execute_s": exec_s,
+                         "total_s": packed.pack_s + exec_s},
+                latency_s=packed.pack_s + exec_s)
+        raise RetrievalError(
+            f"every ladder hop failed or is unavailable (entry "
+            f"{entry!r}, degradations {trail!r})") from last_err
+
+    def _exec_hop(self, hop, packed, weights, shift, kk, plan, prune_ub):
+        if hop == "pruned":
+            return self._retrieve_pruned(packed, weights, shift, kk, plan,
+                                         ub=prune_ub)
+        if hop == "resident":
+            return self._exec_resident(packed.uniq_batch, packed.uniq_tab,
+                                       weights, shift, kk, plan)
+        if hop == "host":
+            return self._exec_host(packed.uniq_batch, packed.uniq_tab,
+                                   weights, shift, kk)
+        if hop == "blocked":
+            return self._exec_blocked(packed.uniq_tab, weights, shift, kk)
+        if hop == "oracle":
+            return self._exec_oracle(packed.qs, kk)
+        raise AssertionError(f"unknown ladder hop {hop!r}")
 
     def _exec_blocked(self, uniq_tab, weights, shift, kk):
         from ..kernels import ops
@@ -356,6 +725,56 @@ class DeviceRetriever:
             desc, weights, self.dindex.csc_doc_ids, self.dindex.csc_scores,
             dids, shift, block_size=rblock, frag=self.dindex.frag, k=kk,
             n_docs=self.n_docs, double_buffer=self.double_buffer)
+
+    def _exec_host(self, uniq_batch, uniq_tab, weights, shift, kk):
+        """The host-gather rung: gather the batch's posting runs on the
+        host, upload them (the per-batch posting copy the resident path
+        eliminates, routed through the counting helper on purpose) and
+        score them with K4."""
+        from ..core.scoring import bucket_pow2
+        from ..kernels import ops
+        from ..sparse.block_csr import (gather_posting_runs,
+                                        put_posting_arrays)
+        if not self._host_postings_intact():
+            raise ResidencyError("host gather needs the host posting "
+                                 'arrays, which host_arrays="drop" '
+                                 "released")
+        # the chunk height grows only if k outruns it
+        acc_block = bucket_pow2(kk, floor=self.acc_block)
+        gp = gather_posting_runs(self.index, uniq_batch,
+                                 acc_block=acc_block, tile=self.tile,
+                                 cache=self.run_cache)
+        tok, slot, sc, cand = put_posting_arrays(
+            gp.token_ids, gp.slot_ids, gp.scores, gp.candidates,
+            device=self.device)
+        return ops.bm25_retrieve_gathered(
+            tok, slot, sc, torch.as_tensor(uniq_tab, device=self.device),
+            weights, cand, shift, acc_block=gp.acc_block, k=kk,
+            n_docs=self.n_docs)
+
+    def _exec_oracle(self, qs, kk):
+        """Terminal rung: the paper-faithful numpy/scipy scorer.
+
+        Host-side and slow, but it cannot fail for device reasons — the
+        ladder's floor. Exact by definition: it IS the reference the
+        device regimes are tested against. Ids come back shard-local (the
+        caller adds ``doc_offset``, as for every other hop).
+        """
+        if not self._host_postings_intact():
+            raise ResidencyError('oracle fallback needs the host posting '
+                                 'arrays, which host_arrays="drop" '
+                                 "released")
+        from ..core.retrieval import topk_numpy
+        if self._oracle is None:
+            self._oracle = ScipyBM25(self.index)
+        b = len(qs)
+        ids = np.zeros((b, kk), np.int64)
+        vals = np.zeros((b, kk), np.float32)
+        for i, q in enumerate(qs):
+            s = self._oracle.score(q)
+            idx, v = topk_numpy(s[None], kk)
+            ids[i], vals[i] = idx[0], v[0]
+        return ids, vals
 
     def _plan_pruned(self, packed: PackedBatch, weights, kk: int, sum_df,
                      *, ub=None):
@@ -453,3 +872,352 @@ class DeviceRetriever:
         plan.frags_pruned = nf_planned - nf_surv
         plan.frags_skipped = int(skipped)
         return ids, vals
+
+
+# -- deprecated regime aliases -------------------------------------------
+#
+# The forced-regime subclasses predate ``DeviceRetriever(regime=...)``;
+# they add nothing the keyword does not, so they are deprecation shims.
+# Each warns ONCE per process, tracked in ``_ALIAS_WARNED``; tests reset it
+# via :func:`_reset_alias_warnings`.
+
+_ALIAS_WARNED: set[str] = set()
+
+
+def _reset_alias_warnings() -> None:
+    """Re-arm the once-per-alias deprecation warnings (test hook)."""
+    _ALIAS_WARNED.clear()
+
+
+def _warn_alias(name: str, regime: str) -> None:
+    if name in _ALIAS_WARNED:
+        return
+    _ALIAS_WARNED.add(name)
+    warnings.warn(
+        f"{name} is deprecated; use DeviceRetriever(index, "
+        f"regime={regime!r}) instead",
+        DeprecationWarning, stacklevel=3)
+
+
+class BlockedRetriever(DeviceRetriever):
+    """Deprecated alias for ``DeviceRetriever(regime="blocked")``."""
+
+    def __init__(self, index: BM25Index, *, block_size: int = 512,
+                 tile: int = 512, q_max: int = 32, **kwargs):
+        _warn_alias("BlockedRetriever", "blocked")
+        super().__init__(index, regime="blocked", block_size=block_size,
+                         tile=tile, q_max=q_max, **kwargs)
+
+
+class GatheredRetriever(DeviceRetriever):
+    """Deprecated alias for ``DeviceRetriever(regime="gathered")``."""
+
+    def __init__(self, index: BM25Index, *, tile: int = 512,
+                 acc_block: int = 512, q_max: int = 32, **kwargs):
+        _warn_alias("GatheredRetriever", "gathered")
+        super().__init__(index, regime="gathered", tile=tile,
+                         acc_block=acc_block, q_max=q_max, **kwargs)
+
+
+class PrunedRetriever(DeviceRetriever):
+    """Deprecated alias for ``DeviceRetriever(regime="pruned")``."""
+
+    def __init__(self, index: BM25Index, *, tile: int = 512,
+                 q_max: int = 32, **kwargs):
+        _warn_alias("PrunedRetriever", "pruned")
+        super().__init__(index, regime="pruned", tile=tile, q_max=q_max,
+                         **kwargs)
+
+
+# partials, not the alias classes: engine-internal construction must not
+# fire the deprecation warnings users are being migrated off of
+_SCORERS = {"scipy": ScipyBM25, "auto": DeviceRetriever,
+            "blocked": partial(DeviceRetriever, regime="blocked"),
+            "gathered": partial(DeviceRetriever, regime="gathered"),
+            "pruned": partial(DeviceRetriever, regime="pruned")}
+
+
+@dataclass
+class ShardRuntime:
+    """One shard's scorer (thread-simulated shard server)."""
+
+    index: BM25Index
+    delay: Callable[[], float] | None = None     # test hook: seconds to sleep
+    scorer: str = "auto"           # "scipy"|"auto"|"blocked"|"gathered"|...
+    scorer_opts: dict = field(default_factory=dict)  # device-scorer kwargs
+
+    def __post_init__(self):
+        if self.scorer not in _SCORERS:
+            raise RetrievalConfigError(f"unknown scorer {self.scorer!r}; "
+                                       f"available: {sorted(_SCORERS)}")
+        self._scorer = _SCORERS[self.scorer](self.index, **self.scorer_opts)
+
+    def health(self) -> dict:
+        """Schema-2 health report for this shard. ``served``/``degraded``
+        count this shard's batches (the scipy scorer has no counters —
+        zeros)."""
+        sc = self._scorer
+        return health_envelope(
+            served=getattr(sc, "batches_served", 0),
+            degraded=getattr(sc, "batches_degraded", 0),
+            faults=dict(getattr(sc, "fault_counters", {})),
+            queries=dict(getattr(sc, "query_counters", {})),
+            scorer=self.scorer,
+            batches_served=getattr(sc, "batches_served", 0),
+            batches_degraded=getattr(sc, "batches_degraded", 0),
+            degradations=dict(getattr(sc, "degradation_counts", {})),
+        )
+
+    def warmup(self, k: int) -> None:
+        """Build the device scorer's kernels so query #1 skips the build."""
+        fn = getattr(self._scorer, "warmup", None)
+        if fn is not None:
+            fn(k=k)
+
+    def topk(self, query_tokens: np.ndarray, k: int
+             ) -> tuple[np.ndarray, np.ndarray]:
+        if self.delay is not None:
+            time.sleep(self.delay())
+        return self._scorer.retrieve(query_tokens, k)
+
+    def topk_batch(self, query_batch: Sequence[np.ndarray], k: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """[B queries] -> (ids [B, k'], scores [B, k']) for this shard."""
+        if self.delay is not None:
+            time.sleep(self.delay())
+        fn = getattr(self._scorer, "retrieve_batch", None)
+        if fn is not None:                       # one launch for B
+            return fn(query_batch, k)
+        parts = [self._scorer.retrieve(q, k) for q in query_batch]
+        kk = min((p[0].size for p in parts), default=0)
+        ids = np.stack([p[0][:kk] for p in parts]) if parts else \
+            np.zeros((0, 0), np.int64)
+        sc = np.stack([p[1][:kk] for p in parts]) if parts else \
+            np.zeros((0, 0), np.float32)
+        return ids.astype(np.int64), sc.astype(np.float32)
+
+
+def _same_shard(a: BM25Index, b: BM25Index) -> bool:
+    """Byte-identical postings, doc range AND shift vector — safe to keep
+    the resident device tensors of ``a``'s runtime for ``b``. ``doc_lens``
+    must match too: a boundary moving through posting-less documents
+    changes the shard's doc range without changing a single posting, and
+    reusing the old runtime would then serve documents a neighbor shard
+    now owns (duplicate results after the merge)."""
+    return a is b or (
+        int(a.doc_offset) == int(b.doc_offset)
+        and np.array_equal(a.doc_lens, b.doc_lens)
+        and np.array_equal(a.indptr, b.indptr)
+        and np.array_equal(a.doc_ids, b.doc_ids)
+        and np.array_equal(a.scores, b.scores)
+        and np.array_equal(a.nonoccurrence, b.nonoccurrence))
+
+
+class RetrievalEngine:
+    """Hedged scatter-gather over document shards, with elastic rescale.
+
+    Each shard runs in a :class:`ShardRuntime` (``scorer``: ``"auto"``, the
+    default — a :class:`DeviceRetriever` on the card; ``"blocked"`` /
+    ``"gathered"`` / ``"pruned"``, its forced-regime variants; or
+    ``"scipy"``, the host reference). ``scorer_opts`` go to every device
+    scorer (``device="cpu"`` runs the kernels' plain twins). A batch is
+    submitted to every shard on a thread pool; the merge proceeds once a
+    ``quorum`` of the shards has answered by ``deadline_s`` (late shards
+    are dropped from that response, which is then ``degraded``) — the
+    answered shards' winners keep their exact scores.
+    ``rescale(n_shards)`` re-buckets the postings (host re-slicing,
+    ``core.index.reshard_index``); runtimes whose shard is byte-identical
+    are kept, and a rebuilt shard whose postings did not change adopts its
+    donor's resident tensors (``last_build_stats``).
+    """
+
+    def __init__(self, shards: Sequence[BM25Index], *, k: int = 10,
+                 deadline_s: float = 0.5, quorum: float = 0.75,
+                 max_workers: int = 8,
+                 delay: Callable[[int], Callable[[], float] | None] = None,
+                 scorer: str = "auto", warmup: bool = True,
+                 scorer_opts: dict | None = None,
+                 device_indexes: Sequence | None = None):
+        if device_indexes is not None:
+            raise _not_ported("device_indexes= adoption (snapshots)")
+        self.k = k
+        self.deadline_s = deadline_s
+        self.quorum = quorum
+        self.scorer = scorer
+        self.scorer_opts = dict(scorer_opts or {})
+        self.warmup = warmup
+        self._delay_factory = delay
+        self._pool = ThreadPoolExecutor(max_workers=max_workers)
+        self.query_counters: dict[str, int] = {}
+        self._responses = 0
+        self._degraded_responses = 0
+        self._build_runtimes(list(shards))
+
+    def _build_runtimes(self, shards: list[BM25Index]) -> None:
+        """(Re)build shard runtimes, REUSING any whose postings didn't move.
+
+        A runtime whose index is byte-identical to a new shard keeps its
+        resident tensors and built kernels (no upload, no warmup); a new
+        shard whose postings equal an old runtime's (its doc range moved
+        through posting-less documents) adopts that donor's resident
+        layouts through ``DeviceIndex.build(reuse_from=)``.
+        ``last_build_stats`` records the split.
+        """
+        from ..sparse.block_csr import DeviceIndex
+        old = list(getattr(self, "runtimes", []))
+        pool: dict[tuple, list[ShardRuntime]] = {}
+        for rt in old:
+            key = (int(rt.index.doc_offset), int(rt.index.doc_ids.size))
+            pool.setdefault(key, []).append(rt)
+        runtimes, reused, blockmax_reused = [], 0, 0
+        for i, s in enumerate(shards):
+            delay = self._delay_factory(i) if self._delay_factory else None
+            cands = pool.get((int(s.doc_offset), int(s.doc_ids.size)), [])
+            hit = next((rt for rt in cands if _same_shard(rt.index, s)),
+                       None)
+            if hit is not None:
+                cands.remove(hit)
+                hit.delay = delay
+                runtimes.append(hit)
+                reused += 1
+                continue
+            opts = self.scorer_opts
+            if self.scorer != "scipy":
+                # a boundary that moved through posting-LESS documents
+                # changes a shard's doc range but not one posting byte:
+                # the runtime cannot be reused wholesale (global ids
+                # shift), but its resident layouts can
+                donor = next(
+                    (rt for rt in old
+                     if getattr(rt._scorer, "dindex", None) is not None
+                     and DeviceIndex._postings_identical(s, rt.index)),
+                    None)
+                if donor is not None:
+                    opts = {**opts, "reuse_from": donor._scorer.dindex}
+            rt = ShardRuntime(s, delay=delay, scorer=self.scorer,
+                              scorer_opts=opts)
+            di = getattr(rt._scorer, "dindex", None)
+            if di is not None and di.reused and (
+                    di.reused.get("bmax") or di.reused.get("blocked")):
+                blockmax_reused += 1
+            if self.warmup:
+                # build the device kernels at build time (and after every
+                # rescale) so the first live query never pays for it
+                rt.warmup(self.k)
+            runtimes.append(rt)
+        self.shards = shards
+        self.runtimes = runtimes
+        self.last_build_stats = {"reused": reused,
+                                 "built": len(shards) - reused,
+                                 "blockmax_reused": blockmax_reused}
+
+    # -- control plane ------------------------------------------------------
+    def rescale(self, n_shards: int) -> None:
+        """Elastic re-shard (device pool grew or shrank)."""
+        self._build_runtimes(reshard_index(self.shards, n_shards))
+
+    def save(self, path: str, *, algo: str | None = None) -> dict:
+        """Engine snapshots wait for the snapshot slice of the port."""
+        raise _not_ported("RetrievalEngine.save (snapshots)")
+
+    @classmethod
+    def load(cls, path: str, **kwargs) -> "RetrievalEngine":
+        """Engine snapshots wait for the snapshot slice of the port."""
+        raise _not_ported("RetrievalEngine.load (snapshots)")
+
+    def health(self) -> dict:
+        """One operational snapshot of the engine's fault surface.
+
+        Schema-2 envelope: ``served``/``degraded`` count scatter-gather
+        rounds and how many missed shards (quorum + deadline hedging);
+        ``faults`` sums the shards' typed-fault counts; ``queries`` are the
+        engine-boundary sanitizer counters. Extras: ``responses`` /
+        ``degraded_responses`` (legacy spellings), ``build`` (the last
+        reuse split) and ``shards`` (each :meth:`ShardRuntime.health`, with
+        its ladder hops keyed ``"from->to"``).
+        """
+        shard_reports = [rt.health() for rt in self.runtimes]
+        return health_envelope(
+            served=self._responses,
+            degraded=self._degraded_responses,
+            faults=merge_fault_counts(shard_reports),
+            queries=self.query_counters,
+            responses=self._responses,
+            degraded_responses=self._degraded_responses,
+            build=dict(self.last_build_stats),
+            shards=shard_reports,
+        )
+
+    # -- data plane ----------------------------------------------------------
+    def _scatter_gather(self, submit, merge, k: int):
+        """Shared hedged scatter-gather: quorum + deadline + merge."""
+        t0 = time.time()
+        futures = {submit(rt): i for i, rt in enumerate(self.runtimes)}
+        need = max(1, int(np.ceil(self.quorum * len(self.runtimes))))
+        done: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        pending = set(futures)
+        deadline = t0 + self.deadline_s
+        while pending:
+            timeout = deadline - time.time()
+            if timeout <= 0 and len(done) >= need:
+                break                     # quorum met, deadline passed
+            finished, pending = wait(
+                pending, timeout=max(timeout, 0.005),
+                return_when=FIRST_COMPLETED)
+            for f in finished:
+                done[futures[f]] = f.result()
+            if not finished and len(done) >= need:
+                break
+        for f in pending:                 # backfill continues off-path
+            f.cancel()
+        ids, scores = merge(done.values(), k)
+        degraded = len(done) < len(self.runtimes)
+        self._responses += 1
+        self._degraded_responses += int(degraded)
+        latency = time.time() - t0
+        return RetrievalResult(
+            ids=ids, scores=scores, degraded=degraded,
+            shards_answered=len(done), latency_s=latency,
+            timings={"total_s": latency})
+
+    def _sanitize(self, query_batch):
+        """Engine-boundary pass of the shared sanitizer — covers scipy
+        runtimes (which have no device-scorer validation of their own)."""
+        from ..core.retrieval import validate_query_batch
+        n_vocab = self.shards[0].n_vocab if self.shards else 0
+        return validate_query_batch(query_batch, n_vocab,
+                                    counters=self.query_counters)
+
+    def retrieve(self, query_tokens: np.ndarray, *, k: int | None = None
+                 ) -> RetrievalResult:
+        k = k or self.k
+        query_tokens = self._sanitize([query_tokens])[0]
+        return self._scatter_gather(
+            lambda rt: self._pool.submit(rt.topk, query_tokens, k),
+            self._merge, k)
+
+    def retrieve_batch(self, query_batch: Sequence[np.ndarray], *,
+                       k: int | None = None) -> RetrievalResult:
+        """B queries in one hedged scatter-gather round.
+
+        Each shard serves the whole batch in ONE retriever call
+        (``ShardRuntime.topk_batch``); the merge is the batched stage-2
+        (``core.retrieval.merge_topk_batch``). Returns a single
+        :class:`RetrievalResult` with ``ids``/``scores`` of shape [B, k].
+        """
+        k = k or self.k
+        query_batch = self._sanitize(query_batch)
+        return self._scatter_gather(
+            lambda rt: self._pool.submit(rt.topk_batch, query_batch, k),
+            self._merge_batch, k)
+
+    @staticmethod
+    def _merge(parts, k: int) -> tuple[np.ndarray, np.ndarray]:
+        # stage 2 of the paper's two-stage top-k (concatenate +
+        # argpartition)
+        return merge_topk(parts, k)
+
+    @staticmethod
+    def _merge_batch(parts, k: int) -> tuple[np.ndarray, np.ndarray]:
+        from ..core.retrieval import merge_topk_batch
+        return merge_topk_batch(parts, k)

@@ -15,7 +15,9 @@ arrays are the gathered regime's layout: the per-batch fragment table
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,9 +62,19 @@ def put_posting_arrays(*arrays, device):
     """Upload posting arrays to ``device``, counting the transfer.
 
     The ONLY sanctioned way to move posting data host→device: index builds
-    call it once per built shard. Returns the device tensors in input
-    order.
+    call it once per built shard; the host-gather rung calls it per batch
+    (which is exactly what the counters expose). Returns the device
+    tensors in input order.
+
+    Fault-injection site ``residency.put_posting_arrays`` (see
+    ``repro_torch.serve.faults``): an armed residency fault makes the
+    upload raise ``ResidencyError`` — the peek costs nothing unless the
+    harness module is already imported AND a fault is armed.
     """
+    import sys
+    _f = sys.modules.get("repro_torch.serve.faults")
+    if _f is not None and _f.ACTIVE:
+        _f.fire("residency.put_posting_arrays")
     out = []
     for a in arrays:
         a = np.ascontiguousarray(a)
@@ -193,6 +205,185 @@ def posting_runs(indptr: np.ndarray, uniq_tokens: np.ndarray
     starts = indptr[uniq_tokens]
     lens = indptr[uniq_tokens + 1] - starts
     return starts.astype(np.int64), lens.astype(np.int64)
+
+
+@dataclass
+class GatheredPostings:
+    """Query-driven posting gather in the candidate-compacted layout.
+
+    Only the query tokens' posting runs are materialized — total work is
+    O(Σ df(qᵢ)) over the *batch's unique tokens*, never O(nnz). Candidate
+    documents (the union of gathered doc ids, sorted ascending) are mapped
+    to compact slots ``0..n_candidates-1``; slots are chunked by
+    ``slot // acc_block`` so chunk ``c``'s postings only touch accumulator
+    rows ``[0, acc_block)`` — the ``[acc_block, B]`` accumulator of the
+    host-gather kernel K4 (``kernels.bm25_gather_score
+    .bm25_gather_score_topk``). ``candidates[c, r]`` recovers the global doc
+    id of chunk ``c``'s slot ``r`` (-1 = padding slot, masked to the float
+    minimum before top-k selection).
+
+    The layout and its bytes are the reference's (``repro.sparse.block_csr
+    .GatheredPostings``), byte for byte. ``acc_block`` stays SMALL (the
+    blocked layout's block_size, 512): each chunk is one CTA of K4 whose
+    accumulator lives in shared memory, so big candidate sets get more
+    chunks and the work stays linear in Σ df.
+    """
+
+    token_ids: np.ndarray    # [n_chunks, p_pad] int32, -1 = pad
+    slot_ids: np.ndarray     # [n_chunks, p_pad] int32 in [0, acc_block)
+    scores: np.ndarray       # [n_chunks, p_pad] float32
+    candidates: np.ndarray   # [n_chunks, acc_block] int32 global ids, -1 pad
+    acc_block: int           # accumulator height (candidate slots per chunk)
+    n_candidates: int        # true (unpadded) candidate-document count
+    sum_df: int              # Σ df over the batch's unique query tokens
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.token_ids.shape[0])
+
+    @property
+    def p_pad(self) -> int:
+        return int(self.token_ids.shape[1])
+
+    def work_ratio(self, nnz: int) -> float:
+        """Full-scan postings / gathered postings — the asymptotic win."""
+        return nnz / max(self.sum_df, 1)
+
+
+def _gather_runs_cached(index, uniq_tokens: np.ndarray, starts: np.ndarray,
+                        lens: np.ndarray, cache: PostingRunCache
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-token run gather through the LRU: hot tokens skip the re-gather.
+
+    Cache misses are still gathered in ONE vectorized pass over the missing
+    subset (then split per token to populate the cache); the assembled
+    ``(doc_ids, scores)`` stream is byte-identical to the uncached path.
+    """
+    u = uniq_tokens.size
+    runs: list[tuple[np.ndarray, np.ndarray] | None] = [None] * u
+    miss = []
+    for i in range(u):
+        if lens[i] == 0:
+            runs[i] = (np.zeros(0, np.int64), np.zeros(0, np.float32))
+            continue
+        hit = cache.get(int(uniq_tokens[i]))
+        if hit is None:
+            miss.append(i)
+        else:
+            runs[i] = hit
+    if miss:
+        m = np.asarray(miss, dtype=np.int64)
+        m_lens = lens[m]
+        pos, _ = _flatten_run_positions(starts[m], m_lens)
+        md = index.doc_ids[pos].astype(np.int64)
+        ms = index.scores[pos].astype(np.float32)
+        cuts = np.cumsum(m_lens)[:-1]
+        for i, d, s in zip(miss, np.split(md, cuts), np.split(ms, cuts)):
+            runs[i] = (d, s)
+            # copies, not np.split views: a view would pin the WHOLE miss
+            # batch's arrays in memory for as long as this run stays in
+            # the LRU (capacity bounds entries, not bytes)
+            cache.put(int(uniq_tokens[i]), d.copy(), s.copy())
+    g_doc = np.concatenate([r[0] for r in runs]) if u else \
+        np.zeros(0, np.int64)
+    g_sc = np.concatenate([r[1] for r in runs]) if u else \
+        np.zeros(0, np.float32)
+    return g_doc, g_sc
+
+
+def gather_posting_runs(index, uniq_tokens: np.ndarray, *,
+                        acc_block: int = 512, tile: int = 512,
+                        p_bucket: int | None = None,
+                        cache: PostingRunCache | None = None,
+                        descriptors_only: bool = False):
+    """Gather ONLY the query tokens' posting runs (host, fully vectorized).
+
+    One ``np.repeat``-based run flattening replaces per-token slicing: flat
+    position ``j`` of run ``i`` reads ``doc_ids[start_i + j]``. Candidate
+    compaction is one ``np.unique`` over the gathered doc ids; chunking by
+    ``slot // acc_block`` reuses :func:`block_postings_from_coo` (postings
+    within a chunk stay token-sorted for the kernel's membership locality).
+
+    Both dimensions are power-of-two bucketed, as in the reference: the
+    per-chunk posting dimension rounds up to a power-of-two multiple of
+    ``tile`` (``p_bucket`` overrides with an explicit floor), and the chunk
+    count pads with empty chunks (all -1). The gather itself can never
+    overflow: shapes are sized *from* the batch's actual Σ df.
+
+    ``descriptors_only=True`` stops after the O(U) descriptor computation
+    and returns :class:`RunDescriptors` — the ``(start, len)`` traversal
+    plan with NO posting copy (the resident device path's input; see
+    :func:`fragment_plan` for the kernel-ready form). ``cache`` routes the
+    copy through a :class:`PostingRunCache` so hot tokens are gathered
+    once across batches.
+    """
+    uniq_tokens = np.asarray(uniq_tokens, dtype=np.int64)
+    starts, lens = posting_runs(index.indptr, uniq_tokens)
+    total = int(lens.sum())
+    if descriptors_only:
+        return RunDescriptors(starts=starts, lens=lens, sum_df=total)
+    if total == 0:
+        p_pad = max(tile, p_bucket or tile)
+        return GatheredPostings(
+            token_ids=np.full((1, p_pad), -1, np.int32),
+            slot_ids=np.zeros((1, p_pad), np.int32),
+            scores=np.zeros((1, p_pad), np.float32),
+            candidates=np.full((1, acc_block), -1, np.int32),
+            acc_block=acc_block, n_candidates=0, sum_df=0)
+    g_tok = np.repeat(uniq_tokens, lens).astype(np.int32)
+    if cache is not None:
+        g_doc, g_sc = _gather_runs_cached(index, uniq_tokens, starts, lens,
+                                          cache)
+    else:
+        pos, _ = _flatten_run_positions(starts, lens)
+        g_doc = index.doc_ids[pos].astype(np.int64)
+        g_sc = index.scores[pos].astype(np.float32)
+
+    candidates = np.unique(g_doc)                 # sorted ascending
+    slot = np.searchsorted(candidates, g_doc)
+    n_cand = int(candidates.size)
+
+    bp = block_postings_from_coo(g_tok, slot, g_sc, n_docs=n_cand,
+                                 n_vocab=int(index.n_vocab),
+                                 block_size=acc_block, tile=tile)
+    tok, loc, sc = bp.token_ids, bp.local_doc, bp.scores
+    p_pad = max(bucket_pow2(bp.nnz_pad, floor=tile), p_bucket or 0)
+    if p_pad > bp.nnz_pad:
+        pad = p_pad - bp.nnz_pad
+        tok = np.pad(tok, ((0, 0), (0, pad)), constant_values=-1)
+        loc = np.pad(loc, ((0, 0), (0, pad)))
+        sc = np.pad(sc, ((0, 0), (0, pad)))
+    nc = bucket_pow2(bp.n_blocks, floor=1)        # bucket the chunk count
+    if nc > bp.n_blocks:
+        pad = nc - bp.n_blocks
+        tok = np.pad(tok, ((0, pad), (0, 0)), constant_values=-1)
+        loc = np.pad(loc, ((0, pad), (0, 0)))
+        sc = np.pad(sc, ((0, pad), (0, 0)))
+    cand = np.full((nc, acc_block), -1, np.int32)
+    flat = cand.reshape(-1)
+    flat[:n_cand] = candidates
+    return GatheredPostings(token_ids=tok, slot_ids=loc, scores=sc,
+                            candidates=cand, acc_block=acc_block,
+                            n_candidates=n_cand, sum_df=total)
+
+
+@dataclass
+class RunDescriptors:
+    """Descriptor-only posting gather: ``(start, len)`` per unique token.
+
+    What :func:`gather_posting_runs` emits in ``descriptors_only`` mode —
+    the traversal plan WITHOUT the O(Σ df) posting copy. O(U) to compute
+    and O(U) to ship; the device-resident kernel path turns these into
+    fragment reads against the resident index (:class:`DeviceIndex`),
+    so postings never cross the host→device boundary per batch.
+    """
+
+    starts: np.ndarray      # [U] int64 — posting-run start in the CSC arrays
+    lens: np.ndarray        # [U] int64 — run length (= df of the token)
+    sum_df: int             # Σ lens — the batch's total posting work
+
+    def work_ratio(self, nnz: int) -> float:
+        return nnz / max(self.sum_df, 1)
 
 
 @dataclass
@@ -532,6 +723,56 @@ def select_seed_blocks(ub: np.ndarray, vis_blocks: np.ndarray, *,
     return keep
 
 
+class PostingRunCache:
+    """LRU cache of per-token gathered posting runs (host-gather fallback).
+
+    Zipf-head query tokens recur across batches; without a cache the host
+    fallback re-gathers their (large) posting runs from the CSC arrays on
+    every batch. Keyed by token id; values are the ``(doc_ids, scores)``
+    run copies. Bounded by ``capacity`` entries, least-recently-used out
+    first. The resident device path never needs this — its index never
+    leaves device memory.
+
+    get/put are lock-guarded: the serving engine's thread pool may run the
+    SAME shard's scorer for concurrent requests, and an unguarded
+    ``move_to_end``/``popitem`` race corrupts the OrderedDict. Entries for
+    a given token are immutable snapshots of the index, so cross-request
+    interleaving is otherwise harmless (a double put stores equal arrays).
+    """
+
+    def __init__(self, capacity: int = 256):
+        self.capacity = int(capacity)
+        self._runs: OrderedDict[int, tuple[np.ndarray, np.ndarray]] = \
+            OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._runs)
+
+    def get(self, token: int):
+        with self._lock:
+            run = self._runs.get(token)
+            if run is None:
+                self.misses += 1
+                return None
+            self._runs.move_to_end(token)
+            self.hits += 1
+            return run
+
+    def put(self, token: int, doc_ids: np.ndarray, scores: np.ndarray
+            ) -> None:
+        if self.capacity <= 0:
+            return
+        with self._lock:
+            self._runs[token] = (doc_ids, scores)
+            self._runs.move_to_end(token)
+            while len(self._runs) > self.capacity:
+                self._runs.popitem(last=False)
+
+
 @dataclass
 class DeviceIndex:
     """Device-resident eager index: posting arrays uploaded ONCE per build.
@@ -550,8 +791,10 @@ class DeviceIndex:
     :func:`build_block_max`). With device fragment planning
     (``sparse.fragment_device``) nothing on the serving path reads the host
     CSC copy, so ``host_arrays="drop"`` releases it (``host`` becomes None;
-    the O(V) ``indptr``/``df`` metadata stays). Doc-id reordering, donor
-    reuse and snapshots are later slices of the port.
+    the O(V) ``indptr``/``df`` metadata stays). ``build(reuse_from=)``
+    adopts a donor's resident tensors when the postings did not change
+    (``reused`` says which layouts it recycled). Doc-id reordering and
+    snapshots are later slices of the port.
     """
 
     host: object            # BM25Index — descriptor metadata
@@ -572,14 +815,35 @@ class DeviceIndex:
     blk_loc: torch.Tensor = None
     blk_sc: torch.Tensor = None
     bmax: BlockMaxTable = None         # pruned regime's bounds (or None)
+    reused: dict = None                # which layouts a build recycled
+
+    @staticmethod
+    def _postings_identical(a, b) -> bool:
+        """Byte-identical posting payload (layouts depend on nothing else
+        except the doc count, checked separately where it matters)."""
+        return (a is not None and b is not None
+                and np.array_equal(a.indptr, b.indptr)
+                and np.array_equal(a.doc_ids, b.doc_ids)
+                and np.array_equal(a.scores, b.scores))
 
     @staticmethod
     def build(index, *, device, block_size: int = 512, tile: int = 512,
               frag: int = 512, with_blocked: bool = True,
               with_csc: bool = True, with_bmax: bool | None = None,
-              bmax_dtype: str = "auto",
-              host_arrays: str = "keep") -> "DeviceIndex":
-        """Upload a shard's resident layouts to ``device``."""
+              bmax_dtype: str = "auto", host_arrays: str = "keep",
+              reuse_from: "DeviceIndex | None" = None) -> "DeviceIndex":
+        """Upload a shard's resident layouts to ``device``, recycling
+        ``reuse_from``'s.
+
+        ``reuse_from`` is the incremental re-blocking path of elastic
+        rescales: when the new shard's posting bytes equal the donor's
+        (boundaries moved through posting-less documents, or did not move)
+        and the donor lives on the same device with the same geometry, its
+        resident CSC tensors are adopted as they are, and its blocked
+        layout and block-max table too whenever the block grid still
+        matches (same block count) — no re-blocking, no upload.
+        ``reused`` records which layouts were recycled.
+        """
         if host_arrays not in ("keep", "drop"):
             raise ValueError(f"unknown host_arrays mode {host_arrays!r}")
         if with_bmax is None:
@@ -591,8 +855,26 @@ class DeviceIndex:
             nnz=nnz, n_docs=n_docs,
             n_vocab=int(index.n_vocab), doc_offset=int(index.doc_offset),
             block_size=block_size, tile_p=tile, frag=frag,
-            device=torch.device(device))
-        if with_csc:
+            device=torch.device(device),
+            reused={"csc": False, "blocked": False, "bmax": False})
+        old = reuse_from
+        same_postings = (
+            old is not None and old.host is not None
+            and old.device == di.device
+            and old.block_size == block_size and old.frag == frag
+            and DeviceIndex._postings_identical(index, old.host))
+        # the blocked layout and the block-max table also depend on the
+        # block GRID: a doc-count change through trailing empty docs only
+        # invalidates them when it moves the block count
+        same_grid = (same_postings
+                     and -(-n_docs // block_size)
+                     == -(-old.n_docs // block_size))
+        if with_csc and same_postings and old.csc_doc_ids is not None:
+            di.csc_doc_ids = old.csc_doc_ids
+            di.csc_scores = old.csc_scores
+            di.csc_indptr = old.csc_indptr
+            di.reused["csc"] = True
+        elif with_csc:
             # pad so any fragment read [start, start+frag) stays in
             # bounds (starts are < nnz; padding postings carry score 0 /
             # doc 0 and are masked by the fragment's valid length)
@@ -610,13 +892,24 @@ class DeviceIndex:
             # device (counted as the descriptor traffic it replaces)
             di.csc_indptr = put_descriptor_array(
                 index.indptr.astype(np.int32), device=di.device)
-        if with_blocked:
+        if with_blocked and same_grid and old.blk_tok is not None \
+                and old.tile_p == min(tile, old.blk_tok.shape[1]):
+            di.tile_p = old.tile_p
+            di.blk_tok, di.blk_loc, di.blk_sc = (old.blk_tok, old.blk_loc,
+                                                 old.blk_sc)
+            di.reused["blocked"] = True
+        elif with_blocked:
             bp = block_postings_from_index(index, block_size=block_size,
                                            tile=tile)
             di.tile_p = min(tile, bp.nnz_pad)
             di.blk_tok, di.blk_loc, di.blk_sc = put_posting_arrays(
                 bp.token_ids, bp.local_doc, bp.scores, device=di.device)
-        if with_bmax and with_csc:
+        if with_bmax and with_csc and same_grid and old.bmax is not None \
+                and (bmax_dtype == "auto"
+                     or old.bmax.quantized == (bmax_dtype == "u8")):
+            di.bmax = old.bmax
+            di.reused["bmax"] = True
+        elif with_bmax and with_csc:
             di.bmax = build_block_max(index, block_size=block_size,
                                       dtype=bmax_dtype, device=di.device)
         if host_arrays == "drop":

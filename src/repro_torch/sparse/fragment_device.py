@@ -186,6 +186,13 @@ def plan_fragments_device(dindex, uniq_tab, *, sum_df: int, k: int,
         raise ResidencyError("device fragment planning needs a resident "
                              "CSC index (DeviceIndex built with "
                              "with_csc=True)")
+    # fault-injection site ``plan.fragments_device``
+    # (repro_torch.serve.faults): an armed overflow fault simulates
+    # nf-bucket regrowth exhaustion
+    import sys
+    _f = sys.modules.get("repro_torch.serve.faults")
+    if _f is not None and _f.ACTIVE:
+        _f.fire("plan.fragments_device")
     block_size = block_size or dindex.block_size
     frag = dindex.frag
     uniq_dev = torch.as_tensor(np.asarray(uniq_tab, dtype=np.int32),

@@ -11,8 +11,12 @@ fixed order as the CPU twins' ``index_add_`` and round each product and
 sum separately. K3 is held in the columns whose bounds are finite (in
 padding columns the kernel decides per B-tile, the twin over the whole
 batch); the device planner on the card must equal the host plan byte for
-byte, and the pruned retriever on the card the CPU path. The file imports neither jax nor ``repro``, so it runs on
-a machine that has only the port's dependencies.
+byte, and the pruned retriever on the card the CPU path. K4 is held
+bitwise to its twin in both modes (per-chunk boards and the two-level
+fold), and the ladder walked on the card with faults armed and breakers
+tripped serves every rung exactly, bit for bit the CPU path's boards. The
+file imports neither jax nor ``repro``, so it runs on a machine that has
+only the port's dependencies.
 """
 
 import numpy as np
@@ -20,14 +24,16 @@ import pytest
 import torch
 
 from conftest import make_corpus
-from repro_torch.core import BM25Params, build_index
+from repro_torch.core import BM25Params, ScipyBM25, build_index, topk_numpy
 from repro_torch.core.scoring import pad_queries
 from repro_torch.kernels import bm25_block_score as k2
 from repro_torch.kernels import bm25_gather_score as k1
 from repro_torch.core.retrieval import default_doc_ids
-from repro_torch.serve import DeviceRetriever
+from repro_torch.serve import DeviceRetriever, RetrievalEngine
+from repro_torch.serve.faults import inject_faults
 from repro_torch.sparse.block_csr import (DeviceIndex, block_upper_bounds,
-                                          fragment_plan, pack_query_batch)
+                                          fragment_plan, gather_posting_runs,
+                                          pack_query_batch)
 from repro_torch.sparse.fragment_device import plan_fragments_device
 
 pytestmark = pytest.mark.cuda
@@ -209,3 +215,94 @@ def test_pruned_retriever_on_cuda_equals_cpu_path(cuda_device):
         np.testing.assert_array_equal(a.scores.view(np.int32),
                                       b.scores.view(np.int32))
         assert a.plan.frags_pruned == b.plan.frags_pruned
+
+
+@pytest.mark.parametrize("method", ["robertson", "lucene", "bm25l"])
+@pytest.mark.parametrize("k", [1, 7, 32])
+@pytest.mark.parametrize("two_level", [False, True])
+def test_k4_bitwise_equal_twin(cuda_device, method, k, two_level):
+    """K4 on the card equals its CPU twin bit for bit: the per-chunk
+    boards, and their fold into one board."""
+    rng = np.random.default_rng(200 + k)
+    corpus = make_corpus(rng, n_docs=1500, n_vocab=60, max_len=25)
+    idx = build_index(corpus, 60, params=BM25Params(method=method))
+    qs = [rng.integers(0, 60, size=rng.integers(0, 6)).astype(np.int32)
+          for _ in range(40)]
+    toks, wts, uniq = pad_queries(qs, 8, return_uniq=True)
+    tab, w = pack_query_batch(toks, wts, 64, uniq=uniq)
+    gp = gather_posting_runs(idx, uniq, acc_block=32, tile=16)
+    ops = tuple(torch.as_tensor(a) for a in (
+        gp.token_ids, gp.slot_ids, gp.scores, tab, w, gp.candidates))
+    kw = dict(acc_block=32, k=k, two_level=two_level)
+    ref = k1.bm25_gather_score_topk(*ops, **kw)
+    n0 = k1.LAUNCHES_GATHER.n
+    got = k1.bm25_gather_score_topk(*(t.to(cuda_device) for t in ops), **kw)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES_GATHER.n == n0 + 1
+    assert gp.n_chunks > 1
+    for a, b in zip(got, ref):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_ladder_walk_on_the_card_is_exact(cuda_device):
+    """On the card: an auto retriever entered at pruned serves healthy,
+    recovers a poisoned pruned board on the resident rung, and with the
+    breakers tripped rung by rung serves on the host rung (K4), blocked
+    and the oracle — every board exact against ScipyBM25 and, for the
+    device rungs, bit for bit the CPU path's."""
+    rng = np.random.default_rng(8)
+    corpus = make_corpus(rng, n_docs=2000, n_vocab=80, max_len=30)
+    idx = build_index(corpus, 80, params=BM25Params(method="robertson"))
+    qs = [rng.integers(0, 80, size=5).astype(np.int32)
+          for _ in range(12)] + [np.zeros(0, np.int32)]
+    kw = dict(block_size=64, acc_block=64, q_max=8)
+    gpu = DeviceRetriever(idx, regime="auto", device=cuda_device, **kw)
+    cpu = DeviceRetriever(idx, regime="auto", plan="device", device="cpu",
+                          **kw)
+    oracle = ScipyBM25(idx)
+    n_k4 = k1.LAUNCHES_GATHER.n
+    steps = [("pruned", None, []),
+             ("resident", {"site": "kernel.resident_pruned",
+                           "kind": "nan_board", "times": 1, "seed": 3}, []),
+             ("host", None, ["pruned", "resident"]),
+             ("blocked", None, ["host"]),
+             ("oracle", None, ["blocked"])]
+    for rung, fault, trip in steps:
+        boards = []
+        for dr in (gpu, cpu):
+            dr.regime = "pruned"
+            for hop in trip:
+                dr.trip_breaker(hop, cooldown_s=600.0)
+            if fault is None:
+                r = dr.retrieve_batch(qs, 9)
+            else:
+                with inject_faults(dict(fault)):
+                    r = dr.retrieve_batch(qs, 9)
+            served = r.degradations[-1]["to"] if r.degradations \
+                else "pruned"
+            assert served == rung, (rung, r.degradations)
+            boards.append(r)
+        for i, q in enumerate(qs):
+            s_ = oracle.score(q)
+            _, ref_v = topk_numpy(s_[None], 9)
+            np.testing.assert_allclose(boards[0].scores[i], ref_v[0],
+                                       atol=1e-4)
+            np.testing.assert_allclose(s_[boards[0].ids[i]],
+                                       boards[0].scores[i], atol=1e-4)
+        if rung != "oracle":
+            np.testing.assert_array_equal(boards[0].ids, boards[1].ids)
+            np.testing.assert_array_equal(boards[0].scores.view(np.int32),
+                                          boards[1].scores.view(np.int32))
+    assert k1.LAUNCHES_GATHER.n > n_k4
+    # the engine on the card: the CPU path's scores (its merge orders
+    # ties its own way), each id carrying its oracle score
+    eng = RetrievalEngine([idx], k=9, deadline_s=60.0, quorum=1.0,
+                          scorer_opts=dict(device=cuda_device, **kw))
+    fresh = DeviceRetriever(idx, regime="auto", plan="device", device="cpu",
+                            **kw).retrieve_batch(qs, 9)
+    r = eng.retrieve_batch(qs)
+    np.testing.assert_array_equal(r.scores.view(np.int32),
+                                  fresh.scores.view(np.int32))
+    for i, q in enumerate(qs):
+        np.testing.assert_allclose(oracle.score(q)[r.ids[i]], r.scores[i],
+                                   atol=1e-4)

@@ -4,7 +4,8 @@
   ``sys.modules``;
 * an AST scan finds no import of ``jax`` or ``repro`` in any module of
   ``src/repro_torch`` or in ``chip_smoke.py``;
-* every CUDA source names the TPU kernel it replaces and its bound;
+* every CUDA source names the TPU kernel it replaces and its bound, and
+  every one is built;
 * the build step keys each library by its sources and looks for its
   compiler only when asked to build (this suite imports every module
   without one);
@@ -37,10 +38,29 @@ def _run(args, cwd, env_extra=None, timeout=120):
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.sparse, "
             "repro_torch.kernels, repro_torch.serve, repro_torch.convert, "
-            "repro_torch.kernels.ops\n"
+            "repro_torch.kernels.ops, repro_torch.serve.faults, "
+            "repro_torch.serve.overload, repro_torch.serve.health, "
+            "repro_torch.serve.retrieval_engine\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\nprint('clean')")
+    r = _run(["-c", code], cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
+def test_serving_stack_leaves_the_fault_harness_out():
+    """The fault sites peek at ``sys.modules``: importing and running the
+    serving stack never imports ``repro_torch.serve.faults`` itself."""
+    code = ("import sys, numpy as np\n"
+            "from repro_torch.core import build_index\n"
+            "from repro_torch.serve import DeviceRetriever\n"
+            "idx = build_index([np.array([0, 1], np.int32)], 2)\n"
+            "DeviceRetriever(idx, device='cpu', gather='host', block_size=8,"
+            " tile=8, acc_block=8, q_max=8).retrieve_batch("
+            "[np.array([1], np.int32)], 1)\n"
+            "assert 'repro_torch.serve.faults' not in sys.modules\n"
+            "print('clean')")
     r = _run(["-c", code], cwd=ROOT)
     assert r.returncode == 0, r.stderr
     assert "clean" in r.stdout
@@ -64,7 +84,8 @@ def test_no_module_imports_jax_or_repro(path):
     assert not bad, f"{path} imports {bad}"
 
 
-@pytest.mark.parametrize("name", ["bm25_resident", "bm25_block_score"])
+@pytest.mark.parametrize("name", ["bm25_resident", "bm25_block_score",
+                                  "bm25_gather_score"])
 def test_cuda_sources_carry_their_note(name):
     src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
     assert "Replaces: src/repro/kernels/" in src
@@ -79,6 +100,8 @@ def test_build_is_keyed_by_source_and_finds_nvcc_on_demand(monkeypatch,
     a = _build.library_path("bm25_resident")
     assert a == _build.library_path("bm25_resident")
     assert a != _build.library_path("bm25_block_score")
+    assert set(_build.SOURCES) == {p.stem for p in
+                                   (PORT / "kernels" / "csrc").glob("*.cu")}
     assert a.parent == _build.BUILD_DIR and a.suffix == ".so"
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(shutil, "which", lambda name: None)

@@ -132,7 +132,7 @@ def test_no_gpu_without_device_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [dict(regime="pruned", gather="host"),
-                                    dict(gather="host"),
+                                    dict(reorder="signature"),
                                     dict(plan="device", gather="host"),
                                     dict(host_arrays="drop", plan="host"),
                                     dict(regime="nope"),
@@ -161,10 +161,12 @@ def test_forced_regime_needs_its_layout(rng):
 
 
 def test_non_finite_board_raises_score_integrity(monkeypatch, rng):
+    """The finite-check on the board raises the typed error; a strict
+    retriever surfaces it, a degrading one serves the batch from the next
+    rung (the host gather) and records the hop."""
     from repro_torch.kernels import ops
     corpus = make_corpus(rng, n_docs=30, n_vocab=20)
     idx = build_index(corpus, 20)
-    dr = DeviceRetriever(idx, regime="gathered", **SMALL)
     real = ops.bm25_retrieve_resident
 
     def poisoned(*a, **kw):
@@ -172,8 +174,16 @@ def test_non_finite_board_raises_score_integrity(monkeypatch, rng):
         return ids, vals * float("nan")
 
     monkeypatch.setattr(ops, "bm25_retrieve_resident", poisoned)
+    q = [np.array([1], np.int32)]
+    strict = DeviceRetriever(idx, regime="gathered", on_fault="raise",
+                             **SMALL)
     with pytest.raises(ScoreIntegrityError):
-        dr.retrieve_batch([np.array([1], np.int32)], 3)
+        strict.retrieve_batch(q, 3)
+    dr = DeviceRetriever(idx, regime="gathered", **SMALL)
+    r = dr.retrieve_batch(q, 3)
+    assert [(t["from"], t["to"], t["error"]) for t in r.degradations] == \
+        [("resident", "host", "ScoreIntegrityError")]
+    _check_exact(idx, q, r.ids, r.scores, 3)
 
 
 def test_empty_index_and_k_zero(rng):
