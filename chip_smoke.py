@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's BM25 query path and its ladder on one GPU.
+"""Drive the PyTorch port's BM25 query paths and its ladder on one GPU.
 
     python3 chip_smoke.py [--n-docs N] [--seed S] [--batches N]
 
@@ -17,8 +17,14 @@ Phases (any failure exits non-zero; nothing is caught):
    (``bm25_gather_score_topk``, on the batch's host gather, per chunk and
    two-level) on the card against their plain torch twins on CPU copies:
    bitwise equal, all columns; K3 also bitwise equal to K1 on the card on
-   the same table; the device fragment planner on the card byte-equal to
-   the host ``fragment_plan`` and ``default_doc_ids``;
+   the same table; K6 (``bm25_block_score``, dense sums) on the same
+   blocked layout and query tables; the device fragment planner on the
+   card byte-equal to the host ``fragment_plan`` and ``default_doc_ids``;
+   K5 (``blockwise_topk``) on seeded rows of 9,000 entries (a ragged last
+   segment) with blocks of 512 and 4,096 and k in {1, 7, 100, block}:
+   random rows, ties, all-equal rows, rows of ``-inf`` and of
+   ``-FLT_MAX``, values and positions bitwise equal to the CPU twin and
+   every segment's positions distinct;
 3. full width (``repro.configs.bm25s``: 2,097,152 docs, V = 200,000,
    ~120 unique tokens a doc, doc block 512, batches of 256 queries of at
    most 32 tokens, k = 100, lucene k1 = 1.5, b = 0.75; queries of five
@@ -58,17 +64,41 @@ Phases (any failure exits non-zero; nothing is caught):
    least time the card could take (bytes over 3.35 TB/s, FP32 operations
    over 67 TFLOP/s). K1-K3 at the single retriever's shapes; K4 at the
    host rung's (shard 0's gather of the host-rung batch), beside the host
-   gather's own time.
+   gather's own time;
+6. the dense full-score path at full width, after the engine is freed:
+   one batch of 256 queries through ``ops.bm25_score_blocked`` (K6, a
+   ``[256, n_docs]`` f32 matrix) and ``ops.topk`` (K5 over ``[131,072,
+   4,096]`` segments, then the merge), through ``score_batch`` +
+   ``ops.topk`` on the eager scorer's ``DeviceIndex`` with
+   ``suggest_p_max``, and ``BM25Retriever`` end to end from texts (the
+   Zipf corpus rendered as words, cut to 100,000 documents: tokenizing
+   the full 2,097,152 in Python would take most of the time budget; a
+   ragged last K5 segment), the launch counts read around the three. The
+   unfused board's values bitwise equal the fused K2 board's, its ids
+   tie-aware (each carries the fused id's dense score: the shift is added
+   before ranking, so two distinct sums can meet); 20 sampled queries of
+   it and of ``score_batch``'s board exact against ``ScipyBM25``, no
+   overflow, ``score_batch`` within 1e-4 of K6's rows; every retriever
+   board exact against ``ScipyBM25`` on the same tokens; K6 bitwise equal
+   to its CPU twin on columns 0-31 and K5 to its twin on the card; K6, K5
+   and their twins on the card timed with CUDA events beside
+   ``torch.sparse.mm`` of the doc × token CSR by the ``[V, 256]``
+   weights (K6's library call) and ``torch.topk(dense, 100, dim=1)``
+   (K5's); the fused and the unfused batch timed in turns, and
+   ``score_batch``.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last is the ``{"ok": true, ...}``
 JSON. The script exits non-zero without a CUDA device, and when run
-outside the repository (it imports ``src/repro_torch``).
+outside the repository (it imports ``src/repro_torch``). The kernels
+line lists K1-K6; ``launches`` counts each kernel on its own path: phase
+3 for K1-K3, phase 4 for K4, phase 6 for K5 and K6.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -93,6 +123,10 @@ FP32_OPS_PER_S = 67e12         # CUDA-core FP32 (FMA counted as 2)
 EXACT_ATOL = 1e-4              # boards vs ScipyBM25 (different sum order)
 ATOL, RTOL = 1e-4, 1e-6        # kernel vs twin on the card (atomics there)
 TWIN_COLS = 32                 # query columns held bitwise at full width
+TOPK_BLOCK = 4096              # ops.topk's segment: K5's block
+TOPK_ROW = 9000                # phase 2's K5 rows: ragged for 512 and 4096
+TEXT_DOCS = 100_000            # BM25Retriever's text corpus (phase 6 cut)
+WORD_LETTERS = "bcdfghjklmnpqrstvwxz"   # token id -> a word (phase 6)
 REGIMES = ("auto", "gathered", "blocked", "pruned")
 N_SHARDS = 4                   # engine shards on the one card (phase 4)
 LADDER_SAMPLES = 20            # sampled queries held exact per ladder batch
@@ -267,6 +301,14 @@ def phase_kernels_vs_twins(seed: int) -> None:
                            default_doc_ids(fp.vis_blocks, k, n_docs,
                                            DOC_BLOCK))))
             oks.append(k4_ok)
+            # K6 on the same blocked layout and query table, all columns
+            ops6 = (di.blk_tok, di.blk_loc, di.blk_sc,
+                    torch.as_tensor(pk.uniq_tab), w)
+            ref6 = k2.bm25_block_score(*ops6, block_size=DOC_BLOCK)
+            got6 = k2.bm25_block_score(*(t.to(cuda) for t in ops6),
+                                       block_size=DOC_BLOCK)
+            torch.cuda.synchronize()
+            oks.append(bits_equal(got6, ref6))
             print(f"[kernel-vs-twin] {method:9s} k={k:3d} B={b:2d} "
                   f"nf={fp.n_frags} sum_df={fp.sum_df} "
                   f"K3 twin skipped={int(ref[2])} card={int(got[2])} "
@@ -274,12 +316,64 @@ def phase_kernels_vs_twins(seed: int) -> None:
                   f"K3 bitwise={oks[2]} K3=K1 {oks[3]} "
                   f"device plan=host plan {oks[4]} K4 bitwise "
                   f"(per chunk and two-level, nc={gp.n_chunks}, "
-                  f"p_pad={gp.p_pad}) {oks[5]}", flush=True)
+                  f"p_pad={gp.p_pad}) {oks[5]} K6 bitwise {oks[6]}",
+                  flush=True)
             check(all(oks), f"kernels bitwise equal to twins, device plan "
                             f"equal to host plan ({method}, k={k}, B={b})")
     print(f"[kernel-vs-twin] K3 with one CTA skipped {skipped} fragments "
           "over the B = 8 cases, as its twin did", flush=True)
     check(skipped > 0, "K3 skipped spans on the card in phase 2")
+
+
+def topk_rows(rng, n: int) -> dict:
+    """Seeded ``[4, n]`` rows for K5: random, ties, all equal, and rows of
+    ``-inf`` and of ``-FLT_MAX`` (the last row of each with a few finite
+    winners)."""
+    rows = {"normal": rng.normal(size=(4, n)).astype(np.float32),
+            "ties": rng.integers(-3, 4, size=(4, n)).astype(np.float32),
+            "equal": np.full((4, n), 0.5, np.float32)}
+    for kind, fill in (("-inf", -np.inf),
+                       ("-FLT_MAX", np.finfo(np.float32).min)):
+        x = np.full((4, n), fill, np.float32)
+        x[-1, ::13] = 1.0
+        rows[kind] = x
+    return rows
+
+
+def positions_distinct(pos) -> bool:
+    """No position repeats in a row of K5's output (``-1`` pads apart)."""
+    import torch
+    k = pos.shape[1]
+    real = torch.where(pos >= 0, pos.long(),
+                       -2 - torch.arange(k, device=pos.device))
+    return bool((torch.sort(real, dim=1).values.diff(dim=1) != 0).all())
+
+
+def phase_topk_vs_twin(seed: int) -> None:
+    """Phase 2, K5: the kernel on the card bitwise equal to its CPU twin
+    on seeded rows of ``TOPK_ROW`` entries (a ragged last segment for both
+    blocks), values and positions, every segment's positions distinct."""
+    import torch
+
+    from repro_torch.kernels import blockwise_topk as k5
+    rows = topk_rows(np.random.default_rng(seed), TOPK_ROW)
+    cuda = torch.device("cuda")
+    for block in (512, TOPK_BLOCK):
+        for k in (1, 7, 100, block):
+            oks = {}
+            for kind, x in rows.items():
+                xt = torch.as_tensor(x)
+                ref = k5.blockwise_topk(xt, k=k, block=block)
+                got = k5.blockwise_topk(xt.to(cuda), k=k, block=block)
+                torch.cuda.synchronize()
+                oks[kind] = (bits_equal(got[0], ref[0])
+                             and bits_equal(got[1], ref[1])
+                             and positions_distinct(got[1]))
+            print(f"[kernel-vs-twin] K5 block={block} k={k} rows of "
+                  f"{TOPK_ROW} (last segment {TOPK_ROW % block}): bitwise "
+                  f"and distinct {oks}", flush=True)
+            check(all(oks.values()),
+                  f"K5 bitwise equal to its twin (block={block}, k={k})")
 
 
 def exact_raw_scores(sub_csr, w, docs, cols) -> np.ndarray:
@@ -362,14 +456,17 @@ def boards_equal(a, b) -> bool:
 def twin_bitwise(fn, ops, col_at, got, kw, what: str) -> bool:
     """The kernel's first ``TWIN_COLS`` query columns against the wrapper
     on CPU copies of the same operands (so its twin runs) with only those
-    columns of the operands at ``col_at`` (weights, bounds): bit for bit."""
+    columns of the operands at ``col_at`` (weights, bounds): bit for bit,
+    the one output of a dense kernel, or a board's values and ids."""
+    import torch
     t0 = time.perf_counter()
     cpu = [t.cpu() for t in ops]
     for i in col_at:
         cpu[i] = cpu[i][:, :TWIN_COLS].contiguous()
     ref = fn(*cpu, **kw)
-    ok = (bits_equal(got[0][..., :TWIN_COLS], ref[0])
-          and bits_equal(got[1][..., :TWIN_COLS], ref[1]))
+    pairs = ([(got, ref)] if isinstance(got, torch.Tensor)
+             else [(got[0], ref[0]), (got[1], ref[1])])
+    ok = all(bits_equal(g[..., :TWIN_COLS], r) for g, r in pairs)
     print(f"[kernels] {what}: columns 0-{TWIN_COLS - 1} bitwise equal to "
           f"the CPU twin: {ok} ({time.perf_counter() - t0:.1f}s)",
           flush=True)
@@ -506,9 +603,274 @@ def phase_ladder(idx, oracle, rng):
               f"({time.perf_counter() - t0:.1f}s)", flush=True)
     launches = {c.name: c.n for c in COUNTERS}
     print(f"[ladder] launches {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched on the ladder path")
+    for name in RUNG_KERNEL.values():
+        if name is not None:
+            check(launches[name] > 0, f"{name} launched on the ladder path")
     return launches, shards, retrievers, host_qs
+
+
+def word_table(n_vocab: int) -> np.ndarray:
+    """A word for each token id: ``q`` and the id in base 20 over
+    consonants, which the tokenizer keeps whole and distinct (no
+    stopword, nothing to stem)."""
+    letters = np.array(list(WORD_LETTERS))
+    out = []
+    for i in range(n_vocab):
+        w = ""
+        while True:
+            i, r = divmod(i, len(letters))
+            w = letters[r] + w
+            if i == 0:
+                break
+        out.append("q" + w)
+    return np.array(out)
+
+
+def zipf_texts(rng, n_docs: int) -> tuple[list, list]:
+    """The Zipf corpus and a batch of Zipf queries rendered as words."""
+    words = word_table(N_VOCAB)
+    docs = [" ".join(words[d]) for d in zipf_corpus(rng, n_docs, N_VOCAB,
+                                                    AVG_LEN)]
+    qs = [" ".join(words[q]) for q in zipf_queries(rng, QUERY_BATCH,
+                                                   N_VOCAB)]
+    return docs, qs
+
+
+def board(ids, vals):
+    """A ``[B, k]`` device board as the host result ``sampled_exact``
+    reads."""
+    from types import SimpleNamespace
+    return SimpleNamespace(ids=ids.cpu().numpy(), scores=vals.cpu().numpy())
+
+
+def phase_dense(dr, idx, oracle, rng) -> list:
+    """Phase 6: the dense full-score path at full width.
+
+    One batch of ``QUERY_BATCH`` queries through the unfused path
+    ``ops.topk(ops.bm25_score_blocked(...))`` (K6, then K5) on the
+    retriever's blocked layout, through ``score_batch`` + ``ops.topk`` on
+    the eager scorer's ``DeviceIndex``, and ``BM25Retriever`` end to end
+    from texts on ``TEXT_DOCS`` documents; the launch counts are read
+    around those three. Then the checks and the timings. Returns the
+    ``kernels`` entries of K5 and K6."""
+    import torch
+
+    from repro_torch.core import (BM25Retriever, ScipyBM25, pad_queries,
+                                  score_batch, suggest_p_max)
+    from repro_torch.core.scoring import DeviceIndex as ScoringIndex
+    from repro_torch.kernels import COUNTERS, ops
+    from repro_torch.kernels import blockwise_topk as k5
+    from repro_torch.kernels import bm25_block_score as k2
+    dev, n_docs, di = dr.device, dr.n_docs, dr.dindex
+    qs = zipf_queries(rng, QUERY_BATCH, N_VOCAB)
+    pk = dr.pack_batch(qs)
+    tab = torch.as_tensor(pk.uniq_tab, device=dev)
+    w = torch.as_tensor(pk.weights, device=dev)
+    shift = torch.as_tensor(pk.shift, device=dev)
+    blk = (di.blk_tok, di.blk_loc, di.blk_sc, tab, w)
+    kwb = dict(block_size=DOC_BLOCK, n_docs=n_docs)
+    t0 = time.perf_counter()
+    sidx = ScoringIndex.from_host(idx, device=dev)
+    toks, wts = pad_queries(qs, Q_MAX)
+    p_max = suggest_p_max(idx, Q_MAX)
+    torch.cuda.synchronize()
+    t_sidx = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    texts, text_qs = zipf_texts(rng, TEXT_DOCS)
+    print(f"[dense] eager DeviceIndex uploaded in {t_sidx:.1f}s; p_max "
+          f"{p_max} (suggest_p_max, q_max {Q_MAX}); {TEXT_DOCS} texts and "
+          f"{QUERY_BATCH} text queries rendered in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- the paths, with the launch counts read around them --------------
+    for c in COUNTERS:
+        c.reset()
+    t0 = time.perf_counter()
+    dense = ops.bm25_score_blocked(*blk, shift, **kwb)
+    u_vals, u_ids = ops.topk(dense, TOP_K)
+    torch.cuda.synchronize()
+    unfused_first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    sb, over = score_batch(sidx, toks, wts, p_max=p_max,
+                           return_overflow=True)
+    s_vals, s_ids = ops.topk(sb, TOP_K)
+    torch.cuda.synchronize()
+    eager_first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ret = BM25Retriever(method="lucene", k1=1.5, b=0.75).index(texts)
+    torch.cuda.synchronize()
+    t_text_index = time.perf_counter() - t0
+    k5_before = k5.LAUNCHES.n
+    t0 = time.perf_counter()
+    r_ids, r_vals = ret.retrieve(text_qs, k=TOP_K)
+    torch.cuda.synchronize()
+    retriever_first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {c.name: c.n for c in COUNTERS}
+    print(f"[dense] launches {launches}; first calls: unfused batch "
+          f"{unfused_first_ms:.1f} ms, score_batch + topk "
+          f"{eager_first_ms:.1f} ms, BM25Retriever index "
+          f"{t_text_index:.1f}s ({ret.bm25_index.n_docs} docs, "
+          f"{ret.bm25_index.nnz} postings, V {ret.bm25_index.n_vocab}), "
+          f"retrieve {retriever_first_ms:.1f} ms (host clock)", flush=True)
+    check(launches[k2.LAUNCHES_DENSE.name] > 0, "K6 launched on the path")
+    check(launches[k5.LAUNCHES.name] >= 3, "K5 launched on every top-k")
+    check(k5.LAUNCHES.n == k5_before + 1, "BM25Retriever took its top-k "
+                                          "through K5")
+    check(dense.shape == (QUERY_BATCH, n_docs) and sb.shape == dense.shape,
+          "dense shapes")
+    check(bool(torch.isfinite(dense).all()) and bool(
+        torch.isfinite(sb).all()), "finite dense scores")
+
+    # -- the unfused board against the fused K2 board and ScipyBM25 -------
+    f_ids, f_vals = ops.bm25_retrieve_blocked(*blk, shift, k=TOP_K, **kwb)
+    vals_same = bits_equal(u_vals, f_vals)
+    # tie-aware: at every rank the two ids carry the same dense score
+    ids_tied = bits_equal(dense.gather(1, u_ids.long()),
+                          dense.gather(1, f_ids.long()))
+    n_diff = int((u_ids != f_ids).sum())
+    t0 = time.perf_counter()
+    worst = sampled_exact(oracle, qs, board(u_ids, u_vals), rng, 20)
+    print(f"[dense] unfused board vs the fused K2 board: values bitwise "
+          f"equal {vals_same}; {n_diff} of {u_ids.numel()} ids differ, each "
+          f"carrying the fused id's dense score {ids_tied}; 20 sampled "
+          f"queries exact against ScipyBM25, max |score - oracle| "
+          f"{worst:.3g} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    check(vals_same and ids_tied, "unfused board == fused board, "
+                                  "tie-aware")
+    del f_ids, f_vals
+
+    # -- score_batch + ops.topk ---------------------------------------------
+    diff = float((sb - dense).abs().max())
+    worst = sampled_exact(oracle, qs, board(s_ids, s_vals), rng, 20)
+    print(f"[dense] score_batch: overflow {int(over.sum())} of "
+          f"{QUERY_BATCH}; max |score_batch - K6 dense| {diff:.3g} over all "
+          f"{QUERY_BATCH} rows; 20 sampled boards exact against ScipyBM25, "
+          f"max |score - oracle| {worst:.3g}", flush=True)
+    check(not bool(over.any()), "no overflow under suggest_p_max")
+    check(diff <= EXACT_ATOL, "score_batch rows within 1e-4 of K6's")
+
+    # -- BM25Retriever from texts ---------------------------------------------
+    t0 = time.perf_counter()
+    t_oracle = ScipyBM25(ret.bm25_index)
+    text_tok = ret.tokenizer.tokenize_queries(text_qs)
+    worst = sampled_exact(t_oracle, text_tok, board(r_ids, r_vals), rng,
+                          QUERY_BATCH)
+    print(f"[dense] BM25Retriever: all {QUERY_BATCH} boards exact against "
+          f"ScipyBM25 on the same tokens, max |score - oracle| {worst:.3g} "
+          f"({time.perf_counter() - t0:.1f}s); n_docs "
+          f"{ret.bm25_index.n_docs} % {TOPK_BLOCK} = "
+          f"{ret.bm25_index.n_docs % TOPK_BLOCK} (ragged K5 segment)",
+          flush=True)
+
+    # -- K6 alone, its twins and its library call ---------------------------
+    raw = k2.bm25_block_score(*blk, block_size=DOC_BLOCK)
+    ms6 = cuda_ms(lambda: k2.bm25_block_score(*blk, block_size=DOC_BLOCK),
+                  reps=3)
+    bitwise6 = twin_bitwise(k2.bm25_block_score, blk, (4,), raw,
+                            dict(block_size=DOC_BLOCK), "K6")
+    check(bitwise6, "K6 bitwise equal to its CPU twin at full width")
+    check(bits_equal(raw.permute(2, 0, 1).reshape(QUERY_BATCH, -1)
+                     [:, :n_docs] + shift[:, None], dense),
+          "bm25_score_blocked = K6 laid out, cut and shifted")
+    plain6 = k2.block_accumulate(*blk, block_size=DOC_BLOCK)
+    plain6_ms = cuda_ms(lambda: k2.block_accumulate(*blk,
+                                                    block_size=DOC_BLOCK))
+    err6 = float((raw - plain6).abs().max())
+    check(bool(torch.allclose(raw, plain6, atol=ATOL, rtol=RTOL)),
+          f"K6 vs its twin on the card (max abs err {err6})")
+    del plain6
+    csr = oracle.matrix.tocsr()
+    mat = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr.astype(np.int64), device=dev),
+        torch.as_tensor(csr.indices.astype(np.int64), device=dev),
+        torch.as_tensor(csr.data, device=dev), size=csr.shape)
+    del csr
+    n_u = pk.uniq_batch.size
+    wv = torch.zeros((N_VOCAB, w.shape[1]), dtype=torch.float32, device=dev)
+    wv[torch.as_tensor(pk.uniq_batch, device=dev)] = w[:n_u]
+    lib6 = torch.sparse.mm(mat, wv)
+    lib6_ms = cuda_ms(lambda: torch.sparse.mm(mat, wv), reps=3)
+    lib6_err = float((lib6 - raw.reshape(-1, w.shape[1])[:n_docs])
+                     .abs().max())
+    print(f"[dense] K6 {ms6:.3f} ms, twin on the card {plain6_ms:.1f} ms, "
+          f"torch.sparse.mm of the [{n_docs}, {N_VOCAB}] CSR "
+          f"({mat.values().numel()} nonzeros) by [{N_VOCAB}, "
+          f"{w.shape[1]}] weights {lib6_ms:.3f} ms (max |sparse.mm - K6| "
+          f"{lib6_err:.3g}, another sum order)", flush=True)
+    del lib6, mat, wv
+    hits = int(torch.isin(di.blk_tok, tab).sum())
+    nbytes6 = (di.blk_tok.numel() * 12 + tab.numel() * 4 + w.numel() * 4
+               + raw.numel() * 4)
+    entry6 = dict(
+        name=k2.LAUNCHES_DENSE.name, route="cuda",
+        source="src/repro_torch/kernels/csrc/bm25_block_score.cu",
+        replaces="src/repro/kernels/bm25_block_score.py:146",
+        launches=launches[k2.LAUNCHES_DENSE.name], max_abs_err=err6,
+        tolerance=f"atol {ATOL} + rtol {RTOL} vs the twin on the card "
+                  "(atomics there)", twin_bitwise=bitwise6,
+        twin_bitwise_at=(f"full width, query columns 0-{TWIN_COLS - 1}, "
+                         "CPU twin; phase 2: all columns, 100,003 docs, "
+                         "B 8 and 64"),
+        ms=ms6, plain_ms=plain6_ms, library_ms=lib6_ms,
+        library="torch.sparse.mm (doc x token CSR by [V, B] weights)",
+        bytes=nbytes6, ops=2.0 * hits * w.shape[1])
+    del raw
+
+    # -- K5 alone, its twin on the card and its library call ---------------
+    bv, bp = k5.blockwise_topk(dense, k=TOP_K, block=TOPK_BLOCK)
+    ms5 = cuda_ms(lambda: k5.blockwise_topk(dense, k=TOP_K,
+                                            block=TOPK_BLOCK), reps=3)
+    pv, pp = k5.blockwise_topk_plain(dense, k=TOP_K, block=TOPK_BLOCK)
+    plain5_ms = cuda_ms(lambda: k5.blockwise_topk_plain(
+        dense, k=TOP_K, block=TOPK_BLOCK))
+    bitwise5 = bits_equal(bv, pv) and bits_equal(bp, pp)
+    distinct5 = positions_distinct(bp)
+    err5 = float((bv - pv).abs().nan_to_num(0.0).max())
+    lib5_ms = cuda_ms(lambda: torch.topk(dense, TOP_K, dim=1), reps=3)
+    print(f"[dense] K5 over [{bv.shape[0]}, {TOPK_BLOCK}] segments, k "
+          f"{TOP_K}: {ms5:.3f} ms; bitwise equal to its twin on the card "
+          f"{bitwise5} ({plain5_ms:.1f} ms); positions distinct "
+          f"{distinct5}; torch.topk(dense, {TOP_K}, dim=1) {lib5_ms:.3f} ms",
+          flush=True)
+    check(bitwise5 and distinct5, "K5 bitwise equal to its twin at full "
+                                  "width")
+    entry5 = dict(
+        name=k5.LAUNCHES.name, route="cuda",
+        source="src/repro_torch/kernels/csrc/blockwise_topk.cu",
+        replaces="src/repro/kernels/blockwise_topk.py:61",
+        launches=launches[k5.LAUNCHES.name], max_abs_err=err5,
+        tolerance="bitwise vs the twin on the card", twin_bitwise=bitwise5,
+        twin_bitwise_at=(f"full width, [{bv.shape[0]}, {TOPK_BLOCK}] "
+                         "segments, twin on the card; phase 2: CPU twin, "
+                         "blocks 512 and 4096, k 1, 7, 100 and block"),
+        ms=ms5, plain_ms=plain5_ms, library_ms=lib5_ms,
+        library=f"torch.topk(dense, {TOP_K}, dim=1)",
+        bytes=dense.numel() * 4 + bv.numel() * 8, ops=float(dense.numel()))
+    del bv, bp, pv, pp
+
+    # -- whole batches: unfused against fused, the eager scorer ------------
+    def unfused():
+        return ops.topk(ops.bm25_score_blocked(*blk, shift, **kwb), TOP_K)
+
+    def fused():
+        return ops.bm25_retrieve_blocked(*blk, shift, k=TOP_K, **kwb)
+
+    del dense, sb
+    f1, u1, u2, f2 = (cuda_ms(fused), cuda_ms(unfused), cuda_ms(unfused),
+                      cuda_ms(fused))
+    eager_ms = cuda_ms(lambda: score_batch(sidx, toks, wts, p_max=p_max))
+    t0 = time.perf_counter()
+    ret.retrieve(text_qs, k=TOP_K)
+    torch.cuda.synchronize()
+    retriever_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[dense] batch of {QUERY_BATCH} (CUDA events): fused "
+          f"bm25_retrieve_blocked {f1:.1f}, {f2:.1f} ms; unfused "
+          f"topk(bm25_score_blocked) {u1:.1f}, {u2:.1f} ms; score_batch "
+          f"{eager_ms:.1f} ms; BM25Retriever.retrieve on {TEXT_DOCS} docs "
+          f"{retriever_ms:.1f} ms (host clock, tokenizing included)",
+          flush=True)
+    del sidx
+    return [entry5, entry6]
 
 
 def main(argv=None) -> int:
@@ -557,6 +919,7 @@ def main(argv=None) -> int:
     # -- phase 2: kernels vs twins, bitwise -------------------------------
     t0 = time.perf_counter()
     phase_kernels_vs_twins(args.seed)
+    phase_topk_vs_twin(args.seed)
     print(f"[kernel-vs-twin] done in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
@@ -633,9 +996,9 @@ def main(argv=None) -> int:
     check(TRANSFERS.posting_bytes == 0, "postings crossed after the build")
     check(TRANSFERS.descriptor_bytes == 0,
           "descriptors crossed after the build")
-    for name, n in launches.items():
-        if name != k1.LAUNCHES_GATHER.name:   # the ladder's host rung only
-            check(n > 0, f"{name} launched on the main path")
+    for name in (k1.LAUNCHES.name, k2.LAUNCHES.name,
+                 k1.LAUNCHES_PRUNED.name):    # K4 serves the ladder only
+        check(launches[name] > 0, f"{name} launched on the main path")
 
     t0 = time.perf_counter()
     oracle = ScipyBM25(idx)
@@ -654,6 +1017,7 @@ def main(argv=None) -> int:
     print(f"[ladder] done in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- phase 5: the kernels at the main path's shapes -------------------
+    t_k = time.perf_counter()
     dev = dr.device
     kernels = []
     tol = f"atol {ATOL} + rtol {RTOL} vs the twin on the card"
@@ -872,12 +1236,21 @@ def main(argv=None) -> int:
         ops=nops))
     for kd in kernels[:3]:
         kd["launches_ladder"] = ladder_launches[kd["name"]]
+    print(f"[kernels] done in {time.perf_counter() - t_k:.1f}s", flush=True)
+
+    # -- phase 6: the dense path at full width ----------------------------
+    del shards, shard_drs, sh0, dr0, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels += phase_dense(dr, idx, oracle, rng)
+    print(f"[dense] done in {time.perf_counter() - t0:.1f}s", flush=True)
     for kd in kernels:
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = kd.pop("ops") / FP32_OPS_PER_S * 1e3
         kd["bound_ms"] = max(t_bytes, t_ops)
         kd["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        kd["library_ms"] = None      # no single torch call computes this
+        kd.setdefault("library_ms", None)   # K1-K4: no single torch call
     print(f"[done] {time.perf_counter() - t_all:.1f}s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,7 +6,8 @@ A system whose state is an index carries its "weights" as index arrays:
 arrays, and returns the port's :class:`~repro_torch.core.index.BM25Index`
 holding equal arrays — so both packages serve the same state.
 :func:`block_max_from_reference` does the same for the pruned regime's
-block-max table. It imports nothing of ``repro``.
+block-max table, and :func:`scoring_index_from_reference` for the eager
+scorer's device index. It imports nothing of ``repro``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 
 from .core.index import BM25Index
 from .core.variants import BM25Params
+from .core.scoring import DeviceIndex
 from .sparse.block_csr import BlockMaxTable, put_descriptor_array
 
 
@@ -63,3 +65,15 @@ def block_max_from_reference(bmax, *, device=None) -> BlockMaxTable:
         bm.device = put_descriptor_array(host, device=device)
         bm.scale_dev = put_descriptor_array(scale, device=device)
     return bm
+
+
+def scoring_index_from_reference(dindex, *, device=None) -> DeviceIndex:
+    """The port's eager-scorer ``DeviceIndex`` with the arrays of
+    ``dindex``, shaped like ``repro.core.scoring.DeviceIndex`` (read as
+    numpy), uploaded to ``device`` (default ``cuda``) and counted as
+    posting traffic, as :meth:`DeviceIndex.from_host` does."""
+    return DeviceIndex.upload(dindex.indptr, dindex.doc_ids, dindex.scores,
+                              dindex.nonoccurrence,
+                              n_docs=int(dindex.n_docs),
+                              doc_offset=int(dindex.doc_offset),
+                              device=device)

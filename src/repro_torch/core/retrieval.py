@@ -303,6 +303,44 @@ def rank_order(vals: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.sort(key, dim=-1).indices
 
 
+def topk_torch(scores: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last axis in the port's tie order (:func:`rank_order`:
+    score desc, index asc). Returns ``(indices, values)``, as the
+    reference's ``topk_jax`` does."""
+    n = scores.shape[-1]
+    pos = torch.arange(n, device=scores.device).expand(scores.shape)
+    idx = rank_order(scores, pos)[..., :k]
+    return idx, torch.gather(scores, -1, idx)
+
+
+def blockwise_topk(scores: torch.Tensor, k: int, block: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-stage top-k: per-block top-``min(k, block)``, then a merge.
+
+    Lossless: every global winner is a winner of its own block. The plain
+    counterpart of ``kernels.ops.topk`` (whose stage 1 is K5) and the
+    tests' oracle for it. A ragged last block is padded with ``-inf`` at
+    indices ``>= n``, which rank after every real entry; ``k > n`` raises
+    ``ValueError``. Returns ``(indices, values)`` in the port's tie order,
+    as the reference's ``blockwise_topk`` returns them.
+    """
+    n = scores.shape[-1]
+    if k > n:
+        raise ValueError(f"k={k} exceeds the {n} entries")
+    nb = -(-n // block)
+    kb = min(k, block)
+    lead = scores.shape[:-1]
+    padded = torch.nn.functional.pad(scores, (0, nb * block - n),
+                                     value=float("-inf"))
+    blocks = padded.reshape(*lead, nb, block)
+    bidx, bvals = topk_torch(blocks, kb)                 # [..., nb, kb]
+    base = (torch.arange(nb, device=scores.device) * block)[:, None]
+    gidx = (bidx + base).reshape(*lead, nb * kb)
+    midx, mvals = topk_torch(bvals.reshape(*lead, nb * kb), k)
+    return torch.gather(gidx, -1, midx), mvals
+
+
 def missing_doc_ids(candidates: torch.Tensor, k: int,
                     n_docs: int) -> torch.Tensor:
     """First ``k`` doc ids NOT in a sorted candidate list (the j-th missing

@@ -1,18 +1,81 @@
-"""Query padding for the batched device scorers (host-side numpy).
+"""Eager BM25S query scoring in torch, query padding and budget helpers.
 
-The port's counterpart of ``repro.core.scoring``: only the part the query
-path needs — :func:`pad_queries` and the :func:`bucket_pow2` re-export.
-The per-query jnp scorer (``score_query``/``score_batch``) belongs to the
-multi-device slice.
+The port's counterpart of ``repro.core.scoring``. The paper's eager path,
+
+    slice the query tokens' postings  →  sum across the token dimension
+
+becomes a ragged gather of each query's posting runs (bounded by a
+postings budget ``p_max``) followed by a scatter-add per document. A query
+is a padded ``(tokens[Q_max], weights[Q_max])`` pair; ``weights`` carries
+the per-unique-token occurrence count (summing a token's postings ``w``
+times ≡ the paper's per-occurrence summation) and 0 marks padding. The
+shifted variants' query constant ``Σᵢ wᵢ·S⁰(qᵢ)`` (§2.1) is added, so the
+scores are exact, not rank-equivalent. :func:`pad_queries` and the budget
+helpers are host numpy, copied from the reference.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+import torch
 
 # re-exported here (budget logic's public home); defined next to the other
 # static-shape/bucketing machinery in the sparse layout module
 from ..sparse.block_csr import bucket_pow2  # noqa: F401
+from ..sparse.block_csr import put_posting_arrays
+from .index import BM25Index
+
+# score_batch scatters at most this many gathered postings at a time
+_SLOTS_PER_STEP = 1 << 26
+
+
+@dataclass
+class DeviceIndex:
+    """A :class:`BM25Index`'s CSC arrays on a torch device (one shard).
+
+    The eager scorer's index, distinct from ``sparse.block_csr.
+    DeviceIndex`` (the retriever's layouts), as in the reference.
+    """
+
+    indptr: torch.Tensor          # [V+1] int64
+    doc_ids: torch.Tensor         # [nnz] int32
+    scores: torch.Tensor          # [nnz] float32
+    nonoccurrence: torch.Tensor   # [V] float32
+    n_docs: int
+    doc_offset: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.scores.device
+
+    @staticmethod
+    def from_host(index: BM25Index, device=None) -> "DeviceIndex":
+        """Upload ``index``'s arrays to ``device`` (default ``cuda``; a
+        missing GPU raises ``ResidencyError``), counted as posting traffic
+        by ``sparse.block_csr.TRANSFERS``."""
+        return DeviceIndex.upload(index.indptr, index.doc_ids, index.scores,
+                                  index.nonoccurrence,
+                                  n_docs=int(index.doc_lens.size),
+                                  doc_offset=int(index.doc_offset),
+                                  device=device)
+
+    @staticmethod
+    def upload(indptr, doc_ids, scores, nonoccurrence, *, n_docs: int,
+               doc_offset: int = 0, device=None) -> "DeviceIndex":
+        """The CSC arrays (numpy, or anything ``np.array`` reads) copied
+        with the port's dtypes and uploaded through ``put_posting_arrays``
+        to ``device`` (default ``cuda``)."""
+        from ..device import resolve_device
+        arrays = put_posting_arrays(
+            np.array(indptr, dtype=np.int64),
+            np.array(doc_ids, dtype=np.int32),
+            np.array(scores, dtype=np.float32),
+            np.array(nonoccurrence, dtype=np.float32),
+            device=resolve_device(device))
+        return DeviceIndex(*arrays, n_docs=int(n_docs),
+                           doc_offset=int(doc_offset))
 
 
 def pad_queries(query_tokens: list[np.ndarray], q_max: int, *,
@@ -77,3 +140,161 @@ def pad_queries(query_tokens: list[np.ndarray], q_max: int, *,
     if return_uniq:
         return toks, wts, np.unique(u_tok)
     return toks, wts
+
+
+def _query_tables(index: DeviceIndex, q_tokens, q_weights):
+    """``q_tokens``/``q_weights`` ``[B, Q]`` (numpy or torch) as tensors on
+    the index's device: int64 tokens, f32 weights."""
+    toks = torch.as_tensor(q_tokens).to(index.device, torch.int64)
+    wts = torch.as_tensor(q_weights).to(index.device, torch.float32)
+    if toks.dim() != 2 or toks.shape != wts.shape:
+        raise ValueError(f"q_tokens {tuple(toks.shape)} and q_weights "
+                         f"{tuple(wts.shape)} must be equal [B, Q] tables")
+    return toks, wts
+
+
+def _run_lengths(indptr: torch.Tensor, q_tokens: torch.Tensor,
+                 p_max: int):
+    """Per (query, token): posting-run start, the slots the budget keeps,
+    and each query's total demand ``Σᵢ df(qᵢ)``.
+
+    Flat slot ``j`` of a query belongs to its first token ``i`` with
+    ``cum[i] > j``; slots ``j >= p_max`` do not fit, so token ``i`` keeps
+    ``clamp(min(cum[i], p_max) - (cum[i] - len[i]), 0)`` of its postings.
+    """
+    valid = q_tokens >= 0
+    safe = torch.where(valid, q_tokens, 0)
+    starts = indptr[safe]
+    lens = torch.where(valid, indptr[safe + 1] - starts, 0)
+    cum = torch.cumsum(lens, dim=1)                     # inclusive
+    kept = (torch.clamp(cum, max=p_max) - (cum - lens)).clamp_(min=0)
+    return starts, kept, cum[:, -1]
+
+
+def _flatten_postings(indptr: torch.Tensor, q_tokens: torch.Tensor,
+                      q_weights: torch.Tensor, p_max: int):
+    """Ragged-gather bookkeeping for a ``[c, Q]`` block of queries.
+
+    Returns ``(query row [S], CSC position [S], weight [S], total [c])``
+    for the ``S = Σ_b min(total_b, p_max)`` slots that hold a posting, in
+    slot order: query by query, then slot ``j`` ascending — token ``i``'s
+    run, postings in CSC order. The reference materialises all ``p_max``
+    slots of each query and zeroes the empty ones; those add nothing, so
+    they are left out here. When ``total > p_max`` the trailing ``total -
+    p_max`` postings do not fit and are dropped: callers must surface
+    ``total > p_max`` as an overflow flag, otherwise the truncation is
+    undetectable score corruption.
+    """
+    c, q = q_tokens.shape
+    starts, kept, total = _run_lengths(indptr, q_tokens, p_max)
+    flat = kept.reshape(-1)
+    owner = torch.repeat_interleave(
+        torch.arange(c * q, device=indptr.device), flat)
+    first = torch.cumsum(flat, 0) - flat                # exclusive
+    within = torch.arange(owner.numel(), device=indptr.device) - first[owner]
+    pos = starts.reshape(-1)[owner] + within
+    return (torch.div(owner, q, rounding_mode="floor"), pos,
+            q_weights.reshape(-1)[owner], total)
+
+
+def score_batch(index: DeviceIndex, q_tokens, q_weights, *, p_max: int,
+                return_overflow: bool = False):
+    """Batched exact scoring: ``[B, Q_max] -> [B, n_docs]`` f32.
+
+    The eager path: gather each query's precomputed posting scores (at most
+    ``p_max`` of them, in :func:`_flatten_postings`' slot order), multiply
+    by the token weight, scatter-add per document, add the §2.1 shift.
+    Queries are walked in groups of at most ``_SLOTS_PER_STEP`` gathered
+    postings (a group holds at least one query), each scattered into the
+    one ``[B, n_docs]`` output; the grouping does not change any sum. On
+    the CPU each document sums its postings in slot order; on a CUDA
+    device ``index_add_`` uses atomics and agrees to rounding.
+
+    With ``return_overflow=True`` also returns a ``[B]`` bool flag marking
+    queries whose posting demand exceeded ``p_max`` (their scores miss the
+    dropped postings — re-run with a larger budget or log the
+    degradation; see ``BM25Retriever.retrieve``).
+    """
+    toks, wts = _query_tables(index, q_tokens, q_weights)
+    b = toks.shape[0]
+    n = index.n_docs
+    out = torch.zeros((b, n), dtype=torch.float32, device=index.device)
+    _, kept, total = _run_lengths(index.indptr, toks, p_max)
+    per_query = kept.sum(dim=1).tolist()
+    b0 = 0
+    while b0 < b:
+        b1, slots = b0 + 1, per_query[b0]
+        while b1 < b and slots + per_query[b1] <= _SLOTS_PER_STEP:
+            slots += per_query[b1]
+            b1 += 1
+        row, pos, w, _ = _flatten_postings(index.indptr, toks[b0:b1],
+                                           wts[b0:b1], p_max)
+        dst = (row + b0) * n + index.doc_ids[pos]
+        out.view(-1).index_add_(0, dst, index.scores[pos] * w)
+        b0 = b1
+    valid = toks >= 0
+    shift = (torch.where(valid, index.nonoccurrence[torch.where(
+        valid, toks, 0)], 0.0) * wts).sum(dim=1)
+    out += shift[:, None]
+    if return_overflow:
+        return out, total > p_max
+    return out
+
+
+def score_query(index: DeviceIndex, q_tokens, q_weights, *, p_max: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact BM25 scores of one query against this shard's documents.
+
+    Returns ``(scores [n_docs], overflow [] bool)``: overflow is True iff
+    ``Σᵢ df(qᵢ) > p_max``, i.e. the budget truncated postings and the
+    scores are lower bounds. :func:`score_batch` on a batch of one.
+    """
+    scores, overflow = score_batch(
+        index, torch.as_tensor(q_tokens)[None],
+        torch.as_tensor(q_weights)[None], p_max=p_max, return_overflow=True)
+    return scores[0], overflow[0]
+
+
+def query_posting_budget(index: BM25Index, q_tokens: np.ndarray) -> int:
+    """Host helper: exact Σ df(qᵢ) for a padded query batch (budget sizing)."""
+    df = np.diff(index.indptr)
+    safe = np.where(q_tokens >= 0, q_tokens, 0)
+    return int((np.where(q_tokens >= 0, df[safe], 0)).sum(axis=-1).max())
+
+
+def batch_posting_budget(index: BM25Index, q_tokens: np.ndarray) -> int:
+    """Exact Σ df over the BATCH's unique tokens — the gathered path's work.
+
+    The gather materializes each unique token's posting run once for the
+    whole batch, so its budget is Σ df(unique(batch)), not the per-query
+    maximum :func:`query_posting_budget` sizes.
+    """
+    uniq = np.unique(q_tokens[q_tokens >= 0])
+    df = np.diff(index.indptr)
+    return int(df[uniq].sum()) if uniq.size else 0
+
+
+def suggest_p_max(index: BM25Index, q_max: int, *, quantile: float = 1.0,
+                  tile: int = 1024) -> int:
+    """Static budget heuristic: q_max × weighted-quantile(df), tile-rounded.
+
+    The quantile is **df-weighted**: realistic query tokens are drawn
+    roughly ∝ df (head tokens dominate traffic), so the budget question is
+    "how big is the posting run of the q-quantile *query token*", not of
+    the q-quantile *distinct vocabulary entry*. An unweighted quantile over
+    distinct tokens wildly undersizes on Zipfian vocabularies where the
+    tail is millions of df=1 tokens but queries hit the head. At
+    ``quantile=1.0`` both definitions degenerate to ``max(df)`` (the
+    default stays a safe upper bound).
+    """
+    df = np.diff(index.indptr)
+    df = df[df > 0]
+    if df.size:
+        sdf = np.sort(df)
+        cum = np.cumsum(sdf, dtype=np.float64)
+        i = int(np.searchsorted(cum, quantile * cum[-1], side="left"))
+        per_tok = float(sdf[min(i, sdf.size - 1)])
+    else:
+        per_tok = 1.0
+    budget = int(q_max * per_tok)
+    return max(tile, ((budget + tile - 1) // tile) * tile)

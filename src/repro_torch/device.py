@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import torch
 
-from .serve.errors import ResidencyError
-
 
 def resolve_device(device=None) -> torch.device:
     """``device`` (default ``"cuda"``) as a :class:`torch.device`.
@@ -21,6 +19,8 @@ def resolve_device(device=None) -> torch.device:
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
+        # imported here: serve imports this module while it initialises
+        from .serve.errors import ResidencyError
         raise ResidencyError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain torch versions of the kernels on the host")

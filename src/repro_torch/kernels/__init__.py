@@ -10,16 +10,23 @@ Kernels:
                       K3, the same with the block-max skip (pruned), and
                       K4, host-gathered candidate chunks (the ladder's
                       host rung)
-  bm25_block_score  — K2, fused full-scan score→top-k (full-scan regime)
+  bm25_block_score  — K2, fused full-scan score→top-k (full-scan regime),
+                      and K6, the same scan's dense scores (the unfused
+                      path ``ops.topk(ops.bm25_score_blocked(...))``)
+  blockwise_topk    — K5, per-segment top-k of a dense score matrix
+                      (stage 1 of ``ops.topk``)
 """
 
-from . import bm25_block_score, bm25_gather_score
+from . import blockwise_topk, bm25_block_score, bm25_gather_score
 from .ops import (bm25_retrieve_blocked, bm25_retrieve_gathered,
-                  bm25_retrieve_resident, bm25_retrieve_resident_pruned)
+                  bm25_retrieve_resident, bm25_retrieve_resident_pruned,
+                  bm25_score_blocked, topk)
 
 COUNTERS = (bm25_gather_score.LAUNCHES, bm25_block_score.LAUNCHES,
             bm25_gather_score.LAUNCHES_PRUNED,
-            bm25_gather_score.LAUNCHES_GATHER)
+            bm25_gather_score.LAUNCHES_GATHER, blockwise_topk.LAUNCHES,
+            bm25_block_score.LAUNCHES_DENSE)
 
 __all__ = ["COUNTERS", "bm25_retrieve_blocked", "bm25_retrieve_gathered",
-           "bm25_retrieve_resident", "bm25_retrieve_resident_pruned"]
+           "bm25_retrieve_resident", "bm25_retrieve_resident_pruned",
+           "bm25_score_blocked", "topk"]

@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
-SOURCES = ("bm25_resident", "bm25_block_score", "bm25_gather_score")
+SOURCES = ("bm25_resident", "bm25_block_score", "bm25_gather_score",
+           "blockwise_topk")
 SMEM_LIMIT = 232448       # dynamic shared memory a CTA may use on Hopper
 
 _lock = threading.Lock()

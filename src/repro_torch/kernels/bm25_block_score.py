@@ -1,9 +1,10 @@
-"""K2: fused full-scan score → per-block top-k (the O(nnz) regime).
+"""K2: fused full-scan score → per-block top-k (the O(nnz) regime), and
+K6: the same scan's dense per-block scores.
 
-Port of ``repro.kernels.bm25_block_score.bm25_block_score_topk``. The
-CUDA kernel is ``csrc/bm25_block_score.cu`` (its header note gives the
-design and the bound); this module holds its wrapper, its plain torch
-twin and its launch counter.
+Ports of ``repro.kernels.bm25_block_score.bm25_block_score_topk`` and
+``bm25_block_score``. Both CUDA kernels are in ``csrc/bm25_block_score.cu``
+(its header note gives the design and the bound); this module holds their
+wrappers, their plain torch twins and their launch counters.
 
 Contract, per document block ``i`` and query column ``b``: each posting of
 the block whose token is in the sorted unique table ``uniq`` (row ``u``)
@@ -11,6 +12,8 @@ adds ``fl(score · weights[u, b])`` to its document's row, in posting
 order; rows of documents ``≥ n_docs`` are set to the float minimum; the
 output lists the block's best ``k`` rows per column in (score desc, row
 asc) order as values ``[nb, k, B]`` and block-local rows ``[nb, k, B]``.
+K6 returns the sums themselves, ``[nb, block_size, B]``, padding rows
+included and unmasked (the reference's dense kernel masks nothing).
 """
 
 from __future__ import annotations
@@ -23,12 +26,13 @@ from ..core.retrieval import rank_order
 from . import _build
 
 LAUNCHES = _build.LaunchCounter("bm25_block_score_topk")
+LAUNCHES_DENSE = _build.LaunchCounter("bm25_block_score")
 
 _ROWS_PER_STEP = 1 << 18       # twin: accumulator rows / postings a step
 
 
 def _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
-                    block_size: int, k: int) -> None:
+                    block_size: int, k: int | None = None) -> None:
     nb, p = token_ids.shape
     u, _b = weights.shape
     for name, t, dt, shape in (("token_ids", token_ids, torch.int32, (nb, p)),
@@ -44,7 +48,9 @@ def _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
         if t.device != token_ids.device:
             raise ValueError(f"{name} is on {t.device}, token_ids on "
                              f"{token_ids.device}")
-    if not 1 <= k <= block_size:
+    if block_size < 1:
+        raise ValueError(f"block_size must be positive, got {block_size}")
+    if k is not None and not 1 <= k <= block_size:
         raise ValueError(f"need 1 <= k <= block_size, got k={k}, "
                          f"block_size={block_size}")
 
@@ -119,17 +125,32 @@ def bm25_block_score_topk_plain(token_ids, local_doc, scores, uniq_tokens,
     return out_v, out_i
 
 
-def _fn(lib):
-    f = lib.bm25_block_score_topk_launch
-    if f.argtypes is None:
+def _cuda_launch(token_ids, local_doc, scores, uniq_tokens, weights,
+                 block_size: int):
+    """The library of ``csrc/bm25_block_score.cu`` with its C signatures
+    declared, and the five operands made contiguous, for a launch of K2 or
+    K6 (both take the same grid and shared memory). Raises ``ValueError``
+    on a grid or a shared memory the kernels cannot take."""
+    nb = token_ids.shape[0]
+    u = weights.shape[0]
+    if nb > 65535:
+        raise ValueError(f"{nb} document blocks exceed the grid's 65535")
+    lib = _build.load("bm25_block_score")
+    if lib.bm25_block_score_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, i, i, p, i, p, i, i, i, ctypes.c_longlong, p,
-                      p, p]
-        f.restype = ctypes.c_int
-        s = lib.bm25_block_score_topk_smem
-        s.argtypes = [i, i]
-        s.restype = ctypes.c_longlong
-    return f
+        lib.bm25_block_score_topk_launch.argtypes = [
+            p, p, p, i, i, p, i, p, i, i, i, ctypes.c_longlong, p, p, p]
+        lib.bm25_block_score_topk_launch.restype = ctypes.c_int
+        lib.bm25_block_score_launch.argtypes = [p, p, p, i, i, p, i, p, i,
+                                                i, p, p]
+        lib.bm25_block_score_launch.restype = ctypes.c_int
+        lib.bm25_block_score_smem.argtypes = [i, i]
+        lib.bm25_block_score_smem.restype = ctypes.c_longlong
+    if lib.bm25_block_score_smem(block_size, u) > _build.SMEM_LIMIT:
+        raise ValueError(f"block_size={block_size} with {u} unique tokens "
+                         "does not fit a CTA's shared memory")
+    return lib, [t.contiguous() for t in (token_ids, local_doc, scores,
+                                          uniq_tokens, weights)]
 
 
 def bm25_block_score_topk(token_ids, local_doc, scores, uniq_tokens,
@@ -152,23 +173,49 @@ def bm25_block_score_topk(token_ids, local_doc, scores, uniq_tokens,
         raise ValueError(f"unsupported device {dev}")
     nb, p = token_ids.shape
     u, b = weights.shape
-    if nb > 65535:
-        raise ValueError(f"{nb} document blocks exceed the grid's 65535")
-    lib = _build.load("bm25_block_score")
-    launch = _fn(lib)
-    if lib.bm25_block_score_topk_smem(block_size, u) > _build.SMEM_LIMIT:
-        raise ValueError(f"block_size={block_size} with {u} unique tokens "
-                         "does not fit a CTA's shared memory")
-    ops = [t.contiguous() for t in (token_ids, local_doc, scores,
-                                    uniq_tokens, weights)]
+    lib, ops = _cuda_launch(token_ids, local_doc, scores, uniq_tokens,
+                            weights, block_size)
     out_v = torch.empty((nb, k, b), dtype=torch.float32, device=dev)
     out_i = torch.empty((nb, k, b), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
-                     nb, p, ops[3].data_ptr(), u, ops[4].data_ptr(), b,
-                     block_size, k, n_docs, out_v.data_ptr(),
-                     out_i.data_ptr(), stream)
+        err = lib.bm25_block_score_topk_launch(
+            ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(), nb, p,
+            ops[3].data_ptr(), u, ops[4].data_ptr(), b, block_size, k,
+            n_docs, out_v.data_ptr(), out_i.data_ptr(), stream)
     _build.check(err, "bm25_block_score_topk")
     LAUNCHES.add()
     return out_v, out_i
+
+
+def bm25_block_score(token_ids, local_doc, scores, uniq_tokens, weights, *,
+                     block_size: int) -> torch.Tensor:
+    """K6: blocked postings × ``[U, B]`` query table → dense
+    ``[nb, block_size, B]`` f32 sums (no masking of padding rows).
+
+    A CPU tensor runs the plain twin, :func:`block_accumulate` (bitwise the
+    kernel's sums); a CUDA tensor launches the kernel (and raises if it
+    cannot): there is no fall-back between the two.
+    """
+    _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
+                    block_size)
+    dev = token_ids.device
+    if dev.type == "cpu":
+        return block_accumulate(token_ids, local_doc, scores, uniq_tokens,
+                                weights, block_size=block_size)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    nb, p = token_ids.shape
+    u, b = weights.shape
+    lib, ops = _cuda_launch(token_ids, local_doc, scores, uniq_tokens,
+                            weights, block_size)
+    out = torch.empty((nb, block_size, b), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bm25_block_score_launch(
+            ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(), nb, p,
+            ops[3].data_ptr(), u, ops[4].data_ptr(), b, block_size,
+            out.data_ptr(), stream)
+    _build.check(err, "bm25_block_score")
+    LAUNCHES_DENSE.add()
+    return out

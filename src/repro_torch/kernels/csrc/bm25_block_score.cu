@@ -1,7 +1,10 @@
-// K2: fused full-scan score -> per-block top-k over block-bucketed postings.
+// K2: fused full-scan score -> per-block top-k over block-bucketed postings,
+// and K6: the same scan's dense per-block scores.
 //
 // Replaces: src/repro/kernels/bm25_block_score.py::bm25_block_score_topk
-// (_fused_kernel, _score_tile; pallas_call at bm25_block_score.py:206).
+// (_fused_kernel, _score_tile; pallas_call at bm25_block_score.py:206) and
+// src/repro/kernels/bm25_block_score.py::bm25_block_score (_kernel,
+// _score_tile; pallas_call at bm25_block_score.py:163).
 //
 // What it computes, per document block i and query column b:
 //   acc[d, b] = sum over postings p of block i, in posting order, whose
@@ -30,6 +33,18 @@
 //   one writer and sums in posting order, with __fmul_rn / __fadd_rn — no
 //   atomics, bitwise equal to the twin.
 // * Selection is the shared select_topk.cuh (a warp per column).
+//
+// K6 is K2's kernel without the padding mask and the selection, as the
+// reference's _kernel has neither (ops.bm25_score_blocked slices the
+// padded documents off). What it computes: out[i, d, b] = acc[d, b] of
+// block i, for every row d < block_size. Bound on the H100: K2's
+// operations and posting reads plus the dense output, nb * block_size * B
+// floats written once against 3.35 TB/s; at full width the write
+// dominates the bytes. The TPU's [PT, U] compare-count and one-hot MXU
+// matmul are not carried over: block_scatter.cuh computes the same sums.
+// After the scatter each warp writes its own rows (row % 8 == warp), a
+// lane per column: out[blk, row, col0 .. col0 + 31] is 128 contiguous
+// bytes, one coalesced store per row.
 
 #include "block_scatter.cuh"
 #include "select_topk.cuh"
@@ -95,10 +110,45 @@ __global__ void __launch_bounds__(kThreads) block_score_topk_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) block_score_kernel(
+    const int* __restrict__ tok, const int* __restrict__ loc,
+    const float* __restrict__ sc, int p_pad, const int* __restrict__ uniq,
+    int n_uniq, const float* __restrict__ w, int n_cols, int block_size,
+    float* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  float* acc = reinterpret_cast<float*>(smem_raw);  // [block_size * kLd]
+  int* uniq_s = reinterpret_cast<int*>(
+      acc + static_cast<size_t>(block_size) * kLd);     // [n_uniq]
+  unsigned char* staging = reinterpret_cast<unsigned char*>(uniq_s + n_uniq);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long blk = blockIdx.y;
+
+  for (int i = tid; i < block_size * kLd; i += kThreads) acc[i] = 0.f;
+  for (int i = tid; i < n_uniq; i += kThreads) uniq_s[i] = uniq[i];
+  __syncthreads();
+
+  const size_t row_base = static_cast<size_t>(blk) * p_pad;
+  bm25::scatter_block_postings(tok + row_base, loc + row_base,
+                               sc + row_base, p_pad, uniq_s, n_uniq, w,
+                               n_cols, blockIdx.x * kCols, block_size, acc,
+                               staging);
+
+  const int gcol = blockIdx.x * kCols + lane;
+  if (gcol < n_cols) {
+    for (int r = warp; r < block_size; r += kWarps) {
+      out[(static_cast<size_t>(blk) * block_size + r) * n_cols + gcol] =
+          acc[r * kLd + lane];
+    }
+  }
+}
+
 }  // namespace
 
-// Dynamic shared memory the kernel needs, in bytes.
-extern "C" long long bm25_block_score_topk_smem(int block_size, int n_uniq) {
+// Dynamic shared memory either kernel needs, in bytes (the same layout).
+extern "C" long long bm25_block_score_smem(int block_size, int n_uniq) {
   return static_cast<long long>(block_size) * kLd * 4
          + static_cast<long long>(n_uniq) * 4 + bm25::kScatterStagingBytes;
 }
@@ -109,7 +159,7 @@ extern "C" int bm25_block_score_topk_launch(
     int p_pad, const void* uniq, int n_uniq, const void* w, int n_cols,
     int block_size, int k, long long n_docs, void* out_v, void* out_i,
     void* stream) {
-  const long long smem = bm25_block_score_topk_smem(block_size, n_uniq);
+  const long long smem = bm25_block_score_smem(block_size, n_uniq);
   cudaError_t err = cudaFuncSetAttribute(
       block_score_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -121,5 +171,25 @@ extern "C" int bm25_block_score_topk_launch(
       static_cast<const float*>(sc), p_pad, static_cast<const int*>(uniq),
       n_uniq, static_cast<const float*>(w), n_cols, block_size, k, n_docs,
       static_cast<float*>(out_v), static_cast<int*>(out_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K6 on `stream`; returns the CUDA error code (0 on success).
+extern "C" int bm25_block_score_launch(
+    const void* tok, const void* loc, const void* sc, int n_blocks,
+    int p_pad, const void* uniq, int n_uniq, const void* w, int n_cols,
+    int block_size, void* out, void* stream) {
+  const long long smem = bm25_block_score_smem(block_size, n_uniq);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_cols + kCols - 1) / kCols, n_blocks);
+  block_score_kernel<<<grid, kThreads, static_cast<size_t>(smem),
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(tok), static_cast<const int*>(loc),
+      static_cast<const float*>(sc), p_pad, static_cast<const int*>(uniq),
+      n_uniq, static_cast<const float*>(w), n_cols, block_size,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,11 +11,73 @@ from __future__ import annotations
 import torch
 
 from ..core.retrieval import (missing_doc_ids, rank_order,
-                              splice_default_docs)
-from .bm25_block_score import bm25_block_score_topk
+                              splice_default_docs, topk_torch)
+from .blockwise_topk import blockwise_topk
+from .bm25_block_score import bm25_block_score, bm25_block_score_topk
 from .bm25_gather_score import (bm25_gather_score_topk, gather_fold_fits,
                                 bm25_resident_score_topk,
                                 bm25_resident_score_topk_pruned)
+
+
+def bm25_score_blocked(token_ids, local_doc, scores, uniq_tokens, weights,
+                       nonocc_shift, *, block_size: int, n_docs: int
+                       ) -> torch.Tensor:
+    """Batched BM25 scores ``[B, n_docs]`` from block-bucketed postings.
+
+    ``nonocc_shift`` is the per-query ``Σᵢ wᵢ·S⁰(qᵢ)`` constant (``[B]``):
+    zero for the sparse variants, the §2.1 shift for BM25L/BM25+/TFldp.
+    K6 writes the dense ``[nb, block_size, B]`` sums; they are laid out as
+    ``[B, nb·block_size]``, cut to ``n_docs`` and shifted. It writes the
+    whole score matrix to device memory — for full-score consumers and the
+    unfused path ``topk(bm25_score_blocked(...))``; retrieval goes through
+    :func:`bm25_retrieve_blocked`, which never does.
+    """
+    out = bm25_block_score(token_ids, local_doc, scores, uniq_tokens,
+                           weights, block_size=block_size)
+    nb, bs, b = out.shape
+    flat = out.permute(2, 0, 1).reshape(b, nb * bs)[:, :n_docs]
+    # the permuted view is query-fastest; write the sum out row-major
+    res = torch.empty((b, n_docs), dtype=out.dtype, device=out.device)
+    return torch.add(flat, nonocc_shift[:, None], out=res)
+
+
+def topk(x, k: int, *, block: int = 4096
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-stage top-k over the last axis: per-segment K5 + global merge.
+
+    Accepts ``[n]`` or ``[B, n]`` f32; returns ``(values, indices)`` (i32)
+    in (value desc, index asc) order. For ``n > block`` stage 1 is K5 over
+    the ``ceil(n / block)`` segments of each row, ``kb = min(k, block)``
+    winners each (a ragged last segment included: its absent positions are
+    never selected); stage 2 ranks the ``nb·kb`` candidates with
+    :func:`~repro_torch.core.retrieval.rank_order` — lossless, since every
+    global winner wins its own segment. ``n <= block`` is ranked directly
+    with the same order. ``k > n`` raises ``ValueError``.
+    """
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[None]
+    bsz, n = x.shape
+    if not 0 <= k <= n:
+        raise ValueError(f"need 0 <= k <= n, got k={k}, n={n}")
+    if n <= block or k == 0:
+        idx, vals = topk_torch(x, k)
+        idx = idx.to(torch.int32)
+    else:
+        kb = min(k, block)
+        bvals, bpos = blockwise_topk(x, k=kb, block=block)
+        nb = bvals.shape[0] // bsz
+        base = (torch.arange(nb, dtype=torch.int32, device=x.device)
+                * block)[None, :, None]
+        gidx = torch.where(bpos.view(bsz, nb, kb) >= 0,
+                           bpos.view(bsz, nb, kb) + base, n
+                           ).view(bsz, nb * kb)
+        bvals = bvals.view(bsz, nb * kb)
+        sel = rank_order(bvals, gidx)[:, :k]
+        vals, idx = torch.gather(bvals, 1, sel), torch.gather(gidx, 1, sel)
+    if squeeze:
+        return vals[0], idx[0]
+    return vals, idx
 
 
 def bm25_retrieve_blocked(token_ids, local_doc, scores, uniq_tokens,

@@ -306,3 +306,92 @@ def test_ladder_walk_on_the_card_is_exact(cuda_device):
     for i, q in enumerate(qs):
         np.testing.assert_allclose(oracle.score(q)[r.ids[i]], r.scores[i],
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("method", ["robertson", "lucene", "bm25l"])
+@pytest.mark.parametrize("b", [3, 40])
+def test_k6_bitwise_equal_twin(cuda_device, method, b):
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(b)
+    corpus = make_corpus(rng, n_docs=1003, n_vocab=60, max_len=25)
+    idx = build_index(corpus, 60, params=BM25Params(method=method))
+    di = DeviceIndex.build(idx, device="cpu", block_size=16, tile=16,
+                           frag=8)
+    qs = [rng.integers(0, 60, size=rng.integers(0, 6)).astype(np.int32)
+          for _ in range(b)]
+    toks, wts, uniq = pad_queries(qs, 8, return_uniq=True)
+    tab, w = pack_query_batch(toks, wts, 64, uniq=uniq)
+    ops_t = (di.blk_tok, di.blk_loc, di.blk_sc, torch.as_tensor(tab),
+             torch.as_tensor(w))
+    n0 = k2.LAUNCHES_DENSE.n
+    ref = k2.bm25_block_score(*ops_t, block_size=16)
+    got = k2.bm25_block_score(*(t.to(cuda_device) for t in ops_t),
+                              block_size=16)
+    assert k2.LAUNCHES_DENSE.n == n0 + 1
+    assert torch.equal(_bits(got), _bits(ref))
+    shift = torch.arange(b, dtype=torch.float32)
+    dense = ops.bm25_score_blocked(*(t.to(cuda_device) for t in ops_t),
+                                   shift.to(cuda_device), block_size=16,
+                                   n_docs=idx.n_docs)
+    assert torch.equal(_bits(dense), _bits(ops.bm25_score_blocked(
+        *ops_t, shift, block_size=16, n_docs=idx.n_docs)))
+
+
+def _k5_rows(rng, kind, r, n):
+    if kind == "normal":
+        return rng.normal(size=(r, n)).astype(np.float32)
+    if kind == "ties":
+        return rng.integers(-2, 3, size=(r, n)).astype(np.float32)
+    fill = {"zeros": 0.0, "neg_inf": -np.inf,
+            "flt_min": np.finfo(np.float32).min}[kind]
+    x = np.full((r, n), fill, np.float32)
+    x[-1, ::13] = 1.0
+    return x
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "neg_inf",
+                                  "flt_min"])
+@pytest.mark.parametrize("n,block,k", [(2048, 512, 1), (2048, 512, 7),
+                                       (4096, 4096, 100), (1500, 512, 512),
+                                       (4100, 4096, 4096), (9000, 4096, 100)])
+def test_k5_bitwise_equal_twin(cuda_device, kind, n, block, k):
+    from repro_torch.kernels import blockwise_topk as k5
+    x = torch.as_tensor(_k5_rows(np.random.default_rng(n + k), kind, 3, n))
+    n0 = k5.LAUNCHES.n
+    ref = k5.blockwise_topk(x, k=k, block=block)
+    got = k5.blockwise_topk(x.to(cuda_device), k=k, block=block)
+    assert k5.LAUNCHES.n == n0 + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(_bits(a), _bits(b))
+    pos = got[1].cpu()
+    real = torch.where(pos >= 0, pos, -2 - torch.arange(k))   # pads apart
+    assert bool((torch.sort(real, 1).values.diff(dim=1) != 0).all())
+
+
+def test_topk_and_retriever_on_cuda_equal_cpu(cuda_device):
+    from repro_torch.core import BM25Retriever
+    from repro_torch.kernels import blockwise_topk as k5
+    from repro_torch.kernels import ops
+    x = torch.as_tensor(_k5_rows(np.random.default_rng(1), "ties", 4, 9000))
+    on_gpu = ops.topk(x.to(cuda_device), 300)
+    on_cpu = ops.topk(x, 300)
+    for a, b in zip(on_gpu, on_cpu):
+        assert torch.equal(_bits(a), _bits(b))
+    rng = np.random.default_rng(2)
+    words = [" ".join(f"w{int(t)}x" for t in rng.zipf(1.3, size=8) % 400)
+             for _ in range(5000)]
+    queries = [" ".join(f"w{int(t)}x" for t in rng.zipf(1.3, size=3) % 400)
+               for _ in range(6)]
+    r_gpu = BM25Retriever(method="robertson").index(words)
+    r_cpu = BM25Retriever(method="robertson", device="cpu").index(words)
+    assert r_gpu.device.type == "cuda"
+    n0 = k5.LAUNCHES.n
+    ids, vals = r_gpu.retrieve(queries, k=25)
+    assert k5.LAUNCHES.n == n0 + 1
+    cids, cvals = r_cpu.retrieve(queries, k=25)
+    # the card's scatter-add uses atomics: scores agree to rounding
+    np.testing.assert_allclose(vals.cpu().numpy(), cvals.numpy(), atol=1e-5)
+    oracle = ScipyBM25(r_cpu.bm25_index)
+    for i, q in enumerate(r_cpu.tokenizer.tokenize_queries(queries)):
+        np.testing.assert_allclose(oracle.score(q)[ids[i].cpu().numpy()],
+                                   vals[i].cpu().numpy(), atol=1e-4)

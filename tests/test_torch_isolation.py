@@ -5,7 +5,8 @@
 * an AST scan finds no import of ``jax`` or ``repro`` in any module of
   ``src/repro_torch`` or in ``chip_smoke.py``;
 * every CUDA source names the TPU kernel it replaces and its bound, and
-  every one is built;
+  every one is built; the BM25 sources round each product and sum
+  separately, and no source adds with atomics;
 * the build step keys each library by its sources and looks for its
   compiler only when asked to build (this suite imports every module
   without one);
@@ -40,7 +41,11 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.kernels, repro_torch.serve, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.serve.faults, "
             "repro_torch.serve.overload, repro_torch.serve.health, "
-            "repro_torch.serve.retrieval_engine\n"
+            "repro_torch.serve.retrieval_engine, repro_torch.core.scoring, "
+            "repro_torch.kernels.blockwise_topk, "
+            "repro_torch.kernels.bm25_block_score, repro_torch.device\n"
+            "from repro_torch.core import BM25Retriever, score_batch\n"
+            "from repro_torch.kernels.ops import topk, bm25_score_blocked\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\nprint('clean')")
@@ -92,6 +97,15 @@ def test_cuda_sources_carry_their_note(name):
     assert "Bound on the H100" in src
     assert "__fadd_rn" in src and "__fmul_rn" in src   # no FMA contraction
     assert "atomicAdd" not in src                      # fixed sum order
+
+
+def test_topk_source_carries_its_note():
+    src = (PORT / "kernels" / "csrc" / "blockwise_topk.cu").read_text()
+    assert ("Replaces: src/repro/kernels/blockwise_topk.py::"
+            "blockwise_topk_kernel") in src
+    assert "Bound on the H100" in src
+    assert "atomic" not in src                  # one CTA owns a segment
+    assert '#include "select_topk.cuh"' in src  # the shared total order
 
 
 def test_build_is_keyed_by_source_and_finds_nvcc_on_demand(monkeypatch,
