@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's BM25 query paths and its ladder on one GPU.
+"""Drive the PyTorch port's query paths and sparse substrate on one GPU.
 
     python3 chip_smoke.py [--n-docs N] [--seed S] [--batches N]
 
@@ -85,14 +85,34 @@ Phases (any failure exits non-zero; nothing is caught):
    ``torch.sparse.mm`` of the doc × token CSR by the ``[V, 256]``
    weights (K6's library call) and ``torch.topk(dense, 100, dim=1)``
    (K5's); the fused and the unfused batch timed in turns, and
-   ``score_batch``.
+   ``score_batch``;
+7. the sparse substrate at full width, after phases 3-6's tensors are
+   freed, at two shapes of ``repro/configs/egnn.py``: K7
+   (``ops.segment_sum_blocked``) aggregates 64-wide f32 messages (EGNN's
+   ``d_hidden``, drawn on the card from ``--seed``) over ogb_products'
+   graph (``data.graphs.random_graph(2,449,029, 25)``: 61,225,725 edges,
+   power-law in-degree) sorted by destination and cut into 4,784 blocks
+   of 512 destinations, each padded to the largest block's length
+   rounded up to ``tile_p`` = 512; K8 (``ops.embedding_bag``) takes the
+   mean of Reddit's ``[232,965, 602]`` feature rows
+   (``random_graph(232,965, 492)``, minibatch_lg) over the hop-1
+   ``[1,024, 15]`` and hop-2 ``[15,360, 10]`` bags of a (15, 10)
+   neighbour sample drawn by ``neighbor_sample``'s rule. The launch
+   counts are read around those three calls; K7 is held bitwise against
+   its CPU twin on the largest block and 7 others and the whole output
+   within 1e-4 (relative to the largest sum) of ``index_add_`` on the
+   card, K8 bitwise against its CPU twin on both bag sets and within
+   1e-5 of ``F.embedding_bag``; each kernel, its twin on the card and the
+   library call are timed with CUDA events.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
-``nvidia-smi`` name and power limit; the last is the ``{"ok": true, ...}``
-JSON. The script exits non-zero without a CUDA device, and when run
-outside the repository (it imports ``src/repro_torch``). The kernels
-line lists K1-K6; ``launches`` counts each kernel on its own path: phase
-3 for K1-K3, phase 4 for K4, phase 6 for K5 and K6.
+``nvidia-smi`` name and power limit; before them a ``[bound]`` line a
+kernel gives its time beside its bound. The last line is the ``{"ok":
+true, ...}`` JSON. The script exits non-zero without a CUDA device, and
+when run outside the repository (it imports ``src/repro_torch``). The
+kernels line lists K1-K8; ``launches`` counts each kernel on its own
+path: phase 3 for K1-K3, phase 4 for K4, phase 6 for K5 and K6, phase 7
+for K7 (once) and K8 (twice).
 """
 
 from __future__ import annotations
@@ -144,6 +164,22 @@ RUNG_KERNEL = {"pruned": "bm25_resident_score_topk_pruned",
                "resident": "bm25_resident_score_topk",
                "host": "bm25_gather_score_topk",
                "blocked": "bm25_block_score_topk", "oracle": None}
+# phase 7: the sparse substrate at two shapes of configs/egnn.py.
+# ogb_products: 2,449,029 nodes, 61,859,140 edges (avg_degree 25 as an
+# int gives 61,225,725), d_feat 100, 47 classes; EGNN's d_hidden 64
+PRODUCTS = dict(n_nodes=2_449_029, avg_degree=25, d_feat=100, n_classes=47)
+D_HIDDEN = 64
+SEG_BLOCK = 512                # destination nodes a K7 block (the doc block)
+SEG_TILE_P = 512               # ops.segment_sum_blocked's tile_p
+K7_TWIN_BLOCKS = 8             # blocks held against the CPU twin
+# minibatch_lg: Reddit's 232,965 nodes and 602 features, 41 classes; its
+# 114,615,892 edges (as DGL and PyG publish it) are an average degree of
+# ~492; 1,024 seeds sampled with fanouts (15, 10)
+REDDIT = dict(n_nodes=232_965, avg_degree=492, d_feat=602, n_classes=41)
+SAMPLE_SEEDS = 1024
+FANOUTS = (15, 10)
+K7_RTOL = 1e-4                 # K7 vs index_add_ (atomics: another order)
+K8_RTOL = 1e-5                 # K8 vs F.embedding_bag (another order)
 
 
 def check(ok, what: str) -> None:
@@ -873,22 +909,275 @@ def phase_dense(dr, idx, oracle, rng) -> list:
     return [entry5, entry6]
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n-docs", type=int, default=2_097_152)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batches", type=int, default=3,
-                    help="batches served under each regime")
-    args = ap.parse_args(argv)
-
+def blocked_by_destination(dst, n_nodes: int, gen):
+    """K7's operands from a graph's destinations (on the card): edges
+    sorted by destination and cut into blocks of ``SEG_BLOCK`` destination
+    nodes, each block padded to the largest block's length rounded up to
+    ``SEG_TILE_P`` (pads: id 0, value 0). Values are ``[nb, P, D_HIDDEN]``
+    f32 messages drawn from ``gen``. Returns ``(values, ids, counts)``."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
+    dst = torch.sort(dst).values
+    blk = dst // SEG_BLOCK
+    nb = -(-n_nodes // SEG_BLOCK)
+    counts = torch.bincount(blk, minlength=nb)
+    p = -(-int(counts.max()) // SEG_TILE_P) * SEG_TILE_P
+    starts = torch.cumsum(counts, 0) - counts
+    slot = blk * p + torch.arange(dst.numel(), device=dst.device) - starts[blk]
+    ids = torch.zeros((nb, p), dtype=torch.int32, device=dst.device)
+    ids.view(-1)[slot] = (dst % SEG_BLOCK).to(torch.int32)
+    pad = torch.ones((nb, p), dtype=torch.bool, device=dst.device)
+    pad.view(-1)[slot] = False
+    del dst, blk, slot, starts
+    values = torch.empty((nb, p, D_HIDDEN), dtype=torch.float32,
+                         device=ids.device).normal_(generator=gen)
+    values.masked_fill_(pad[..., None], 0.0)
+    return values, ids, counts
+
+
+def sample_bags(graph, rng):
+    """Hop-1 bags ``[SAMPLE_SEEDS, 15]`` and hop-2 bags ``[SAMPLE_SEEDS ·
+    15, 10]`` of global node ids, by ``neighbor_sample``'s rule
+    (``fanout_bags`` over ``Graph.csr()``); a hop-2 bag per hop-1 slot
+    (all ``-1`` under a pad). Returns ``(hop1, hop2, csr_s)``, ``csr_s``
+    the host seconds of the CSR."""
+    from repro_torch.data.graphs import fanout_bags
+    t0 = time.perf_counter()
+    indptr, src_idx = graph.csr()
+    csr_s = time.perf_counter() - t0
+    seeds = rng.choice(graph.n_nodes, size=SAMPLE_SEEDS, replace=False)
+    hop1 = fanout_bags(indptr, src_idx, seeds, FANOUTS[0], rng=rng)
+    hop2 = fanout_bags(indptr, src_idx, hop1.reshape(-1), FANOUTS[1],
+                       rng=rng)
+    return hop1, hop2, csr_s
+
+
+def mean_weights(bags: np.ndarray) -> np.ndarray:
+    """GraphSAGE's mean as bag weights: ``1/k`` on a bag's ``k`` valid
+    slots, 0 on its pads."""
+    valid = bags >= 0
+    k = np.maximum(valid.sum(1, keepdims=True), 1)
+    return (valid / k).astype(np.float32)
+
+
+def rel_err(got, ref) -> float:
+    """``max |got - ref| / max |ref|``."""
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def phase_sparse(seed: int) -> list:
+    """Phase 7: the sparse substrate at full width, K7 and K8.
+
+    K7 (``ops.segment_sum_blocked``) aggregates ``D_HIDDEN``-wide messages
+    over the ogb_products graph blocked by destination; K8
+    (``ops.embedding_bag``) takes the mean of Reddit's 602-wide feature
+    rows over the hop-1 and hop-2 bags of a (15, 10) neighbour sample. The
+    launch counts are read around those three calls; then each kernel is
+    held bitwise against its CPU twin (K7 on the largest block and 7
+    others, K8 on both bag sets), the whole output against the library
+    call, and the kernel, its twin on the card and the library call are
+    timed. Returns the ``kernels`` entries of K7 and K8."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.data.graphs import random_graph
+    from repro_torch.kernels import COUNTERS, ops
+    from repro_torch.kernels import block_segment_sum as k7
+    from repro_torch.kernels.embedding_bag import LAUNCHES as K8_LAUNCHES
+    from repro_torch.kernels.embedding_bag import embedding_bag as k8
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed + 7)
+
+    # -- operands: ogb_products blocked by destination, Reddit's bags ----
+    t0 = time.perf_counter()
+    g = random_graph(**PRODUCTS, seed=seed)
+    n_edges = g.edges.shape[0]
+    t_products = time.perf_counter() - t0
+    dst = torch.as_tensor(np.ascontiguousarray(g.edges[:, 1]), device=dev)
+    del g
+    values, ids, counts = blocked_by_destination(dst, PRODUCTS["n_nodes"],
+                                                 gen)
+    del dst
+    torch.cuda.synchronize()
+    nb, p, _ = values.shape
+    t_k7_ops = time.perf_counter() - t0
+    real = n_edges * D_HIDDEN * 4
+    print(f"[sparse] K7 operands: ogb_products graph of "
+          f"{PRODUCTS['n_nodes']} nodes and {n_edges} edges in "
+          f"{t_products:.1f}s (host); {nb} blocks of {SEG_BLOCK} "
+          f"destinations, P = {p} (largest block {int(counts.max())} "
+          f"edges, mean {n_edges / nb:.0f}, smallest {int(counts.min())}); "
+          f"values [{nb}, {p}, {D_HIDDEN}] f32: {values.numel() * 4} bytes "
+          f"against {real} of real messages ({values.numel() * 4 / real:.2f}"
+          f"x padding); {t_k7_ops:.1f}s in all", flush=True)
+    t0 = time.perf_counter()
+    gr = random_graph(**REDDIT, seed=seed)
+    t_reddit = time.perf_counter() - t0
+    hop1, hop2, csr_s = sample_bags(gr, rng)
+    table_cpu = torch.as_tensor(gr.node_feat)
+    n_reddit_edges = gr.edges.shape[0]
+    del gr
+    table = table_cpu.to(dev)
+    bags = []
+    for bag in (hop1, hop2):
+        w = mean_weights(bag)
+        bags.append((torch.as_tensor(bag), torch.as_tensor(w),
+                     torch.as_tensor(bag, device=dev),
+                     torch.as_tensor(w, device=dev)))
+    print(f"[sparse] K8 operands: Reddit graph of {REDDIT['n_nodes']} "
+          f"nodes and {n_reddit_edges} edges in {t_reddit:.1f}s, its CSR "
+          f"in {csr_s:.1f}s (host); "
+          f"table [{table.shape[0]}, {table.shape[1]}] f32; bags "
+          f"{list(hop1.shape)} ({int((hop1 < 0).sum())} pads) and "
+          f"{list(hop2.shape)} ({int((hop2 < 0).sum())} pads), mean "
+          f"weights; {time.perf_counter() - t0:.1f}s in all", flush=True)
+
+    # -- the path, with the launch counts read around it -----------------
+    for c in COUNTERS:
+        c.reset()
+    t0 = time.perf_counter()
+    agg = ops.segment_sum_blocked(values, ids, num_segments=SEG_BLOCK,
+                                  tile_p=SEG_TILE_P)
+    means = [ops.embedding_bag(table, b_dev, w_dev)
+             for _, _, b_dev, w_dev in bags]
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {c.name: c.n for c in COUNTERS}
+    print(f"[sparse] launches {launches}; first calls {first_ms:.1f} ms "
+          "(host clock)", flush=True)
+    check(launches[k7.LAUNCHES.name] == 1, "K7 launched once on the path")
+    check(launches[K8_LAUNCHES.name] == 2, "K8 launched twice on the path")
+    check(agg.shape == (nb, SEG_BLOCK, D_HIDDEN)
+          and bool(torch.isfinite(agg).all()), "K7 output shape, finite")
+    for m, bag in zip(means, (hop1, hop2)):
+        check(m.shape == (bag.shape[0], REDDIT["d_feat"])
+              and bool(torch.isfinite(m).all()), "K8 output shape, finite")
+
+    # -- K7: twin on the CPU, library call, times ------------------------
+    t0 = time.perf_counter()
+    largest = int(counts.argmax())
+    sel = torch.as_tensor(np.concatenate([[largest], np.sort(rng.choice(
+        np.flatnonzero(np.arange(nb) != largest), K7_TWIN_BLOCKS - 1,
+        replace=False))]), device=dev)
+    twin = k7.block_segment_sum(values[sel].cpu(), ids[sel].cpu(),
+                                num_segments=SEG_BLOCK, tile_p=SEG_TILE_P)
+    bitwise7 = bits_equal(agg[sel], twin)
+    print(f"[sparse] K7 bitwise equal to its CPU twin on blocks "
+          f"{sel.tolist()} (the largest first): {bitwise7} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    check(bitwise7, "K7 bitwise equal to its CPU twin at full width")
+    gid = (ids.long() + torch.arange(nb, device=dev)[:, None]
+           * SEG_BLOCK).view(-1)
+    flat = values.view(-1, D_HIDDEN)
+    lib = torch.zeros((nb * SEG_BLOCK, D_HIDDEN), device=dev)
+    lib.index_add_(0, gid, flat)
+    lib_err = rel_err(agg.view(-1, D_HIDDEN), lib)
+    check(lib_err <= K7_RTOL, f"K7 within {K7_RTOL} of index_add_ "
+                              f"(relative {lib_err:.3g})")
+    plain = k7.block_segment_sum_plain(values, ids, num_segments=SEG_BLOCK,
+                                       tile_p=SEG_TILE_P)
+    err7 = float((agg - plain).abs().max())
+    del plain
+    ms7 = cuda_ms(lambda: ops.segment_sum_blocked(
+        values, ids, num_segments=SEG_BLOCK, tile_p=SEG_TILE_P), reps=3)
+    plain7_ms = cuda_ms(lambda: k7.block_segment_sum_plain(
+        values, ids, num_segments=SEG_BLOCK, tile_p=SEG_TILE_P))
+    lib7_ms = cuda_ms(lambda: lib.index_add_(0, gid, flat), reps=3)
+    print(f"[sparse] K7 {ms7:.3f} ms; twin on the card {plain7_ms:.3f} ms "
+          f"(max |K7 - twin| {err7:.3g}, atomics there); "
+          f"out.view(-1, {D_HIDDEN}).index_add_(0, global_ids, "
+          f"values.view(-1, {D_HIDDEN})) {lib7_ms:.3f} ms (max |K7 - lib| / "
+          f"max |lib| = {lib_err:.3g})", flush=True)
+    entry7 = dict(
+        name=k7.LAUNCHES.name, route="cuda",
+        source="src/repro_torch/kernels/csrc/block_segment_sum.cu",
+        replaces="src/repro/kernels/block_segment_sum.py:40",
+        launches=launches[k7.LAUNCHES.name], max_abs_err=err7,
+        tolerance=(f"bitwise vs the CPU twin on {K7_TWIN_BLOCKS} blocks; "
+                   f"{K7_RTOL} relative vs index_add_ on the card"),
+        twin_bitwise=bitwise7,
+        twin_bitwise_at=(f"ogb_products, blocks {sel.tolist()}, CPU twin"),
+        blocks=nb, p=p, edges=n_edges, ms=ms7, plain_ms=plain7_ms,
+        library_ms=lib7_ms,
+        library=f"out.view(-1, {D_HIDDEN}).index_add_(0, global_ids, "
+                f"values.view(-1, {D_HIDDEN}))",
+        bytes=values.numel() * 4 + ids.numel() * 4 + agg.numel() * 4,
+        ops=float(values.numel()))
+    del values, ids, agg, lib, gid, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- K8: twin on the CPU, library call, times ------------------------
+    calls = []
+    for (b_cpu, w_cpu, b_dev, w_dev), got in zip(bags, means):
+        t0 = time.perf_counter()
+        twin = embedding_bag_plain(table_cpu, b_cpu, w_cpu)
+        bitwise = bits_equal(got, twin)
+        valid = b_dev >= 0
+        safe = torch.where(valid, b_dev, 0).long()
+        ref = F.embedding_bag(safe, table, per_sample_weights=w_dev * valid,
+                              mode="sum")
+        lerr = rel_err(got, ref)
+        plain = embedding_bag_plain(table, b_dev, w_dev)
+        err = float((got - plain).abs().max())
+        ms = cuda_ms(lambda: k8(table, b_dev, w_dev), reps=10)
+        pms = cuda_ms(lambda: embedding_bag_plain(table, b_dev, w_dev),
+                      reps=3)
+        lms = cuda_ms(lambda: F.embedding_bag(
+            safe, table, per_sample_weights=w_dev * valid, mode="sum"),
+            reps=10)
+        n_valid = int(valid.sum())
+        # each distinct row is read once, however many slots name it
+        n_rows = int(torch.unique(b_dev[valid]).numel())
+        bsz, fan = b_cpu.shape
+        calls.append(dict(bags=bsz, fanout=fan, valid=n_valid,
+                          distinct_rows=n_rows, ms=ms, plain_ms=pms,
+                          library_ms=lms, max_abs_err=err,
+                          twin_bitwise=bitwise, library_rel_err=lerr,
+                          bytes=bsz * fan * 8 + (n_rows + bsz)
+                          * table.shape[1] * 4,
+                          ops=2.0 * n_valid * table.shape[1]))
+        print(f"[sparse] K8 [{bsz}, {fan}] bags ({n_valid} valid slots, "
+              f"{n_rows} distinct rows): "
+              f"bitwise equal to its CPU twin {bitwise} "
+              f"({time.perf_counter() - t0:.1f}s); {ms:.4f} ms, twin on the "
+              f"card {pms:.4f} ms (max |K8 - twin| {err:.3g}), "
+              f"F.embedding_bag(mode='sum', per_sample_weights) {lms:.4f} ms "
+              f"(max |K8 - lib| / max |lib| = {lerr:.3g})", flush=True)
+        check(bitwise, "K8 bitwise equal to its CPU twin at full width")
+        check(lerr <= K8_RTOL, f"K8 within {K8_RTOL} of F.embedding_bag "
+                               f"(relative {lerr:.3g})")
+    entry8 = dict(
+        name=K8_LAUNCHES.name, route="cuda",
+        source="src/repro_torch/kernels/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:86",
+        launches=launches[K8_LAUNCHES.name],
+        max_abs_err=max(c["max_abs_err"] for c in calls),
+        tolerance=(f"bitwise vs the twin (CPU and card); {K8_RTOL} relative "
+                   "vs F.embedding_bag"),
+        twin_bitwise=all(c["twin_bitwise"] for c in calls),
+        twin_bitwise_at="Reddit table, hop-1 and hop-2 bags, CPU twin",
+        library="F.embedding_bag(idx, table, per_sample_weights, "
+                "mode='sum')",
+        calls=[{k: v for k, v in c.items() if k not in ("bytes", "ops")}
+               for c in calls],
+        **{k: sum(c[k] for c in calls)
+           for k in ("ms", "plain_ms", "library_ms", "bytes", "ops")})
+    del table, bags, means
+    return [entry7, entry8]
+
+
+def phase_bm25(args) -> list:
+    """Phases 3-6: the BM25 query paths at full width (retriever,
+    ladder, kernels, dense path). Returns the ``kernels`` entries of
+    K1-K6; every tensor of these phases is freed on return."""
+    import torch
+
     from repro_torch.core import BM25Params, ScipyBM25, build_index
     from repro_torch.core.retrieval import default_doc_ids
     from repro_torch.core.scoring import bucket_pow2
-    from repro_torch.kernels import COUNTERS, _build
+    from repro_torch.kernels import COUNTERS
     from repro_torch.kernels import bm25_block_score as k2
     from repro_torch.kernels import bm25_gather_score as k1
     from repro_torch.serve import DeviceRetriever
@@ -898,30 +1187,6 @@ def main(argv=None) -> int:
                                               gather_posting_runs,
                                               reset_transfer_stats)
     from repro_torch.sparse.fragment_device import plan_fragments_device
-    t_all = time.perf_counter()
-
-    # -- phase 1: build + card ------------------------------------------
-    t0 = time.perf_counter()
-    report = _build.build_all()
-    print(f"[build] {time.perf_counter() - t0:.1f}s for "
-          f"{len(report)} sources", flush=True)
-    for name, r in report.items():
-        info = [ln.strip() for ln in r["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: {r['seconds']:.1f}s; " + " | ".join(info))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"[card] {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}", flush=True)
-
-    # -- phase 2: kernels vs twins, bitwise -------------------------------
-    t0 = time.perf_counter()
-    phase_kernels_vs_twins(args.seed)
-    phase_topk_vs_twin(args.seed)
-    print(f"[kernel-vs-twin] done in {time.perf_counter() - t0:.1f}s",
-          flush=True)
 
     # -- phase 3: full width through the retriever ------------------------
     rng = np.random.default_rng(args.seed + 1)
@@ -1245,12 +1510,65 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels += phase_dense(dr, idx, oracle, rng)
     print(f"[dense] done in {time.perf_counter() - t0:.1f}s", flush=True)
+    return kernels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n-docs", type=int, default=2_097_152)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batches", type=int, default=3,
+                    help="batches served under each regime")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    t_all = time.perf_counter()
+
+    # -- phase 1: build + card ------------------------------------------
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    print(f"[build] {time.perf_counter() - t0:.1f}s for "
+          f"{len(report)} sources", flush=True)
+    for name, r in report.items():
+        info = [ln.strip() for ln in r["ptxas"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"[build] {name}: {r['seconds']:.1f}s; " + " | ".join(info))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[card] {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+
+    # -- phase 2: kernels vs twins, bitwise -------------------------------
+    t0 = time.perf_counter()
+    phase_kernels_vs_twins(args.seed)
+    phase_topk_vs_twin(args.seed)
+    print(f"[kernel-vs-twin] done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    kernels = phase_bm25(args)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 7: the sparse substrate at full width -----------------------
+    t0 = time.perf_counter()
+    kernels += phase_sparse(args.seed)
+    print(f"[sparse] done in {time.perf_counter() - t0:.1f}s", flush=True)
     for kd in kernels:
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = kd.pop("ops") / FP32_OPS_PER_S * 1e3
         kd["bound_ms"] = max(t_bytes, t_ops)
         kd["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         kd.setdefault("library_ms", None)   # K1-K4: no single torch call
+        print(f"[bound] {kd['name']}: {kd['ms']:.4f} ms against a bound of "
+              f"{kd['bound_ms']:.4f} ms by {kd['bound_by']} ({t_bytes:.4f} "
+              f"ms of bytes at 3.35 TB/s, {t_ops:.4f} ms of FP32 operations "
+              f"at 67 TFLOP/s)", flush=True)
     print(f"[done] {time.perf_counter() - t_all:.1f}s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,18 +15,31 @@ Kernels:
                       path ``ops.topk(ops.bm25_score_blocked(...))``)
   blockwise_topk    — K5, per-segment top-k of a dense score matrix
                       (stage 1 of ``ops.topk``)
+  block_segment_sum — K7, per-block scatter-add of the sparse substrate
+                      (``ops.segment_sum_blocked``)
+  embedding_bag     — K8, weighted gather-and-sum of table rows
+                      (``ops.embedding_bag``)
+
+As in the reference, the package attribute ``embedding_bag`` is the op
+(``ops.embedding_bag``); the kernel module is reached by name, ``from
+repro_torch.kernels.embedding_bag import embedding_bag_plain, ...``.
 """
 
-from . import blockwise_topk, bm25_block_score, bm25_gather_score
+from . import (block_segment_sum, blockwise_topk, bm25_block_score,
+               bm25_gather_score)
+from .embedding_bag import LAUNCHES as _EMBEDDING_BAG_LAUNCHES
 from .ops import (bm25_retrieve_blocked, bm25_retrieve_gathered,
                   bm25_retrieve_resident, bm25_retrieve_resident_pruned,
-                  bm25_score_blocked, topk)
+                  bm25_score_blocked, embedding_bag, segment_sum_blocked,
+                  topk)
 
 COUNTERS = (bm25_gather_score.LAUNCHES, bm25_block_score.LAUNCHES,
             bm25_gather_score.LAUNCHES_PRUNED,
             bm25_gather_score.LAUNCHES_GATHER, blockwise_topk.LAUNCHES,
-            bm25_block_score.LAUNCHES_DENSE)
+            bm25_block_score.LAUNCHES_DENSE, block_segment_sum.LAUNCHES,
+            _EMBEDDING_BAG_LAUNCHES)
 
 __all__ = ["COUNTERS", "bm25_retrieve_blocked", "bm25_retrieve_gathered",
            "bm25_retrieve_resident", "bm25_retrieve_resident_pruned",
-           "bm25_score_blocked", "topk"]
+           "bm25_score_blocked", "embedding_bag", "segment_sum_blocked",
+           "topk"]

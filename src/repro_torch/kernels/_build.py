@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
 SOURCES = ("bm25_resident", "bm25_block_score", "bm25_gather_score",
-           "blockwise_topk")
+           "blockwise_topk", "block_segment_sum", "embedding_bag")
 SMEM_LIMIT = 232448       # dynamic shared memory a CTA may use on Hopper
 
 _lock = threading.Lock()

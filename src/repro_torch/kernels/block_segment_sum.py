@@ -1,0 +1,147 @@
+"""K7: blocked segment sum (the sparse substrate's per-block scatter-add).
+
+Port of ``repro.kernels.block_segment_sum.block_segment_sum``. The CUDA
+kernel is ``csrc/block_segment_sum.cu`` (its header note gives the design
+and the bound); this module holds its wrapper, its plain torch twin and
+its launch counter.
+
+Contract: ``values`` ``[nb, P, D]`` (f32 or f16) and local ids
+``segment_ids`` ``[nb, P]`` (i32) give ``out[b, s] = Σ values[b, p]`` over
+the postings ``p`` of block ``b`` with ``segment_ids[b, p] == s``, for
+``s < num_segments``, as ``[nb, num_segments, D]`` in the values' dtype.
+An id outside ``[0, num_segments)`` adds nothing (the reference's one-hot
+row of such an id is all zeros). Sums run in posting order in f32 and are
+rounded once to the output dtype: for f16 the reference accumulates in
+the f16 output tile by tile, so the two agree within its test's 2e-2.
+The reference's precondition ``P % tile_p == 0`` is kept as a
+``ValueError``; the kernel itself takes any ``P``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+LAUNCHES = _build.LaunchCounter("block_segment_sum")
+
+_DTYPES = {torch.float32: 0, torch.float16: 1}
+_CHUNK = 128                # postings staged a step (csrc: kChunk)
+_D_TILES = (64, 32, 16, 8)  # the kernel's instantiated column tiles
+
+
+def _check(values, segment_ids, num_segments: int, tile_p: int) -> None:
+    if values.dtype not in _DTYPES:
+        raise TypeError(f"values must be float32 or float16, got "
+                        f"{values.dtype}")
+    if segment_ids.dtype != torch.int32:
+        raise TypeError(f"segment_ids must be torch.int32, got "
+                        f"{segment_ids.dtype}")
+    if values.dim() != 3 or tuple(segment_ids.shape) != tuple(
+            values.shape[:2]):
+        raise ValueError(f"need values [nb, P, D] and segment_ids [nb, P], "
+                         f"got {tuple(values.shape)} and "
+                         f"{tuple(segment_ids.shape)}")
+    if segment_ids.device != values.device:
+        raise ValueError("values and segment_ids must share a device")
+    if num_segments < 1:
+        raise ValueError(f"num_segments must be >= 1, got {num_segments}")
+    if tile_p < 1 or values.shape[1] % tile_p:
+        raise ValueError(f"P={values.shape[1]} must be a multiple of "
+                         f"tile_p={tile_p}")
+
+
+def smem_bytes(num_segments: int, d_tile: int) -> int:
+    """Shared memory of one CTA: the ``[S, d_tile]`` f32 accumulator, the
+    staged ``[128, d_tile]`` tile, its 128 ids and two buffers of 128 row
+    flags (csrc: ``block_segment_sum_smem``)."""
+    return (num_segments * d_tile + _CHUNK * d_tile + 3 * _CHUNK) * 4
+
+
+def column_tile(num_segments: int, d: int) -> int:
+    """The widest column tile the kernel holds for ``S`` segments: at most
+    ``D`` rounded up to a power of two, at least 8, and small enough that
+    a CTA's shared memory takes the ``[S, d_tile]`` accumulator. Raises
+    ``ValueError`` when ``S`` does not fit even at 8 columns."""
+    want = max(8, 1 << max(0, d - 1).bit_length())
+    for t in _D_TILES:
+        if t <= want and smem_bytes(num_segments, t) <= (
+                _build.SMEM_LIMIT - 1024):
+            return t
+    raise ValueError(f"num_segments={num_segments} does not fit a CTA's "
+                     f"shared memory even at 8 columns")
+
+
+def block_segment_sum_plain(values, segment_ids, *, num_segments: int,
+                            tile_p: int = 512) -> torch.Tensor:
+    """The kernel's plain torch twin (same operands, same result).
+
+    Each block gets a sentinel row ``num_segments`` that takes every
+    out-of-range id and is cut off; one ``index_add_`` in f32 over the
+    flattened blocks adds the postings in order (serially on the CPU,
+    where the result equals the kernel's bit for bit), and the sums are
+    rounded once to the values' dtype.
+    """
+    _check(values, segment_ids, num_segments, tile_p)
+    nb, _, d = values.shape
+    s = num_segments
+    ids = segment_ids.long()
+    ids = torch.where((ids >= 0) & (ids < s), ids, s)
+    gid = (ids + torch.arange(nb, device=ids.device)[:, None] * (s + 1))
+    acc = torch.zeros((nb * (s + 1), d), dtype=torch.float32,
+                      device=values.device)
+    acc.index_add_(0, gid.reshape(-1), values.reshape(-1, d).float())
+    return acc.view(nb, s + 1, d)[:, :s].to(values.dtype).contiguous()
+
+
+def _fn(lib):
+    f = lib.block_segment_sum_launch
+    if f.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, i, p]
+        f.restype = ctypes.c_int
+        s = lib.block_segment_sum_smem
+        s.argtypes = [i, i]
+        s.restype = ctypes.c_longlong
+    return f
+
+
+def block_segment_sum(values, segment_ids, *, num_segments: int,
+                      tile_p: int = 512) -> torch.Tensor:
+    """``[nb, P, D]`` values + ``[nb, P]`` local ids -> ``[nb,
+    num_segments, D]`` per-block sums.
+
+    A CPU tensor runs the plain twin; a CUDA tensor launches the kernel
+    (and raises if it cannot): there is no fall-back between the two.
+    """
+    _check(values, segment_ids, num_segments, tile_p)
+    dev = values.device
+    if dev.type == "cpu":
+        return block_segment_sum_plain(values, segment_ids,
+                                       num_segments=num_segments,
+                                       tile_p=tile_p)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    nb, p, d = values.shape
+    out = torch.empty((nb, num_segments, d), dtype=values.dtype, device=dev)
+    if nb == 0 or d == 0:
+        return out
+    d_tile = column_tile(num_segments, d)
+    if nb * -(-d // d_tile) >= 2 ** 31 or p >= 2 ** 31:
+        raise ValueError(f"{nb} blocks of {p} postings exceed the grid")
+    lib = _build.load("block_segment_sum")
+    launch = _fn(lib)
+    if lib.block_segment_sum_smem(num_segments, d_tile) != smem_bytes(
+            num_segments, d_tile):
+        raise RuntimeError("block_segment_sum: the library's shared memory "
+                           "layout differs from the wrapper's")
+    vc, ic = values.contiguous(), segment_ids.contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(vc.data_ptr(), ic.data_ptr(), out.data_ptr(), nb, p, d,
+                     num_segments, d_tile, _DTYPES[values.dtype], stream)
+    _build.check(err, "block_segment_sum")
+    LAUNCHES.add()
+    return out

@@ -1,9 +1,12 @@
-"""Retrieval entry points around the kernels: merge, splice and shift.
+"""Entry points around the kernels: retrieval, top-k and the sparse
+substrate.
 
 The port's counterpart of ``repro.kernels.ops``: each function composes a
 kernel wrapper with the surrounding tensor code (layout reshapes, the
 global winner merge, the default-document splice, the §2.1 shift). Every
 merge follows the port's tie rule (``core.retrieval.rank_order``).
+``segment_sum_blocked`` (K7) and ``embedding_bag`` (K8) are the sparse
+substrate's kernel-backed entry points.
 """
 
 from __future__ import annotations
@@ -12,11 +15,13 @@ import torch
 
 from ..core.retrieval import (missing_doc_ids, rank_order,
                               splice_default_docs, topk_torch)
+from .block_segment_sum import block_segment_sum
 from .blockwise_topk import blockwise_topk
 from .bm25_block_score import bm25_block_score, bm25_block_score_topk
 from .bm25_gather_score import (bm25_gather_score_topk, gather_fold_fits,
                                 bm25_resident_score_topk,
                                 bm25_resident_score_topk_pruned)
+from .embedding_bag import embedding_bag as embedding_bag_kernel
 
 
 def bm25_score_blocked(token_ids, local_doc, scores, uniq_tokens, weights,
@@ -204,3 +209,29 @@ def bm25_retrieve_resident_pruned(desc, weights, doc_ids_res, scores_res,
     if _f is not None and _f.ACTIVE:
         mvals = _f.fire("kernel.resident_pruned", mvals)
     return ids, mvals, skipped
+
+
+def segment_sum_blocked(values, segment_ids, *, num_segments: int,
+                        tile_p: int = 512) -> torch.Tensor:
+    """Blocked scatter-add (K7): ``[nb, P, D]`` + ``[nb, P]`` -> ``[nb,
+    num_segments, D]``; ``P`` must be a multiple of ``tile_p``."""
+    return block_segment_sum(values, segment_ids, num_segments=num_segments,
+                             tile_p=tile_p)
+
+
+def embedding_bag(table, indices, weights=None, *, tile_b: int = 128
+                  ) -> torch.Tensor:
+    """Kernel-backed EmbeddingBag (K8): ``[V, D]`` table + ``[B, F]``
+    indices (``-1`` pad) + ``[B, F]`` weights (``None``: ones) -> ``[B,
+    D]``.
+
+    The reference pads ``B`` up to a multiple of ``tile_b``, its kernel's
+    bag tile; K8 takes any ``B`` (a warp a bag), so ``tile_b`` is only
+    checked, and nothing is padded.
+    """
+    if tile_b < 1:
+        raise ValueError(f"tile_b must be >= 1, got {tile_b}")
+    if weights is None:
+        weights = torch.ones(indices.shape, dtype=table.dtype,
+                             device=table.device)
+    return embedding_bag_kernel(table, indices, weights)

@@ -395,3 +395,108 @@ def test_topk_and_retriever_on_cuda_equal_cpu(cuda_device):
     for i, q in enumerate(r_cpu.tokenizer.tokenize_queries(queries)):
         np.testing.assert_allclose(oracle.score(q)[ids[i].cpu().numpy()],
                                    vals[i].cpu().numpy(), atol=1e-4)
+
+
+def _k7_inputs(rng, nb, p, d, s, dtype, sort):
+    vals = rng.normal(size=(nb, p, d)).astype(dtype)
+    ids = rng.integers(0, s, size=(nb, p)).astype(np.int32)
+    if sort:                               # runs of a segment, as in a graph
+        ids.sort(axis=1)                   # blocked by destination
+    ids[:, ::7] = -1                       # dropped
+    ids[:, 3::11] = s                      # dropped
+    vals[:, 5::13] = -0.0                  # rows of zeros are skipped
+    vals[:, 6::17, ::2] = 0.0              # rows with some zeros are not
+    ids[:, -64:] = 0                       # padding postings: id 0, value 0
+    vals[:, -64:] = 0
+    return torch.as_tensor(vals), torch.as_tensor(ids)
+
+
+# one D-tile of 64 (the ogb_products shape's), four D-tiles of 64 with a
+# partial last one, four of 16 (S = 3,000 narrows the tile), and a P that
+# ends mid-chunk; ids in random order and in sorted runs
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+@pytest.mark.parametrize("nb,p,d,s,tile_p", [
+    (3, 1024, 64, 512, 512), (2, 768, 200, 64, 256), (2, 512, 64, 3000, 512),
+    (5, 96, 20, 40, 32)])
+def test_k7_bitwise_equal_twin(cuda_device, dtype, nb, p, d, s, tile_p,
+                               sort):
+    from repro_torch.kernels import block_segment_sum as k7
+    vals, ids = _k7_inputs(np.random.default_rng(p + d), nb, p, d, s, dtype,
+                           sort)
+    n0 = k7.LAUNCHES.n
+    ref = k7.block_segment_sum(vals, ids, num_segments=s, tile_p=tile_p)
+    got = k7.block_segment_sum(vals.to(cuda_device), ids.to(cuda_device),
+                               num_segments=s, tile_p=tile_p)
+    assert k7.LAUNCHES.n == n0 + 1
+    assert got.dtype == vals.dtype and got.shape == (nb, s, d)
+    assert torch.equal(got.cpu().view(torch.int16 if dtype == np.float16
+                                      else torch.int32),
+                       ref.view(torch.int16 if dtype == np.float16
+                                else torch.int32))
+
+
+def test_k7_rejects_segments_that_fit_no_tile(cuda_device):
+    from repro_torch.kernels import block_segment_sum as k7
+    from repro_torch.kernels import ops
+    vals = torch.zeros((1, 64, 8), device=cuda_device)
+    ids = torch.zeros((1, 64), dtype=torch.int32, device=cuda_device)
+    n0 = k7.LAUNCHES.n
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.segment_sum_blocked(vals, ids, num_segments=10_000, tile_p=64)
+    assert k7.LAUNCHES.n == n0
+
+
+@pytest.mark.parametrize("v,d,b,f", [(5000, 602, 300, 15), (700, 37, 129, 10),
+                                     (64, 1, 9, 3), (90, 128, 40, 0)])
+def test_k8_bitwise_equal_twin(cuda_device, v, d, b, f):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_bag import LAUNCHES
+    from repro_torch.kernels.embedding_bag import embedding_bag as k8
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+    rng = np.random.default_rng(v + d)
+    table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(-1, v, size=(b, f)).astype(np.int32))
+    if f:
+        idx[0] = -1                                 # an all-pad bag
+    w = torch.as_tensor(rng.normal(size=(b, f)).astype(np.float32))
+    n0 = LAUNCHES.n
+    ref = k8(table, idx, w)
+    got = k8(table.to(cuda_device), idx.to(cuda_device), w.to(cuda_device))
+    assert LAUNCHES.n == n0 + 1
+    assert torch.equal(_bits(got), _bits(ref))
+    # the twin on the card: the same elementwise arithmetic, no atomics
+    on_card = embedding_bag_plain(table.to(cuda_device), idx.to(cuda_device),
+                                  w.to(cuda_device))
+    assert torch.equal(_bits(on_card), _bits(ref))
+    ones = ops.embedding_bag(table.to(cuda_device), idx.to(cuda_device))
+    assert torch.equal(_bits(ones), _bits(k8(table, idx, torch.ones_like(w))))
+    assert LAUNCHES.n == n0 + 2
+
+
+def test_k8_table_past_2_31_elements(cuda_device):
+    """A table of more than 2^31 elements, allocated empty with only the
+    indexed rows written: row offsets are 64-bit. The twin runs on a
+    compact copy of those rows (the same sums in the same order)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag as k8
+    d = 128
+    v = 2 ** 31 // d + 4097                     # 2,147,483,648 + 524,416
+    rng = np.random.default_rng(31)
+    rows = np.unique(np.concatenate([
+        rng.integers(v - 5000, v, size=40), rng.integers(0, 1000, size=8),
+        [v - 1]]))
+    compact = torch.as_tensor(rng.normal(size=(rows.size, d)).astype(
+        np.float32))
+    table = torch.empty((v, d), dtype=torch.float32, device=cuda_device)
+    table[torch.as_tensor(rows, device=cuda_device)] = compact.to(
+        cuda_device)
+    local = rng.integers(-1, rows.size, size=(64, 6)).astype(np.int32)
+    glob = np.where(local >= 0, rows[np.maximum(local, 0)], -1).astype(
+        np.int32)
+    w = torch.as_tensor(rng.normal(size=(64, 6)).astype(np.float32))
+    got = k8(table, torch.as_tensor(glob, device=cuda_device),
+             w.to(cuda_device))
+    ref = k8(compact, torch.as_tensor(local), w)
+    assert torch.equal(_bits(got), _bits(ref))
+    del table
+    torch.cuda.empty_cache()

@@ -43,9 +43,16 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.serve.overload, repro_torch.serve.health, "
             "repro_torch.serve.retrieval_engine, repro_torch.core.scoring, "
             "repro_torch.kernels.blockwise_topk, "
-            "repro_torch.kernels.bm25_block_score, repro_torch.device\n"
+            "repro_torch.kernels.bm25_block_score, repro_torch.device, "
+            "repro_torch.data, repro_torch.data.graphs, "
+            "repro_torch.sparse.segment_ops, "
+            "repro_torch.sparse.embedding_bag, "
+            "repro_torch.kernels.block_segment_sum, "
+            "repro_torch.kernels.embedding_bag\n"
             "from repro_torch.core import BM25Retriever, score_batch\n"
             "from repro_torch.kernels.ops import topk, bm25_score_blocked\n"
+            "from repro_torch.kernels.ops import (embedding_bag, "
+            "segment_sum_blocked)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\nprint('clean')")
@@ -106,6 +113,21 @@ def test_topk_source_carries_its_note():
     assert "Bound on the H100" in src
     assert "atomic" not in src                  # one CTA owns a segment
     assert '#include "select_topk.cuh"' in src  # the shared total order
+
+
+@pytest.mark.parametrize("name,replaces", [
+    ("block_segment_sum", "block_segment_sum.py::block_segment_sum"),
+    ("embedding_bag", "embedding_bag.py::embedding_bag_kernel")])
+def test_sparse_sources_carry_their_note(name, replaces):
+    """K7 and K8 name the TPU kernel and their bound, add with ``__fadd_rn``
+    (K8 also rounds its products with ``__fmul_rn``) and use no atomics:
+    every output element has one writer that sums in input order."""
+    src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+    assert f"Replaces: src/repro/kernels/{replaces}" in src
+    assert "Bound on the H100" in src
+    assert "__fadd_rn" in src
+    assert "__fmul_rn" in src or name == "block_segment_sum"
+    assert "atomic" not in src
 
 
 def test_build_is_keyed_by_source_and_finds_nvcc_on_demand(monkeypatch,
