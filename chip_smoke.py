@@ -23,8 +23,14 @@ Phases (any failure exits non-zero; nothing is caught):
    K5 (``blockwise_topk``) on seeded rows of 9,000 entries (a ragged last
    segment) with blocks of 512 and 4,096 and k in {1, 7, 100, block}:
    random rows, ties, all-equal rows, rows of ``-inf`` and of
-   ``-FLT_MAX``, values and positions bitwise equal to the CPU twin and
-   every segment's positions distinct;
+   ``-FLT_MAX``, ``+0.0`` mixed with ``-0.0``, denormals and many ties at
+   the k-th value, values and positions bitwise equal to the CPU twin and
+   every segment's positions distinct; K6 at B in {8, 64, 100, 256} with
+   tables of up to 1,280 rows, and at B = 256 with 8,192 (256 x Q_MAX),
+   on 20,011 documents, on the token-sorted
+   layout and on its postings shuffled within each block, and K7 at S =
+   10,000 and 50,000 (cut into segment ranges), each bitwise equal to its
+   CPU twin;
 3. full width (``repro.configs.bm25s``: 2,097,152 docs, V = 200,000,
    ~120 unique tokens a doc, doc block 512, batches of 256 queries of at
    most 32 tokens, k = 100, lucene k1 = 1.5, b = 0.75; queries of five
@@ -79,12 +85,17 @@ Phases (any failure exits non-zero; nothing is caught):
    before ranking, so two distinct sums can meet); 20 sampled queries of
    it and of ``score_batch``'s board exact against ``ScipyBM25``, no
    overflow, ``score_batch`` within 1e-4 of K6's rows; every retriever
-   board exact against ``ScipyBM25`` on the same tokens; K6 bitwise equal
-   to its CPU twin on columns 0-31 and K5 to its twin on the card; K6, K5
-   and their twins on the card timed with CUDA events beside
-   ``torch.sparse.mm`` of the doc × token CSR by the ``[V, 256]``
-   weights (K6's library call) and ``torch.topk(dense, 100, dim=1)``
-   (K5's); the fused and the unfused batch timed in turns, and
+   board exact against ``ScipyBM25`` on the same tokens; ``score_batch``
+   run twice on the card bitwise equal, and its rows of 8 sampled queries
+   bitwise equal to ``score_batch`` on the CPU over the same arrays; the
+   retriever's ids and values bitwise equal to the same retriever built
+   with ``device="cpu"``; K6 bitwise equal to its CPU twin on 128
+   columns, 32 of each 64-column CTA (one a lane), and K5 to its twin on
+   the card; K6 and K5 timed with CUDA events
+   in turns with ``torch.sparse.mm`` of the doc × token CSR by the
+   ``[V, 256]`` weights (K6's library call) and ``torch.topk(dense, 100,
+   dim=1)`` (K5's): library, kernel, kernel, library; their twins on the
+   card timed; the fused and the unfused batch timed in turns, and
    ``score_batch``;
 7. the sparse substrate at full width, after phases 3-6's tensors are
    freed, at two shapes of ``repro/configs/egnn.py``: K7
@@ -143,6 +154,10 @@ FP32_OPS_PER_S = 67e12         # CUDA-core FP32 (FMA counted as 2)
 EXACT_ATOL = 1e-4              # boards vs ScipyBM25 (different sum order)
 ATOL, RTOL = 1e-4, 1e-6        # kernel vs twin on the card (atomics there)
 TWIN_COLS = 32                 # query columns held bitwise at full width
+# K6's: a CTA takes 64 columns, a lane two of them; 32 of each CTA's, one
+# a lane (its first in even CTAs, its second in odd ones)
+K6_TWIN_COLS = tuple(64 * c + 2 * j + c % 2 for c in range(4)
+                     for j in range(32))
 TOPK_BLOCK = 4096              # ops.topk's segment: K5's block
 TOPK_ROW = 9000                # phase 2's K5 rows: ragged for 512 and 4096
 TEXT_DOCS = 100_000            # BM25Retriever's text corpus (phase 6 cut)
@@ -362,9 +377,10 @@ def phase_kernels_vs_twins(seed: int) -> None:
 
 
 def topk_rows(rng, n: int) -> dict:
-    """Seeded ``[4, n]`` rows for K5: random, ties, all equal, and rows of
+    """Seeded ``[4, n]`` rows for K5: random, ties, all equal, rows of
     ``-inf`` and of ``-FLT_MAX`` (the last row of each with a few finite
-    winners)."""
+    winners), ``+0.0`` mixed with ``-0.0``, denormals, and many ties at
+    the k-th value (a few winners above one repeated value)."""
     rows = {"normal": rng.normal(size=(4, n)).astype(np.float32),
             "ties": rng.integers(-3, 4, size=(4, n)).astype(np.float32),
             "equal": np.full((4, n), 0.5, np.float32)}
@@ -373,6 +389,15 @@ def topk_rows(rng, n: int) -> dict:
         x = np.full((4, n), fill, np.float32)
         x[-1, ::13] = 1.0
         rows[kind] = x
+    x = np.where(rng.random((4, n)) < 0.5, 0.0, -0.0).astype(np.float32)
+    x[:, ::97] = 1.0
+    rows["+-0.0"] = x
+    rows["denormals"] = (rng.integers(-5, 6, size=(4, n))
+                         * np.float32(1e-45)).astype(np.float32)
+    x = np.full((4, n), 2.5, np.float32)
+    x[:, ::301] = rng.normal(5.0, 1.0, size=x[:, ::301].shape)
+    x[:, 7::11] = -1.0
+    rows["k-th ties"] = x
     return rows
 
 
@@ -410,6 +435,71 @@ def phase_topk_vs_twin(seed: int) -> None:
                   f"and distinct {oks}", flush=True)
             check(all(oks.values()),
                   f"K5 bitwise equal to its twin (block={block}, k={k})")
+
+
+def phase_k6_k7_vs_twins(seed: int) -> None:
+    """Phase 2, K6 and K7 beyond the main path's shapes: K6 at B in {8,
+    64, 100, 256} with a table of up to 1,280 rows, and at B = 256 with
+    the widest table a batch packs (256 x Q_MAX rows), on the token-sorted
+    blocked layout and on the same postings shuffled within each block
+    (the kernel's path for any order); K7 at S = 10,000 and 50,000 (S cut
+    into segment ranges). Each bitwise equal to its CPU twin."""
+    import torch
+
+    from repro_torch.core import BM25Params, build_index
+    from repro_torch.kernels import block_segment_sum as k7
+    from repro_torch.kernels import bm25_block_score as k2
+    from repro_torch.sparse.block_csr import DeviceIndex
+    rng = np.random.default_rng(seed + 16)
+    cuda = torch.device("cuda")
+    n_docs, n_vocab = 20_011, 30_000
+    idx = build_index(zipf_corpus(rng, n_docs, n_vocab, 60), n_vocab,
+                      params=BM25Params(method="lucene"))
+    di = DeviceIndex.build(idx, device="cpu", block_size=DOC_BLOCK,
+                           with_bmax=False)
+    perm = torch.as_tensor(np.stack([rng.permutation(di.blk_tok.shape[1])
+                                     for _ in range(di.blk_tok.shape[0])]))
+    layouts = {"sorted": (di.blk_tok, di.blk_loc, di.blk_sc),
+               "shuffled": tuple(torch.gather(t, 1, perm) for t in (
+                   di.blk_tok, di.blk_loc, di.blk_sc))}
+    for b, n_uniq in ((8, 40), (64, 320), (100, 500), (256, 1280),
+                      (256, QUERY_BATCH * Q_MAX)):
+        uniq = np.unique(np.concatenate(zipf_queries(rng, 4 * b, n_vocab)))
+        uniq = uniq[:n_uniq]
+        if uniq.size < n_uniq:      # the widest table a batch can pack:
+            uniq = np.sort(rng.choice(n_vocab, n_uniq, replace=False))
+            uniq[-n_uniq // 16:] = np.iinfo(np.int32).max   # its pad rows
+        tab = torch.as_tensor(uniq.astype(np.int32))
+        w = torch.as_tensor(rng.random((uniq.size, b)).astype(np.float32))
+        oks = {}
+        for name, blk in layouts.items():
+            t0 = time.perf_counter()
+            ops6 = (*blk, tab, w)
+            ref = k2.bm25_block_score(*ops6, block_size=DOC_BLOCK)
+            got = k2.bm25_block_score(*(t.to(cuda) for t in ops6),
+                                      block_size=DOC_BLOCK)
+            torch.cuda.synchronize()
+            oks[name] = (bits_equal(got, ref),
+                         round(time.perf_counter() - t0, 1))
+        print(f"[kernel-vs-twin] K6 B={b} U={uniq.size} on {n_docs} docs: "
+              f"bitwise, seconds {oks}", flush=True)
+        check(all(ok for ok, _ in oks.values()),
+              f"K6 bitwise equal to its twin (B={b}, U={uniq.size})")
+    for s_len, d in ((10_000, 64), (50_000, 20)):
+        vals = rng.normal(size=(3, 2048, d)).astype(np.float32)
+        ids = rng.integers(0, s_len, size=(3, 2048)).astype(np.int32)
+        ids[1].sort()                          # runs of a segment
+        ids[:, ::7] = -1                       # dropped
+        vals[:, 5::13] = 0.0                   # skipped rows of zeros
+        vt, it = torch.as_tensor(vals), torch.as_tensor(ids)
+        ref = k7.block_segment_sum(vt, it, num_segments=s_len, tile_p=512)
+        got = k7.block_segment_sum(vt.to(cuda), it.to(cuda),
+                                   num_segments=s_len, tile_p=512)
+        torch.cuda.synchronize()
+        ok = bits_equal(got, ref)
+        print(f"[kernel-vs-twin] K7 S={s_len} D={d} (plan "
+              f"{k7.column_tile(s_len, d)}): bitwise {ok}", flush=True)
+        check(ok, f"K7 bitwise equal to its twin at S={s_len}")
 
 
 def exact_raw_scores(sub_csr, w, docs, cols) -> np.ndarray:
@@ -489,23 +579,25 @@ def boards_equal(a, b) -> bool:
                                b.scores.view(np.int32)))
 
 
-def twin_bitwise(fn, ops, col_at, got, kw, what: str) -> bool:
-    """The kernel's first ``TWIN_COLS`` query columns against the wrapper
-    on CPU copies of the same operands (so its twin runs) with only those
-    columns of the operands at ``col_at`` (weights, bounds): bit for bit,
-    the one output of a dense kernel, or a board's values and ids."""
+def twin_bitwise(fn, ops, col_at, got, kw, what: str,
+                 cols=tuple(range(TWIN_COLS))) -> bool:
+    """The kernel's query columns ``cols`` against the wrapper on CPU
+    copies of the same operands (so its twin runs) with only those columns
+    of the operands at ``col_at`` (weights, bounds): bit for bit, the one
+    output of a dense kernel, or a board's values and ids."""
     import torch
     t0 = time.perf_counter()
+    cols = [c for c in cols if c < ops[col_at[0]].shape[1]]
     cpu = [t.cpu() for t in ops]
     for i in col_at:
-        cpu[i] = cpu[i][:, :TWIN_COLS].contiguous()
+        cpu[i] = cpu[i][:, cols].contiguous()
     ref = fn(*cpu, **kw)
     pairs = ([(got, ref)] if isinstance(got, torch.Tensor)
              else [(got[0], ref[0]), (got[1], ref[1])])
-    ok = all(bits_equal(g[..., :TWIN_COLS], r) for g, r in pairs)
-    print(f"[kernels] {what}: columns 0-{TWIN_COLS - 1} bitwise equal to "
-          f"the CPU twin: {ok} ({time.perf_counter() - t0:.1f}s)",
-          flush=True)
+    ok = all(bits_equal(g[..., cols], r) for g, r in pairs)
+    print(f"[kernels] {what}: {len(cols)} columns in {cols[0]}-{cols[-1]} "
+          f"bitwise equal to the CPU twin: {ok} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
     return ok
 
 
@@ -776,6 +868,23 @@ def phase_dense(dr, idx, oracle, rng) -> list:
     del f_ids, f_vals
 
     # -- score_batch + ops.topk ---------------------------------------------
+    t0 = time.perf_counter()
+    again = score_batch(sidx, toks, wts, p_max=p_max)
+    same_run = bits_equal(sb, again)
+    del again
+    rows = np.sort(rng.choice(QUERY_BATCH, size=8, replace=False))
+    cpu_idx = ScoringIndex(*(t.cpu() for t in (sidx.indptr, sidx.doc_ids,
+                                                 sidx.scores,
+                                                 sidx.nonoccurrence)),
+                           n_docs=sidx.n_docs, doc_offset=sidx.doc_offset)
+    on_cpu = score_batch(cpu_idx, toks[rows], wts[rows], p_max=p_max)
+    same_cpu = bits_equal(sb[torch.as_tensor(rows, device=dev)], on_cpu)
+    del cpu_idx, on_cpu
+    print(f"[dense] score_batch on the card: two runs bitwise equal "
+          f"{same_run}; rows {rows.tolist()} bitwise equal to score_batch "
+          f"on the CPU over the same arrays {same_cpu} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    check(same_run and same_cpu, "score_batch sums in one fixed order")
     diff = float((sb - dense).abs().max())
     worst = sampled_exact(oracle, qs, board(s_ids, s_vals), rng, 20)
     print(f"[dense] score_batch: overflow {int(over.sum())} of "
@@ -786,6 +895,18 @@ def phase_dense(dr, idx, oracle, rng) -> list:
     check(diff <= EXACT_ATOL, "score_batch rows within 1e-4 of K6's")
 
     # -- BM25Retriever from texts ---------------------------------------------
+    t0 = time.perf_counter()
+    ret_cpu = BM25Retriever(method="lucene", k1=1.5, b=0.75,
+                            device="cpu").index(texts)
+    c_ids, c_vals = ret_cpu.retrieve(text_qs, k=TOP_K)
+    same_ret = bits_equal(r_ids, c_ids) and bits_equal(r_vals, c_vals)
+    n_ties = int((r_vals[:, 1:] == r_vals[:, :-1]).sum())
+    print(f"[dense] BM25Retriever on the card against the same retriever "
+          f"built with device='cpu': ids and values bitwise equal "
+          f"{same_ret} ({n_ties} tied neighbours on the boards; "
+          f"{time.perf_counter() - t0:.1f}s)", flush=True)
+    check(same_ret, "BM25Retriever boards bitwise equal to the CPU's")
+    del ret_cpu, c_ids, c_vals
     t0 = time.perf_counter()
     t_oracle = ScipyBM25(ret.bm25_index)
     text_tok = ret.tokenizer.tokenize_queries(text_qs)
@@ -800,10 +921,9 @@ def phase_dense(dr, idx, oracle, rng) -> list:
 
     # -- K6 alone, its twins and its library call ---------------------------
     raw = k2.bm25_block_score(*blk, block_size=DOC_BLOCK)
-    ms6 = cuda_ms(lambda: k2.bm25_block_score(*blk, block_size=DOC_BLOCK),
-                  reps=3)
     bitwise6 = twin_bitwise(k2.bm25_block_score, blk, (4,), raw,
-                            dict(block_size=DOC_BLOCK), "K6")
+                            dict(block_size=DOC_BLOCK), "K6",
+                            cols=K6_TWIN_COLS)
     check(bitwise6, "K6 bitwise equal to its CPU twin at full width")
     check(bits_equal(raw.permute(2, 0, 1).reshape(QUERY_BATCH, -1)
                      [:, :n_docs] + shift[:, None], dense),
@@ -825,9 +945,23 @@ def phase_dense(dr, idx, oracle, rng) -> list:
     wv = torch.zeros((N_VOCAB, w.shape[1]), dtype=torch.float32, device=dev)
     wv[torch.as_tensor(pk.uniq_batch, device=dev)] = w[:n_u]
     lib6 = torch.sparse.mm(mat, wv)
-    lib6_ms = cuda_ms(lambda: torch.sparse.mm(mat, wv), reps=3)
+    # in turns: library, kernel, kernel, library
+    turns6 = [cuda_ms(lambda: torch.sparse.mm(mat, wv), reps=3),
+              cuda_ms(lambda: k2.bm25_block_score(*blk,
+                                                  block_size=DOC_BLOCK),
+                      reps=3)]
+    turns6 += [cuda_ms(lambda: k2.bm25_block_score(*blk,
+                                                   block_size=DOC_BLOCK),
+                       reps=3),
+               cuda_ms(lambda: torch.sparse.mm(mat, wv), reps=3)]
+    ms6 = (turns6[1] + turns6[2]) / 2
+    lib6_ms = (turns6[0] + turns6[3]) / 2
     lib6_err = float((lib6 - raw.reshape(-1, w.shape[1])[:n_docs])
                      .abs().max())
+    print(f"[dense] K6 and torch.sparse.mm in turns (library, kernel, "
+          f"kernel, library): {', '.join(f'{t:.3f}' for t in turns6)} ms; "
+          f"K6 {'<=' if ms6 <= lib6_ms else '>'} torch.sparse.mm",
+          flush=True)
     print(f"[dense] K6 {ms6:.3f} ms, twin on the card {plain6_ms:.1f} ms, "
           f"torch.sparse.mm of the [{n_docs}, {N_VOCAB}] CSR "
           f"({mat.values().numel()} nonzeros) by [{N_VOCAB}, "
@@ -844,9 +978,10 @@ def phase_dense(dr, idx, oracle, rng) -> list:
         launches=launches[k2.LAUNCHES_DENSE.name], max_abs_err=err6,
         tolerance=f"atol {ATOL} + rtol {RTOL} vs the twin on the card "
                   "(atomics there)", twin_bitwise=bitwise6,
-        twin_bitwise_at=(f"full width, query columns 0-{TWIN_COLS - 1}, "
-                         "CPU twin; phase 2: all columns, 100,003 docs, "
-                         "B 8 and 64"),
+        twin_bitwise_at=("full width, query columns 64c + 2j + c % 2 "
+                         "(c < 4, j < 32: every lane of every column-CTA),"
+                         " CPU twin; phase 2: all columns, 20,011 docs, "
+                         "B 8, 64, 100 and 256, U up to 8,192"),
         ms=ms6, plain_ms=plain6_ms, library_ms=lib6_ms,
         library="torch.sparse.mm (doc x token CSR by [V, B] weights)",
         bytes=nbytes6, ops=2.0 * hits * w.shape[1])
@@ -854,15 +989,24 @@ def phase_dense(dr, idx, oracle, rng) -> list:
 
     # -- K5 alone, its twin on the card and its library call ---------------
     bv, bp = k5.blockwise_topk(dense, k=TOP_K, block=TOPK_BLOCK)
-    ms5 = cuda_ms(lambda: k5.blockwise_topk(dense, k=TOP_K,
-                                            block=TOPK_BLOCK), reps=3)
+    # in turns: library, kernel, kernel, library
+    turns5 = []
+    for fn in ("lib", "k5", "k5", "lib"):
+        turns5.append(cuda_ms(
+            (lambda: torch.topk(dense, TOP_K, dim=1)) if fn == "lib" else
+            (lambda: k5.blockwise_topk(dense, k=TOP_K, block=TOPK_BLOCK)),
+            reps=3))
+    ms5 = (turns5[1] + turns5[2]) / 2
+    lib5_ms = (turns5[0] + turns5[3]) / 2
     pv, pp = k5.blockwise_topk_plain(dense, k=TOP_K, block=TOPK_BLOCK)
     plain5_ms = cuda_ms(lambda: k5.blockwise_topk_plain(
         dense, k=TOP_K, block=TOPK_BLOCK))
     bitwise5 = bits_equal(bv, pv) and bits_equal(bp, pp)
     distinct5 = positions_distinct(bp)
     err5 = float((bv - pv).abs().nan_to_num(0.0).max())
-    lib5_ms = cuda_ms(lambda: torch.topk(dense, TOP_K, dim=1), reps=3)
+    print(f"[dense] K5 and torch.topk in turns (library, kernel, kernel, "
+          f"library): {', '.join(f'{t:.3f}' for t in turns5)} ms; K5 "
+          f"{'<=' if ms5 <= lib5_ms else '>'} torch.topk", flush=True)
     print(f"[dense] K5 over [{bv.shape[0]}, {TOPK_BLOCK}] segments, k "
           f"{TOP_K}: {ms5:.3f} ms; bitwise equal to its twin on the card "
           f"{bitwise5} ({plain5_ms:.1f} ms); positions distinct "
@@ -1548,6 +1692,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_kernels_vs_twins(args.seed)
     phase_topk_vs_twin(args.seed)
+    phase_k6_k7_vs_twins(args.seed)
     print(f"[kernel-vs-twin] done in {time.perf_counter() - t0:.1f}s",
           flush=True)
 

@@ -5,7 +5,8 @@ The port's counterpart of ``repro.core.scoring``. The paper's eager path,
     slice the query tokens' postings  →  sum across the token dimension
 
 becomes a ragged gather of each query's posting runs (bounded by a
-postings budget ``p_max``) followed by a scatter-add per document. A query
+postings budget ``p_max``) followed by a sum per document, one pass per
+token position so that every sum has a fixed order. A query
 is a padded ``(tokens[Q_max], weights[Q_max])`` pair; ``weights`` carries
 the per-unique-token occurrence count (summing a token's postings ``w``
 times ≡ the paper's per-occurrence summation) and 0 marks padding. The
@@ -27,7 +28,7 @@ from ..sparse.block_csr import bucket_pow2  # noqa: F401
 from ..sparse.block_csr import put_posting_arrays
 from .index import BM25Index
 
-# score_batch scatters at most this many gathered postings at a time
+# score_batch adds at most this many gathered postings a group
 _SLOTS_PER_STEP = 1 << 26
 
 
@@ -175,26 +176,29 @@ def _flatten_postings(indptr: torch.Tensor, q_tokens: torch.Tensor,
                       q_weights: torch.Tensor, p_max: int):
     """Ragged-gather bookkeeping for a ``[c, Q]`` block of queries.
 
-    Returns ``(query row [S], CSC position [S], weight [S], total [c])``
-    for the ``S = Σ_b min(total_b, p_max)`` slots that hold a posting, in
-    slot order: query by query, then slot ``j`` ascending — token ``i``'s
-    run, postings in CSC order. The reference materialises all ``p_max``
-    slots of each query and zeroes the empty ones; those add nothing, so
-    they are left out here. When ``total > p_max`` the trailing ``total -
-    p_max`` postings do not fit and are dropped: callers must surface
-    ``total > p_max`` as an overflow flag, otherwise the truncation is
-    undetectable score corruption.
+    Returns ``(query row [S], CSC position [S], weight [S], ends [Q])`` for
+    the ``S = Σ_b min(total_b, p_max)`` slots that hold a posting, ordered
+    by token position ``i``, then query, then CSC order: position ``i``'s
+    slots are ``[ends[i - 1], ends[i])`` (a Python list). The reference
+    materialises all ``p_max`` slots of each query, token ``i``'s run
+    before token ``i + 1``'s, and zeroes the empty ones; those add
+    nothing, so they are left out here, and the budget drops the same
+    postings: when ``total > p_max`` the trailing ``total - p_max`` slots
+    of the query do not fit. Callers must surface ``total > p_max`` as an
+    overflow flag, otherwise the truncation is undetectable score
+    corruption.
     """
     c, q = q_tokens.shape
-    starts, kept, total = _run_lengths(indptr, q_tokens, p_max)
-    flat = kept.reshape(-1)
-    owner = torch.repeat_interleave(
-        torch.arange(c * q, device=indptr.device), flat)
-    first = torch.cumsum(flat, 0) - flat                # exclusive
-    within = torch.arange(owner.numel(), device=indptr.device) - first[owner]
-    pos = starts.reshape(-1)[owner] + within
-    return (torch.div(owner, q, rounding_mode="floor"), pos,
-            q_weights.reshape(-1)[owner], total)
+    starts, kept, _ = _run_lengths(indptr, q_tokens, p_max)
+    flat = kept.t().reshape(-1)                         # (position, query)
+    ends = torch.cumsum(flat, 0)                        # inclusive
+    slot = torch.arange(int(ends[-1]) if q else 0, device=indptr.device)
+    # the run of each slot: the first whose end is past it (a binary search
+    # a slot; repeat_interleave walks each run in one thread)
+    owner = torch.searchsorted(ends, slot, right=True)
+    pos = (starts.t().reshape(-1) - (ends - flat))[owner] + slot
+    ends = torch.cumsum(kept.sum(dim=0), 0).tolist()
+    return owner % c, pos, q_weights.t().reshape(-1)[owner], ends
 
 
 def score_batch(index: DeviceIndex, q_tokens, q_weights, *, p_max: int,
@@ -202,13 +206,21 @@ def score_batch(index: DeviceIndex, q_tokens, q_weights, *, p_max: int,
     """Batched exact scoring: ``[B, Q_max] -> [B, n_docs]`` f32.
 
     The eager path: gather each query's precomputed posting scores (at most
-    ``p_max`` of them, in :func:`_flatten_postings`' slot order), multiply
-    by the token weight, scatter-add per document, add the §2.1 shift.
-    Queries are walked in groups of at most ``_SLOTS_PER_STEP`` gathered
-    postings (a group holds at least one query), each scattered into the
-    one ``[B, n_docs]`` output; the grouping does not change any sum. On
-    the CPU each document sums its postings in slot order; on a CUDA
-    device ``index_add_`` uses atomics and agrees to rounding.
+    ``p_max`` of them, the reference's slot order), multiply by the token
+    weight, add them per document, add the §2.1 shift. Queries are walked
+    in groups of at most ``_SLOTS_PER_STEP`` gathered postings (a group
+    holds at least one query), each added into the one ``[B, n_docs]``
+    output; the grouping does not change any sum.
+
+    Every sum has one fixed order, on the CPU and on the card alike: a
+    group is added in one ``index_add_`` pass per token position ``i``
+    (positions that keep no posting are skipped). One token's postings
+    hit distinct documents, so within a pass every destination is written
+    once and no two adds meet, whatever the device does with them. Each
+    document therefore receives its postings in token-position order —
+    the order of one serial ``index_add_`` over the reference's slots —
+    and the §2.1 shift is summed in position order too, so the scores are
+    bitwise equal on every device.
 
     With ``return_overflow=True`` also returns a ``[B]`` bool flag marking
     queries whose posting demand exceeded ``p_max`` (their scores miss the
@@ -227,14 +239,22 @@ def score_batch(index: DeviceIndex, q_tokens, q_weights, *, p_max: int,
         while b1 < b and slots + per_query[b1] <= _SLOTS_PER_STEP:
             slots += per_query[b1]
             b1 += 1
-        row, pos, w, _ = _flatten_postings(index.indptr, toks[b0:b1],
-                                           wts[b0:b1], p_max)
+        row, pos, w, ends = _flatten_postings(index.indptr, toks[b0:b1],
+                                              wts[b0:b1], p_max)
         dst = (row + b0) * n + index.doc_ids[pos]
-        out.view(-1).index_add_(0, dst, index.scores[pos] * w)
+        val = index.scores[pos] * w
+        lo = 0
+        for hi in ends:
+            if hi > lo:           # one pass a token position: no dst twice
+                out.view(-1).index_add_(0, dst[lo:hi], val[lo:hi])
+            lo = hi
         b0 = b1
     valid = toks >= 0
-    shift = (torch.where(valid, index.nonoccurrence[torch.where(
-        valid, toks, 0)], 0.0) * wts).sum(dim=1)
+    term = torch.where(valid, index.nonoccurrence[torch.where(
+        valid, toks, 0)], 0.0) * wts
+    shift = torch.zeros(b, dtype=torch.float32, device=index.device)
+    for i in range(term.shape[1]):    # position order on every device
+        shift += term[:, i]
     out += shift[:, None]
     if return_overflow:
         return out, total > p_max

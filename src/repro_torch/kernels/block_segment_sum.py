@@ -14,7 +14,8 @@ row of such an id is all zeros). Sums run in posting order in f32 and are
 rounded once to the output dtype: for f16 the reference accumulates in
 the f16 output tile by tile, so the two agree within its test's 2e-2.
 The reference's precondition ``P % tile_p == 0`` is kept as a
-``ValueError``; the kernel itself takes any ``P``.
+``ValueError``; the kernel itself takes any ``P`` and any ``S`` (past
+7,056 segments a block's CTAs split ``S`` into ranges, :func:`column_tile`).
 """
 
 from __future__ import annotations
@@ -53,25 +54,37 @@ def _check(values, segment_ids, num_segments: int, tile_p: int) -> None:
                          f"tile_p={tile_p}")
 
 
-def smem_bytes(num_segments: int, d_tile: int) -> int:
-    """Shared memory of one CTA: the ``[S, d_tile]`` f32 accumulator, the
-    staged ``[128, d_tile]`` tile, its 128 ids and two buffers of 128 row
-    flags (csrc: ``block_segment_sum_smem``)."""
-    return (num_segments * d_tile + _CHUNK * d_tile + 3 * _CHUNK) * 4
+def smem_bytes(s_tile: int, d_tile: int) -> int:
+    """Shared memory of one CTA: the ``[s_tile, d_tile]`` f32 accumulator,
+    the staged ``[128, d_tile]`` tile, its 128 ids and two buffers of 128
+    row flags (csrc: ``block_segment_sum_smem``)."""
+    return (s_tile * d_tile + _CHUNK * d_tile + 3 * _CHUNK) * 4
 
 
-def column_tile(num_segments: int, d: int) -> int:
-    """The widest column tile the kernel holds for ``S`` segments: at most
-    ``D`` rounded up to a power of two, at least 8, and small enough that
-    a CTA's shared memory takes the ``[S, d_tile]`` accumulator. Raises
-    ``ValueError`` when ``S`` does not fit even at 8 columns."""
+def column_tile(num_segments: int, d: int) -> tuple[int, int]:
+    """The kernel's tile plan ``(d_tile, s_tile)``: a CTA holds the
+    ``[s_tile, d_tile]`` accumulator of one block's segments ``[s0, s0 +
+    s_tile)`` and columns ``[d0, d0 + d_tile)``.
+
+    ``d_tile`` is at most ``D`` rounded up to a power of two and at least
+    8. The plan takes the widest ``d_tile`` whose accumulator holds all
+    ``S`` segments (``s_tile = S``). Where none does (``S`` > 7,056), every
+    CTA of a block still reads all of its postings, so the plan takes the
+    fewest segment ranges, which 8 columns give, and cuts ``S`` into equal
+    ranges. Raises ``ValueError`` for ``S >= 2^31`` or ``S < 1``.
+    """
+    if not 1 <= num_segments < 2 ** 31:
+        raise ValueError(f"num_segments={num_segments} must be in "
+                         f"[1, 2^31)")
     want = max(8, 1 << max(0, d - 1).bit_length())
+    room = _build.SMEM_LIMIT - 1024
     for t in _D_TILES:
-        if t <= want and smem_bytes(num_segments, t) <= (
-                _build.SMEM_LIMIT - 1024):
-            return t
-    raise ValueError(f"num_segments={num_segments} does not fit a CTA's "
-                     f"shared memory even at 8 columns")
+        if t <= want and smem_bytes(num_segments, t) <= room:
+            return t, num_segments
+    t = _D_TILES[-1]
+    most = (room // 4 - _CHUNK * t - 3 * _CHUNK) // t
+    n_ranges = -(-num_segments // most)
+    return t, -(-num_segments // n_ranges)
 
 
 def block_segment_sum_plain(values, segment_ids, *, num_segments: int,
@@ -100,7 +113,7 @@ def _fn(lib):
     f = lib.block_segment_sum_launch
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, i, p]
+        f.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, i, i, p]
         f.restype = ctypes.c_int
         s = lib.block_segment_sum_smem
         s.argtypes = [i, i]
@@ -128,20 +141,22 @@ def block_segment_sum(values, segment_ids, *, num_segments: int,
     out = torch.empty((nb, num_segments, d), dtype=values.dtype, device=dev)
     if nb == 0 or d == 0:
         return out
-    d_tile = column_tile(num_segments, d)
-    if nb * -(-d // d_tile) >= 2 ** 31 or p >= 2 ** 31:
+    d_tile, s_tile = column_tile(num_segments, d)
+    ctas = nb * -(-d // d_tile) * -(-num_segments // s_tile)
+    if ctas >= 2 ** 31 or p >= 2 ** 31:
         raise ValueError(f"{nb} blocks of {p} postings exceed the grid")
     lib = _build.load("block_segment_sum")
     launch = _fn(lib)
-    if lib.block_segment_sum_smem(num_segments, d_tile) != smem_bytes(
-            num_segments, d_tile):
+    if lib.block_segment_sum_smem(s_tile, d_tile) != smem_bytes(s_tile,
+                                                                d_tile):
         raise RuntimeError("block_segment_sum: the library's shared memory "
                            "layout differs from the wrapper's")
     vc, ic = values.contiguous(), segment_ids.contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(vc.data_ptr(), ic.data_ptr(), out.data_ptr(), nb, p, d,
-                     num_segments, d_tile, _DTYPES[values.dtype], stream)
+                     num_segments, d_tile, s_tile, _DTYPES[values.dtype],
+                     stream)
     _build.check(err, "block_segment_sum")
     LAUNCHES.add()
     return out

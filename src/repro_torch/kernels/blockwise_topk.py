@@ -14,7 +14,10 @@ k]`` f32 and segment-local positions ``[R·nb, k]`` i32; slots past a
 segment's length hold ``(-inf, -1)``. With ``n == block`` this is the
 reference's ``[nb, block] -> [nb, k]``. The positions of a segment are
 always distinct, also in rows of ``-inf`` or ``-FLT_MAX``, where the
-reference's mask-by-minimum can repeat one. NaN input is out of contract:
+reference's mask-by-minimum can repeat one. ``+0.0`` and ``-0.0`` rank as
+equal (the lower position first) and keep their own bits in the output,
+as :func:`~repro_torch.core.retrieval.rank_order` ranks them. NaN input
+is out of contract:
 the BM25 paths never produce it and the serving ladder's finite check
 covers boards, so the hot path does not look for it.
 """
@@ -85,7 +88,7 @@ def _fn(lib):
         f.argtypes = [p, ctypes.c_longlong, i, i, i, p, p, p]
         f.restype = ctypes.c_int
         s = lib.blockwise_topk_smem
-        s.argtypes = [i]
+        s.argtypes = [i, i]
         s.restype = ctypes.c_longlong
     return f
 
@@ -111,8 +114,9 @@ def blockwise_topk(x, *, k: int, block: int | None = None
         raise ValueError(f"{r * nb} segments exceed the grid's 2^31 - 1")
     lib = _build.load("blockwise_topk")
     launch = _fn(lib)
-    if lib.blockwise_topk_smem(block) > _build.SMEM_LIMIT - 1024:
-        raise ValueError(f"block={block} does not fit a CTA's shared memory")
+    if lib.blockwise_topk_smem(block, k) > _build.SMEM_LIMIT - 1024:
+        raise ValueError(f"block={block} with k={k} does not fit a CTA's "
+                         "shared memory")
     xc = x.contiguous()
     out_v = torch.empty((r * nb, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((r * nb, k), dtype=torch.int32, device=dev)

@@ -57,15 +57,15 @@ def _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
 
 def block_accumulate(token_ids, local_doc, scores, uniq_tokens, weights,
                      *, block_size: int) -> torch.Tensor:
-    """``[g, P]`` token-sorted postings of ``g`` blocks -> their
-    ``[g, block_size, B]`` sums.
+    """``[g, P]`` postings of ``g`` blocks (token-sorted or in any order)
+    -> their ``[g, block_size, B]`` sums.
 
     Each posting whose token is in the sorted table ``uniq_tokens`` (row
     ``u``) adds ``fl(score · weights[u, b])`` to its row ``local_doc`` of
     its block, with ``index_add_``. On the CPU ``index_add_`` adds source
     rows serially in index order, so each element sums its postings in
-    posting order — the order of the kernels that share
-    ``csrc/block_scatter.cuh`` (K2, K4) — and equals them bit for bit. On a
+    posting order — the order of K2 and K4 (``csrc/block_scatter.cuh``)
+    and of K6 — and equals them bit for bit. On a
     CUDA tensor ``index_add_`` uses atomics: then it agrees only to
     rounding. Matched postings are added ``_ROWS_PER_STEP`` at a time to
     bound memory.
@@ -125,16 +125,12 @@ def bm25_block_score_topk_plain(token_ids, local_doc, scores, uniq_tokens,
     return out_v, out_i
 
 
-def _cuda_launch(token_ids, local_doc, scores, uniq_tokens, weights,
-                 block_size: int):
+def _library(n_blocks: int):
     """The library of ``csrc/bm25_block_score.cu`` with its C signatures
-    declared, and the five operands made contiguous, for a launch of K2 or
-    K6 (both take the same grid and shared memory). Raises ``ValueError``
-    on a grid or a shared memory the kernels cannot take."""
-    nb = token_ids.shape[0]
-    u = weights.shape[0]
-    if nb > 65535:
-        raise ValueError(f"{nb} document blocks exceed the grid's 65535")
+    declared. Raises ``ValueError`` on a grid the kernels cannot take."""
+    if n_blocks > 65535:
+        raise ValueError(f"{n_blocks} document blocks exceed the grid's "
+                         "65535")
     lib = _build.load("bm25_block_score")
     if lib.bm25_block_score_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -146,11 +142,9 @@ def _cuda_launch(token_ids, local_doc, scores, uniq_tokens, weights,
         lib.bm25_block_score_launch.restype = ctypes.c_int
         lib.bm25_block_score_smem.argtypes = [i, i]
         lib.bm25_block_score_smem.restype = ctypes.c_longlong
-    if lib.bm25_block_score_smem(block_size, u) > _build.SMEM_LIMIT:
-        raise ValueError(f"block_size={block_size} with {u} unique tokens "
-                         "does not fit a CTA's shared memory")
-    return lib, [t.contiguous() for t in (token_ids, local_doc, scores,
-                                          uniq_tokens, weights)]
+        lib.bm25_block_score_dense_smem.argtypes = [i]
+        lib.bm25_block_score_dense_smem.restype = ctypes.c_longlong
+    return lib
 
 
 def bm25_block_score_topk(token_ids, local_doc, scores, uniq_tokens,
@@ -173,8 +167,12 @@ def bm25_block_score_topk(token_ids, local_doc, scores, uniq_tokens,
         raise ValueError(f"unsupported device {dev}")
     nb, p = token_ids.shape
     u, b = weights.shape
-    lib, ops = _cuda_launch(token_ids, local_doc, scores, uniq_tokens,
-                            weights, block_size)
+    lib = _library(nb)
+    if lib.bm25_block_score_smem(block_size, u) > _build.SMEM_LIMIT:
+        raise ValueError(f"block_size={block_size} with {u} unique tokens "
+                         "does not fit a CTA's shared memory")
+    ops = [t.contiguous() for t in (token_ids, local_doc, scores,
+                                    uniq_tokens, weights)]
     out_v = torch.empty((nb, k, b), dtype=torch.float32, device=dev)
     out_i = torch.empty((nb, k, b), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -195,7 +193,11 @@ def bm25_block_score(token_ids, local_doc, scores, uniq_tokens, weights, *,
 
     A CPU tensor runs the plain twin, :func:`block_accumulate` (bitwise the
     kernel's sums); a CUDA tensor launches the kernel (and raises if it
-    cannot): there is no fall-back between the two.
+    cannot): there is no fall-back between the two. Postings may come in
+    any order within a block; blocks whose tokens ascend (the layout
+    ``block_postings_from_coo`` builds) take the kernel's fast path, which
+    reads only the postings the table matches. The table may have any
+    number of rows: the kernel searches it 2,048 rows at a time.
     """
     _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
                     block_size)
@@ -207,8 +209,13 @@ def bm25_block_score(token_ids, local_doc, scores, uniq_tokens, weights, *,
         raise ValueError(f"unsupported device {dev}")
     nb, p = token_ids.shape
     u, b = weights.shape
-    lib, ops = _cuda_launch(token_ids, local_doc, scores, uniq_tokens,
-                            weights, block_size)
+    lib = _library(nb)
+    # the kernel's static shared memory sits beside the dynamic
+    if lib.bm25_block_score_dense_smem(block_size) > _build.SMEM_LIMIT - 1024:
+        raise ValueError(f"block_size={block_size} does not fit a CTA's "
+                         "shared memory")
+    ops = [t.contiguous() for t in (token_ids, local_doc, scores,
+                                    uniq_tokens, weights)]
     out = torch.empty((nb, block_size, b), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

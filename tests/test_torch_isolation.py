@@ -16,6 +16,7 @@
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -111,8 +112,13 @@ def test_topk_source_carries_its_note():
     assert ("Replaces: src/repro/kernels/blockwise_topk.py::"
             "blockwise_topk_kernel") in src
     assert "Bound on the H100" in src
-    assert "atomic" not in src                  # one CTA owns a segment
-    assert '#include "select_topk.cuh"' in src  # the shared total order
+    # one CTA owns a segment; its only atomics count keys in the radix
+    # select's integer histogram (exact in any order), never a float
+    assert re.findall(r"atomic\w*\(([^,]+),", src) == [
+        "&hist[(key >> shift) & (kBins - 1)]"]
+    assert "unsigned hist[kBins]" in src
+    # the total order is rank_order's: -0.0 folded onto +0.0 first
+    assert "__float_as_uint(__fadd_rn(v, 0.0f))" in src
 
 
 @pytest.mark.parametrize("name,replaces", [

@@ -9,6 +9,8 @@ package's ``repro.core.scoring``, which runs here (jnp, no Pallas).
   differently;
 * the overflow flag ``Σdf > p_max``, and the truncated sums under a
   too-small ``p_max`` (the same slot order drops the same postings);
+* the per-token-position passes bit for bit against one serial pass over
+  the reference's slots (duplicate tokens, holes, truncation);
 * the budget helpers, byte-identical;
 * the reference's own cases, mirrored: the gather path exact against
   ``dense_oracle_scores`` and duplicate query tokens weighted
@@ -106,6 +108,57 @@ def test_score_batch_groups_do_not_change_sums(monkeypatch):
     monkeypatch.setattr(scoring, "_SLOTS_PER_STEP", 1)
     grouped = score_batch(di, toks, wts, p_max=1024)
     assert torch.equal(whole.view(torch.int32), grouped.view(torch.int32))
+
+
+def _serial_slot_sums(idx, toks, wts, p_max):
+    """One serial f32 pass over the reference's slots: query by query,
+    token ``i``'s run before token ``i + 1``'s, CSC order within a run, at
+    most ``p_max`` slots a query, each ``fl(score · w)`` added in turn."""
+    out = np.zeros((toks.shape[0], idx.n_docs), np.float32)
+    for b in range(toks.shape[0]):
+        used = 0
+        for t, w in zip(toks[b], wts[b]):
+            if t < 0:
+                continue
+            lo, hi = int(idx.indptr[t]), int(idx.indptr[t + 1])
+            hi = min(hi, lo + max(0, p_max - used))
+            used += int(idx.indptr[t + 1]) - lo
+            for d, sc in zip(idx.doc_ids[lo:hi], idx.scores[lo:hi]):
+                out[b, d] = np.float32(out[b, d] + np.float32(sc)
+                                       * np.float32(w))
+    return out
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("p_max", [7, 1024])
+def test_score_batch_position_passes_equal_serial_slots(method, p_max):
+    """The per-position passes add each document's postings in the slot
+    order of one serial pass, bit for bit: a query row that names a token
+    twice, ``-1`` padding between tokens, and a budget that truncates
+    (``p_max`` 7) included; and within the reference's tolerance of
+    ``repro.core.scoring.score_batch``."""
+    corpus, ridx, rdi, idx, di, qs, toks, wts = _both(method, seed=9, b=8)
+    toks, wts = toks.copy(), wts.copy()
+    toks[0, :4] = [5, -1, 5, 11]          # a duplicate and a hole
+    wts[0, :4] = [1.0, 0.0, 2.0, 1.0]
+    got, over = score_batch(di, toks, wts, p_max=p_max,
+                            return_overflow=True)
+    want = _serial_slot_sums(idx, toks, wts, p_max)
+    for b, (qt, qw) in enumerate(zip(toks, wts)):
+        shift = np.float32(0.0)          # §2.1, in position order
+        for t, w in zip(qt, qw):
+            if t >= 0:
+                shift = np.float32(shift + np.float32(
+                    idx.nonoccurrence[t] * np.float32(w)))
+        want[b] = want[b] + shift
+    want = torch.as_tensor(want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(over.any()) == (p_max == 7)
+    ref, rover = R.score_batch(rdi, toks, wts, p_max=p_max,
+                               return_overflow=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_array_equal(over.numpy(), np.asarray(rover))
 
 
 @pytest.mark.parametrize("method", ["lucene", "tfldp"])

@@ -27,6 +27,7 @@ from repro.kernels.block_segment_sum import \
 from repro.sparse import segment_ops as ref_seg  # noqa: E402
 
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_segment_sum as k7  # noqa: E402
 from repro_torch.sparse import segment_ops as seg  # noqa: E402
 
@@ -43,12 +44,13 @@ def _inputs(rng, nb, p, d, s, dtype, drop=False):
     return vals, ids
 
 
-# the reference's sweep (tests/test_kernels.py) and one with eight tiles a
-# block, dropped ids in it
+# the reference's sweep (tests/test_kernels.py), one with eight tiles a
+# block, dropped ids in it, and one with 10,000 segments (the kernel cuts
+# them into two ranges on the card)
 @pytest.mark.parametrize("dtype", [np.float32, np.float16])
 @pytest.mark.parametrize("nb,p,d,s,tile_p,drop", [
     (2, 128, 8, 16, 64, False), (4, 256, 32, 64, 128, False),
-    (3, 512, 16, 40, 64, True)])
+    (3, 512, 16, 40, 64, True), (1, 256, 8, 10_000, 128, True)])
 def test_k7_twin_matches_live_reference_and_oracle(nb, p, d, s, tile_p,
                                                    drop, dtype):
     rng = np.random.default_rng(nb * p + d)
@@ -124,18 +126,40 @@ def test_k7_rejects_other_dtypes_and_shapes():
                              tile_p=32)
 
 
-def test_k7_column_tile_fits_shared_memory():
-    """The kernel's column tile: ``D`` rounded up to a power of two within
-    8..64, narrowed until the ``[S, d_tile]`` accumulator fits a CTA;
-    ``S`` that fits no tile raises."""
-    assert k7.column_tile(512, 64) == 64      # 165,376 bytes a CTA
-    assert k7.column_tile(512, 602) == 64     # ten column tiles
-    assert k7.column_tile(512, 20) == 32
-    assert k7.column_tile(16, 3) == 8
-    assert k7.column_tile(2048, 64) == 16
+@pytest.mark.parametrize("s", [16, 512, 3_000, 7_056, 7_057, 10_000,
+                               100_000])
+def test_k7_column_tile_fits_shared_memory(s):
+    """The kernel's plan ``(d_tile, s_tile)``: ``D`` rounded up to a power
+    of two within 8..64, narrowed until the ``[S, d_tile]`` accumulator
+    fits a CTA; past 7,056 segments, 8 columns and the fewest equal
+    segment ranges that fit. The ranges cover ``[0, S)`` disjointly and
+    every CTA's shared memory fits."""
+    room = _build.SMEM_LIMIT - 1024
+    for d in (3, 20, 64, 602):
+        d_tile, s_tile = k7.column_tile(s, d)
+        n_ranges = -(-s // s_tile)
+        starts = [r * s_tile for r in range(n_ranges)]
+        ends = [min(s, a + s_tile) for a in starts]
+        assert starts[0] == 0 and ends[-1] == s
+        assert all(e == a for e, a in zip(ends, starts[1:]))   # disjoint
+        assert all(e > a for a, e in zip(starts, ends))          # non-empty
+        assert k7.smem_bytes(s_tile, d_tile) <= room
+        want = max(8, 1 << max(0, d - 1).bit_length())
+        assert d_tile <= want and d_tile in (8, 16, 32, 64)
+        if s_tile < s:                 # split only where 8 columns fail
+            assert d_tile == 8 and k7.smem_bytes(s, 8) > room
+            assert k7.smem_bytes(-(-s // (n_ranges - 1)), 8) > room
+    assert k7.column_tile(512, 64) == (64, 512)   # 165,376 bytes a CTA
+    assert k7.column_tile(512, 602) == (64, 512)  # ten column tiles
+    assert k7.column_tile(512, 20) == (32, 512)
+    assert k7.column_tile(16, 3) == (8, 16)
+    assert k7.column_tile(2048, 64) == (16, 2048)
+    assert k7.column_tile(7_056, 64) == (8, 7_056)
+    assert k7.column_tile(10_000, 64) == (8, 5_000)
+    assert k7.column_tile(50_000, 64) == (8, 6_250)
     assert k7.smem_bytes(512, 64) == 165_376
-    with pytest.raises(ValueError, match="shared memory"):
-        k7.column_tile(10_000, 64)
+    with pytest.raises(ValueError):
+        k7.column_tile(2 ** 31, 64)
 
 
 # -- sparse/segment_ops.py against repro.sparse.segment_ops ----------------
