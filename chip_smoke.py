@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (``bm25_block_score_topk``), K3 (``bm25_resident_score_topk_pruned``,
    on the batch's whole table and its block bounds, so that its in-kernel
    skip does the pruning; the B = 8 batches are one-token queries, whose
-   bounds prune, and K3 must skip somewhere) and K4
+   bounds prune, and K3 must skip somewhere; with one CTA, one column
+   group of 64, it must skip what its twin skips) and K4
    (``bm25_gather_score_topk``, on the batch's host gather, per chunk and
    two-level) on the card against their plain torch twins on CPU copies:
    bitwise equal, all columns; K3 also bitwise equal to K1 on the card on
@@ -63,7 +64,9 @@ Phases (any failure exits non-zero; nothing is caught):
    with ``torch.profiler``, ``torch.cummax`` and ``torch.cumsum`` timed
    over a stream of the planner's size, the host survivor estimate
    timed; each kernel bitwise equal to its CPU twin on the first 32 query
-   columns (one B-tile; every column is scored on its own), timed with
+   columns (K1 and K3: the first 64, every lane of the first CTA's column
+   group; every column is scored on its own), K1 also timed at k = 1 and
+   on the first 32 columns beside its full call (the split), timed with
    CUDA events beside its twin on the card (atomics there, so values agree
    within atol 1e-4 + rtol 1e-6, and where an id differs from the twin's
    the kernel's id must carry its exact score from the index), and the
@@ -154,6 +157,8 @@ FP32_OPS_PER_S = 67e12         # CUDA-core FP32 (FMA counted as 2)
 EXACT_ATOL = 1e-4              # boards vs ScipyBM25 (different sum order)
 ATOL, RTOL = 1e-4, 1e-6        # kernel vs twin on the card (atomics there)
 TWIN_COLS = 32                 # query columns held bitwise at full width
+# K1's and K3's: a CTA takes a group of 64 columns, a lane two of them
+K1_TWIN_COLS = tuple(range(64))
 # K6's: a CTA takes 64 columns, a lane two of them; 32 of each CTA's, one
 # a lane (its first in even CTAs, its second in odd ones)
 K6_TWIN_COLS = tuple(64 * c + 2 * j + c % 2 for c in range(4)
@@ -316,9 +321,9 @@ def phase_kernels_vs_twins(seed: int) -> None:
                 di_cuda.csc_scores, frag=di.frag, **kw)
             oks.append(bits_equal(got[0], k1c[0])
                        and bits_equal(got[1], k1c[1]))
-            if b <= 32:
-                # one B-tile and one CTA: the kernel walks the table in
-                # order, as the twin does, and must skip what it skips
+            if b <= 64:
+                # one column group and one CTA: the kernel walks the table
+                # in order, as the twin does, and must skip what it skips
                 ctas, k1._CTAS = k1._CTAS, 1
                 one = k1.bm25_resident_score_topk_pruned(
                     *(t.to(cuda) for t in (desc3, w, bounds,
@@ -372,7 +377,7 @@ def phase_kernels_vs_twins(seed: int) -> None:
             check(all(oks), f"kernels bitwise equal to twins, device plan "
                             f"equal to host plan ({method}, k={k}, B={b})")
     print(f"[kernel-vs-twin] K3 with one CTA skipped {skipped} fragments "
-          "over the B = 8 cases, as its twin did", flush=True)
+          "over the cases of B <= 64, as its twin did", flush=True)
     check(skipped > 0, "K3 skipped spans on the card in phase 2")
 
 
@@ -599,6 +604,23 @@ def twin_bitwise(fn, ops, col_at, got, kw, what: str,
           f"bitwise equal to the CPU twin: {ok} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
     return ok
+
+
+def k1_split(fn, ops, ms: float, kw) -> dict:
+    """K1's time at phase 5's operands beside two cuts of the same call,
+    through the public wrapper: k = 1 (the per-span fold almost vanishes)
+    and the first 32 query columns (one column group, so no posting is
+    read by two groups' CTAs)."""
+    w = ops[1]
+    b = w.shape[1]
+    ms_k1 = cuda_ms(lambda: fn(*ops, **dict(kw, k=1)), reps=3)
+    ops32 = (ops[0], w[:, :32].contiguous(), *ops[2:])
+    ms_b32 = cuda_ms(lambda: fn(*ops32, **kw), reps=3)
+    split = {f"k{kw['k']}_b{b}": ms, f"k1_b{b}": ms_k1,
+             f"k{kw['k']}_b32": ms_b32}
+    print(f"[kernels] K1 split: k={kw['k']} B={b} {ms:.3f} ms; k=1 B={b} "
+          f"{ms_k1:.3f} ms; k={kw['k']} B=32 {ms_b32:.3f} ms", flush=True)
+    return split
 
 
 def split_index(idx, n: int) -> list:
@@ -1432,6 +1454,9 @@ def phase_bm25(args) -> list:
     tol = f"atol {ATOL} + rtol {RTOL} vs the twin on the card"
     bitwise_at = (f"full width, query columns 0-{TWIN_COLS - 1}, CPU twin; "
                   "phase 2: all columns, 100,003 docs, B 8 and 64")
+    k1_at = (f"full width, query columns 0-{len(K1_TWIN_COLS) - 1} (the "
+             "first CTA column group, every lane), CPU twin; phase 2: all "
+             "columns, 100,003 docs, B 8 and 64")
     # every kernel on the last batch's operands (served under each regime)
     pk = dr.pack_batch(served[-1][2])
     n_u = pk.uniq_batch.size
@@ -1486,8 +1511,11 @@ def phase_bm25(args) -> list:
     got = k1.bm25_resident_score_topk(*ops1, frag=dr.dindex.frag, **kw1)
     ms = cuda_ms(lambda: k1.bm25_resident_score_topk(
         *ops1, frag=dr.dindex.frag, **kw1), reps=5)
+    split = k1_split(k1.bm25_resident_score_topk, ops1, ms,
+                     dict(kw1, frag=dr.dindex.frag))
     bitwise = twin_bitwise(k1.bm25_resident_score_topk, ops1, (1,), got,
-                           dict(kw1, frag=dr.dindex.frag), "K1")
+                           dict(kw1, frag=dr.dindex.frag), "K1",
+                           cols=K1_TWIN_COLS)
     check(bitwise, "K1 bitwise equal to its CPU twin at full width")
     ref = k1.bm25_resident_score_topk_plain(*ops1, **kw1)
     plain_ms = cuda_ms(lambda: k1.bm25_resident_score_topk_plain(*ops1,
@@ -1505,8 +1533,8 @@ def phase_bm25(args) -> list:
         source="src/repro_torch/kernels/csrc/bm25_resident.cu",
         replaces="src/repro/kernels/bm25_gather_score.py:593",
         launches=launches["bm25_resident_score_topk"], max_abs_err=err,
-        tolerance=tol, twin_bitwise=bitwise, twin_bitwise_at=bitwise_at,
-        ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=nops))
+        tolerance=tol, twin_bitwise=bitwise, twin_bitwise_at=k1_at,
+        ms=ms, plain_ms=plain_ms, split_ms=split, bytes=nbytes, ops=nops))
     # K2
     tab, w = pk.uniq_tab, pk.weights
     di = dr.dindex
@@ -1551,14 +1579,14 @@ def phase_bm25(args) -> list:
     ms = cuda_ms(lambda: k1.bm25_resident_score_topk_pruned(*ops3, **kw3),
                  reps=5)
     bitwise = twin_bitwise(k1.bm25_resident_score_topk_pruned, ops3,
-                           (1, 2), got, kw3, "K3")
+                           (1, 2), got, kw3, "K3", cols=K1_TWIN_COLS)
     check(bitwise, "K3 bitwise equal to its CPU twin at full width")
     k1_got = k1.bm25_resident_score_topk(*ops3[:2], *ops3[3:], **kw3)
     same_k1 = bits_equal(got[0], k1_got[0]) and bits_equal(got[1],
                                                            k1_got[1])
     print(f"[kernels] K3: {nf_planned} fragments planned, {n_surv} after "
           f"the seed compaction, {int(got[2])} skipped in the kernel "
-          f"(mean over B-tiles); board bitwise equal to K1 on the same "
+          f"(mean over column groups); board bitwise equal to K1 on the same "
           f"table {same_k1}", flush=True)
     check(same_k1, "K3 board == K1 board on the same table")
     del k1_got
@@ -1587,7 +1615,7 @@ def phase_bm25(args) -> list:
         replaces="src/repro/kernels/bm25_gather_score.py:521",
         launches=launches["bm25_resident_score_topk_pruned"],
         max_abs_err=err, tolerance=tol, twin_bitwise=bitwise,
-        twin_bitwise_at=bitwise_at, fragments=int(desc3.shape[1]),
+        twin_bitwise_at=k1_at, fragments=int(desc3.shape[1]),
         survivors=n_surv, skipped=int(got[2]), ms=ms, plain_ms=plain_ms,
         bytes=nbytes, ops=nops))
     # K4 at the host rung's shapes: shard 0's gather of the host-rung batch

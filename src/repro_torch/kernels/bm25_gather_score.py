@@ -11,7 +11,9 @@ Ports of ``repro.kernels.bm25_gather_score``:
   ``csrc/bm25_gather_score.cu``.
 
 Each source's header note gives the design and the bound; this module
-holds the wrappers, plain torch twins and launch counters.
+holds the wrappers, plain torch twins and launch counters, and
+:func:`span_ranges`, which cuts K1/K3's fragment table into the ranges of
+whole spans that their persistent CTAs walk.
 
 K1/K3 contract: ``desc`` is the ``[6, nf]`` int32 table of
 ``sparse.block_csr.fragment_plan`` (rows start, valid, uniq, block, first,
@@ -46,7 +48,8 @@ LAUNCHES = _build.LaunchCounter("bm25_resident_score_topk")
 LAUNCHES_PRUNED = _build.LaunchCounter("bm25_resident_score_topk_pruned")
 LAUNCHES_GATHER = _build.LaunchCounter("bm25_gather_score_topk")
 
-_CTAS = 4096                   # scoring CTAs per launch, across B-tiles
+_CTAS = None                   # scoring CTAs a launch; None: one an SM
+_GROUP = 64                    # query columns a CTA, two a lane
 _POSTINGS_PER_STEP = 1 << 20   # twin: postings added per index_add_
 _COLS_PER_STEP = 32            # twin: query columns sorted per step
 
@@ -142,34 +145,96 @@ def _fns(lib):
     f = lib.bm25_resident_topk_launch
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, i, p, i, p, p, i, i, ctypes.c_longlong, i, i, i,
-                      p, p, p, p, p]
+        f.argtypes = [p, i, p, i, p, i, p, p, i, i, ctypes.c_longlong, p, p,
+                      p, p, p]
         f.restype = ctypes.c_int
         g = lib.bm25_resident_pruned_launch
-        g.argtypes = [p, i, p, i, p, p, p, i, i, ctypes.c_longlong, i, i,
-                      i, p, p, p, p, p, p]
+        g.argtypes = [p, i, p, i, p, i, p, p, p, i, i, ctypes.c_longlong, p,
+                      p, p, p, p, p]
         g.restype = ctypes.c_int
         s = lib.bm25_resident_topk_smem
-        s.argtypes = [i, i, i]
+        s.argtypes = [i]
         s.restype = ctypes.c_longlong
     return f, lib.bm25_resident_pruned_launch
 
 
-def _tiling(lib, nf: int, b: int, block_size: int, k: int):
-    """``(bt, n_tiles, n_boards, per_cta)``: columns per B-tile (≤ 32,
-    halved until the CTA's shared memory fits), B-tiles, CTAs per tile and
-    fragments per CTA slice, for at most ``_CTAS`` CTAs."""
-    bt = min(32, b)
-    while bt > 1 and lib.bm25_resident_topk_smem(block_size, k, bt) \
-            > _build.SMEM_LIMIT:
-        bt //= 2
-    if lib.bm25_resident_topk_smem(block_size, k, bt) > _build.SMEM_LIMIT:
-        raise ValueError(f"block_size={block_size}, k={k} do not fit a "
-                         "CTA's shared memory")
-    n_tiles = -(-b // bt)
-    n_boards = max(1, min(nf, _CTAS // n_tiles))
-    per_cta = -(-nf // n_boards)
-    return bt, n_tiles, -(-nf // per_cta), per_cta
+def span_ranges(desc: torch.Tensor, n_ranges: int) -> torch.Tensor:
+    """Cut a fragment table into ``n_ranges`` ranges of whole spans with
+    about equal postings, on ``desc``'s device (no host sync).
+
+    Returns ``[n_ranges + 1]`` int32 fragment indices, non-decreasing:
+    range ``g`` holds the spans whose leaders lie in ``[r[g], r[g + 1])``.
+    Every ``r[g]`` is a span leader or ``nf`` (the table's width), so no
+    range splits a span and the padding after the last span belongs to
+    none. Range ``g`` starts at the first leader with at least
+    ``total · g // n_ranges`` postings before it.
+    """
+    nf = desc.shape[1]
+    dev = desc.device
+    idx = torch.arange(nf + 1, device=dev)
+    valid = desc[1].clamp(min=0).to(torch.int64)
+    before = torch.cumsum(valid, 0) - valid       # postings before each
+    # pos[j]: the j-th leader (nf past the last one; non-leaders write to
+    # the spare slot nf, reset after)
+    lead = desc[4] == 1
+    pos = torch.full((nf + 1,), nf, dtype=torch.int64, device=dev)
+    pos[torch.where(lead, torch.cumsum(lead, 0) - 1, nf)] = idx[:-1]
+    pos[nf] = nf
+    big = torch.full((1,), torch.iinfo(torch.int64).max, device=dev)
+    key = torch.cat([before, big])[pos]           # ascending over leaders
+    targets = valid.sum() * torch.arange(n_ranges, device=dev) // n_ranges
+    return torch.cat([pos[torch.searchsorted(key, targets)],
+                      idx[-1:]]).to(torch.int32)
+
+
+def _launch_resident(lib, desc, weights, bounds, doc_ids_res, scores_res,
+                     *, block_size: int, k: int, n_docs: int, n_ctas: int,
+                     stream: int):
+    """Launch K1 (``bounds`` None) or K3 from ``lib`` on ``stream``, with
+    ``n_ctas`` scoring CTAs across the column groups of 64. Returns
+    ``(values [k, B], ids [k, B], skips per CTA or None)``."""
+    launch, launch_pruned = _fns(lib)
+    if lib.bm25_resident_topk_smem(block_size) == 0:
+        raise ValueError(f"block_size={block_size}: the kernel takes blocks "
+                         "of at most 512 rows")
+    dev = weights.device
+    nf = desc.shape[1]
+    b = weights.shape[1]
+    n_groups = -(-b // _GROUP)
+    n_ranges = max(1, min(nf, n_ctas // n_groups))
+    if n_ranges > 65535:
+        raise ValueError(f"{n_ranges} ranges exceed the grid's 65535")
+    ranges = span_ranges(desc, n_ranges)
+    ops = [t.contiguous() for t in (desc, weights, doc_ids_res, scores_res)]
+    board_v = torch.empty((n_ranges, b, k), dtype=torch.float32, device=dev)
+    board_g = torch.empty((n_ranges, b, k), dtype=torch.int32, device=dev)
+    out_v = torch.empty((k, b), dtype=torch.float32, device=dev)
+    out_g = torch.empty((k, b), dtype=torch.int32, device=dev)
+    head = (ops[0].data_ptr(), nf, ranges.data_ptr(), n_ranges,
+            ops[1].data_ptr(), b)
+    tail = (ops[2].data_ptr(), ops[3].data_ptr(), block_size, k, n_docs,
+            board_v.data_ptr(), board_g.data_ptr())
+    if bounds is None:
+        skips = None
+        err = launch(*head, *tail, out_v.data_ptr(), out_g.data_ptr(),
+                     stream)
+    else:
+        bnd = bounds.contiguous()
+        skips = torch.empty(n_ranges * n_groups, dtype=torch.int32,
+                            device=dev)
+        err = launch_pruned(*head, bnd.data_ptr(), *tail, skips.data_ptr(),
+                            out_v.data_ptr(), out_g.data_ptr(), stream)
+    _build.check(err, "bm25_resident_score_topk"
+                 + ("" if bounds is None else "_pruned"))
+    return out_v, out_g, skips
+
+
+def _ctas(dev) -> int:
+    """Scoring CTAs a launch: ``_CTAS``, or one a streaming multiprocessor
+    (the kernel holds one CTA an SM)."""
+    if _CTAS is not None:
+        return _CTAS
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def bm25_resident_score_topk(desc, weights, doc_ids_res, scores_res, *,
@@ -197,25 +262,12 @@ def bm25_resident_score_topk(desc, weights, doc_ids_res, scores_res, *,
             k=k, n_docs=n_docs)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    nf = desc.shape[1]
-    b = weights.shape[1]
-    lib = _build.load("bm25_resident")
-    launch, _ = _fns(lib)
-    bt, _, n_boards, per_cta = _tiling(lib, nf, b, block_size, k)
-    desc_c, w_c = desc.contiguous(), weights.contiguous()
-    doc_c, sc_c = doc_ids_res.contiguous(), scores_res.contiguous()
-    board_v = torch.empty((n_boards, k, b), dtype=torch.float32, device=dev)
-    board_g = torch.empty((n_boards, k, b), dtype=torch.int32, device=dev)
-    out_v = torch.empty((k, b), dtype=torch.float32, device=dev)
-    out_g = torch.empty((k, b), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(desc_c.data_ptr(), nf, w_c.data_ptr(), b,
-                     doc_c.data_ptr(), sc_c.data_ptr(), block_size, k,
-                     n_docs, n_boards, per_cta, bt, board_v.data_ptr(),
-                     board_g.data_ptr(), out_v.data_ptr(), out_g.data_ptr(),
-                     stream)
-    _build.check(err, "bm25_resident_score_topk")
+        out_v, out_g, _ = _launch_resident(
+            _build.load("bm25_resident"), desc, weights, None, doc_ids_res,
+            scores_res, block_size=block_size, k=k, n_docs=n_docs,
+            n_ctas=_ctas(dev), stream=stream)
     LAUNCHES.add()
     return out_v, out_g
 
@@ -282,14 +334,15 @@ def bm25_resident_score_topk_pruned(desc, weights, bounds, doc_ids_res,
     bound per query (slack-inflated; -inf in padding columns), with a row
     for every block the table names; a span reads its block's row. The
     board equals K1's on the same table in every column whose bounds are
-    finite: a span is skipped only when no column of a B-tile can still
-    reach that tile's running board. Returns ``(values [k, B], ids [k, B],
-    skipped)``: ``skipped`` is a 0-d int64 tensor, the real fragments
-    skipped, averaged over the B-tiles of up to 32 columns that the kernel
-    decides apart (the twin decides over the whole B). With one B-tile and
-    one CTA (``_CTAS`` = 1) the kernel walks the table in order, as the
-    twin does, and the counts are equal. A CPU tensor runs the twin; a CUDA
-    tensor launches the kernels (and raises if it cannot).
+    finite: a span is skipped only when no column of a CTA's group of 64
+    columns can still reach that CTA's running board. Returns ``(values
+    [k, B], ids [k, B], skipped)``: ``skipped`` is a 0-d int64 tensor, the
+    real fragments skipped, averaged over the column groups of 64 that the
+    kernel decides apart (the twin decides over the whole B). With one
+    column group (B ≤ 64) and one CTA (``_CTAS`` = 1) the kernel walks the
+    table in order, as the twin does, and the counts are equal. A CPU
+    tensor runs the twin; a CUDA tensor launches the kernels (and raises
+    if it cannot).
     """
     _check_operands(desc, weights, doc_ids_res, scores_res, block_size, k)
     nf = desc.shape[1]
@@ -315,28 +368,14 @@ def bm25_resident_score_topk_pruned(desc, weights, bounds, doc_ids_res,
             block_size=block_size, k=k, n_docs=n_docs)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = _build.load("bm25_resident")
-    _, launch = _fns(lib)
-    bt, n_tiles, n_boards, per_cta = _tiling(lib, nf, b, block_size, k)
-    desc_c, w_c, bnd_c = desc.contiguous(), weights.contiguous(), \
-        bounds.contiguous()
-    doc_c, sc_c = doc_ids_res.contiguous(), scores_res.contiguous()
-    board_v = torch.empty((n_boards, k, b), dtype=torch.float32, device=dev)
-    board_g = torch.empty((n_boards, k, b), dtype=torch.int32, device=dev)
-    skips = torch.empty(n_boards * n_tiles, dtype=torch.int32, device=dev)
-    out_v = torch.empty((k, b), dtype=torch.float32, device=dev)
-    out_g = torch.empty((k, b), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(desc_c.data_ptr(), nf, w_c.data_ptr(), b,
-                     bnd_c.data_ptr(), doc_c.data_ptr(), sc_c.data_ptr(),
-                     block_size, k, n_docs, n_boards, per_cta, bt,
-                     board_v.data_ptr(), board_g.data_ptr(),
-                     skips.data_ptr(), out_v.data_ptr(), out_g.data_ptr(),
-                     stream)
-    _build.check(err, "bm25_resident_score_topk_pruned")
+        out_v, out_g, skips = _launch_resident(
+            _build.load("bm25_resident"), desc, weights, bounds, doc_ids_res,
+            scores_res, block_size=block_size, k=k, n_docs=n_docs,
+            n_ctas=_ctas(dev), stream=stream)
     LAUNCHES_PRUNED.add()
-    return out_v, out_g, skips.sum(dtype=torch.int64) // n_tiles
+    return out_v, out_g, skips.sum(dtype=torch.int64) // -(-b // _GROUP)
 
 
 # -- K4: host-gathered candidate chunks ---------------------------------------

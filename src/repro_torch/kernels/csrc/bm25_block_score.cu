@@ -75,7 +75,8 @@
 //   posting's rank among its warp's lanes of the same owner, one scan of
 //   the integer counts gives each owner its postings, in posting order,
 //   as one contiguous list. Six barriers a round of 2,048 postings,
-//   against three every 256 postings before.
+//   against three every 256 postings before. The partition and the walk
+//   below are owner_round.cuh, shared with K1/K3.
 // * Each warp adds its own list in order, 4 postings at a time with their
 //   loads issued together (a row met twice in a group takes the sum so
 //   far): one writer an element, in posting order, with __fmul_rn then
@@ -92,6 +93,7 @@
 //   coalesced store per row and half.
 
 #include "block_scatter.cuh"
+#include "owner_round.cuh"
 #include "select_topk.cuh"
 
 namespace {
@@ -157,23 +159,20 @@ __global__ void __launch_bounds__(kThreads) block_score_topk_kernel(
 
 // -- K6 ------------------------------------------------------------------
 
-constexpr int kDenseThreads = 512;
-constexpr int kDenseWarps = kDenseThreads / 32;  // row owners: row % 16
-constexpr int kDenseCols = 64;     // query columns a CTA, two a lane
-constexpr int kDenseStage = 2048;  // postings staged a round
-constexpr int kDensePer = kDenseStage / kDenseThreads;  // a thread's share
-constexpr int kDenseRuns = 128;    // runs (weight rows) staged a round
-constexpr int kDenseCounts = kDenseWarps * kDensePer * kDenseWarps;
-constexpr int kDenseGroup = 4;     // postings a warp adds together
+constexpr int kDenseThreads = bm25::kRoundThreads;
+constexpr int kDenseWarps = bm25::kRoundWarps;   // row owners: row % 16
+constexpr int kDenseCols = bm25::kRoundCols;     // query columns a CTA
+constexpr int kDenseStage = bm25::kRoundStage;   // postings staged a round
+constexpr int kDensePer = bm25::kRoundPer;       // a thread's share
+constexpr int kDenseRuns = bm25::kRoundRuns;     // runs staged a round
+constexpr int kDenseCounts = bm25::kRoundCounts;
 constexpr int kDenseTable = 2048;  // table rows searched a piece
-static_assert(kDenseCounts == 2 * kDenseThreads,
-              "the owner scan takes two counts a thread");
 static_assert(2 * kDenseTable <= 4 * kDenseStage,
               "a piece's search scratch (2 ints a row) fits the stage");
 static_assert((kDenseRuns & (kDenseRuns - 1)) == 0
                   && kDenseRuns * kDenseCols % kDenseThreads == 0,
               "the run search steps by powers of two; whole weight rounds");
-constexpr unsigned kFull = 0xffffffffu;
+using bm25::cta_scan;
 
 // First index in [0, n) whose value is >= t (or > t with kUpper), over an
 // ascending array.
@@ -200,31 +199,6 @@ __device__ __forceinline__ int search_sampled(const int* __restrict__ tb,
   return a + search<kUpper>(tb + a, b - a, t);
 }
 
-// CTA-wide exclusive scan of one 64-bit value a thread; `total` gets the
-// sum. s_tmp holds kDenseWarps values and is free again after return.
-__device__ __forceinline__ unsigned long long cta_scan(
-    unsigned long long v, unsigned long long* s_tmp,
-    unsigned long long& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned long long incl = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned long long y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += y;
-  }
-  if (lane == 31) s_tmp[warp] = incl;
-  __syncthreads();
-  unsigned long long before = 0;
-  total = 0;
-#pragma unroll
-  for (int w = 0; w < kDenseWarps; ++w) {
-    if (w < warp) before += s_tmp[w];
-    total += s_tmp[w];
-  }
-  __syncthreads();
-  return before + incl - v;
-}
-
 __global__ void __launch_bounds__(kDenseThreads, 1) dense_score_kernel(
     const int* __restrict__ tok, const int* __restrict__ loc,
     const float* __restrict__ sc, int p_pad, const int* __restrict__ uniq,
@@ -245,7 +219,6 @@ __global__ void __launch_bounds__(kDenseThreads, 1) dense_score_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const unsigned lt = (1u << lane) - 1u;
   const long long blk = blockIdx.y;
   const int col0 = blockIdx.x * kDenseCols;
   const int* tb = tok + blk * p_pad;
@@ -286,8 +259,6 @@ __global__ void __launch_bounds__(kDenseThreads, 1) dense_score_kernel(
   const int n_samp = (n_real + stride - 1) / stride;
   const int n_pieces =
       sorted ? max(1, (n_uniq + kDenseTable - 1) / kDenseTable) : 1;
-  const float2* wst2 = reinterpret_cast<const float2*>(wst);
-  float2* acc2 = reinterpret_cast<float2*>(acc);
   const int col = col0 + 2 * lane;                  // my two columns
   for (int piece = 0; piece < n_pieces; ++piece) {
     const int u0 = piece * kDenseTable;
@@ -389,7 +360,6 @@ __global__ void __launch_bounds__(kDenseThreads, 1) dense_score_kernel(
         }
       }
       int4 ent[kDensePer];
-      int own[kDensePer], rank[kDensePer];
 #pragma unroll
       for (int j = 0; j < kDensePer; ++j)
         ent[j] = pos[j] >= 0
@@ -400,83 +370,8 @@ __global__ void __launch_bounds__(kDenseThreads, 1) dense_score_kernel(
 #pragma unroll
         for (int j = 0; j < kW; ++j) wst[tid + j * kDenseThreads] = wreg[j];
       }
-#pragma unroll
-      for (int j = 0; j < kDensePer; ++j)
-        own[j] = static_cast<unsigned>(ent[j].x)
-                         < static_cast<unsigned>(block_size)
-                     ? (ent[j].x & (kDenseWarps - 1)) : -1;
-      // stable partition by owner warp: a posting's rank among its warp's
-      // lanes of the same owner, and that group's size at counts[(owner, j,
-      // warp)]; the counts in that order, scanned once, give each owner its
-      // postings in posting order (integer counts: no order is lost)
-#pragma unroll
-      for (int j = 0; j < kDensePer; ++j) {
-        const unsigned mm = __match_any_sync(kFull, own[j]);
-        rank[j] = __popc(mm & lt);
-        if (own[j] >= 0 && rank[j] == 0)
-          counts[(own[j] * kDensePer + j) * kDenseWarps + warp] = __popc(mm);
-      }
-      __syncthreads();
-      const int c0 = counts[2 * tid], c1 = counts[2 * tid + 1];
-      unsigned long long n_staged;
-      const int off = static_cast<int>(cta_scan(c0 + c1, s_scan, n_staged));
-      counts[2 * tid] = off;
-      counts[2 * tid + 1] = off + c0;
-      if (lane == 0) s_seg[warp] = off;   // owner `warp`'s first entry
-      if (tid == 0) s_seg[kDenseWarps] = static_cast<int>(n_staged);
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < kDensePer; ++j) {
-        if (own[j] >= 0)
-          stage[counts[(own[j] * kDensePer + j) * kDenseWarps + warp]
-                + rank[j]] = ent[j];
-      }
-      __syncthreads();
-
-      // my rows' postings, in posting order, kDenseGroup at a time: their
-      // loads issued together, a row met twice in a group taken in order
-      int cur = -1;                                   // weights held for
-      float2 wc = make_float2(0.f, 0.f);
-      for (int i = tid; i < kDenseCounts; i += kDenseThreads) counts[i] = 0;
-      const int end = s_seg[warp + 1];        // counts is free: s_seg holds
-      for (int k = s_seg[warp]; k < end; k += kDenseGroup) {
-        int4 e[kDenseGroup];
-        float2 wv[kDenseGroup], av[kDenseGroup];
-#pragma unroll
-        for (int g = 0; g < kDenseGroup; ++g)
-          e[g] = k + g < end ? stage[k + g] : make_int4(-1, 0, 0, 0);
-#pragma unroll
-        for (int g = 0; g < kDenseGroup; ++g) {
-          // a pad past the list (row -1) loads no weights: a stale slot
-          // there would read w[-n_cols] on the any-order path
-          if (e[g].x >= 0 && e[g].z != cur) {
-            cur = e[g].z;
-            if (sorted) {
-              wc = wst2[cur * (kDenseCols / 2) + lane];
-            } else {
-              const float* wr = w + static_cast<size_t>(cur) * n_cols;
-              wc.x = col < n_cols ? wr[col] : 0.f;
-              wc.y = col + 1 < n_cols ? wr[col + 1] : 0.f;
-            }
-          }
-          wv[g] = wc;
-          av[g] = e[g].x >= 0 ? acc2[e[g].x * (kDenseCols / 2) + lane]
-                              : make_float2(0.f, 0.f);
-        }
-#pragma unroll
-        for (int g = 0; g < kDenseGroup; ++g) {
-#pragma unroll
-          for (int h = 0; h < g; ++h)
-            if (e[h].x == e[g].x) av[g] = av[h];      // the sum so far
-          const float s = __int_as_float(e[g].y);
-          av[g].x = __fadd_rn(av[g].x, __fmul_rn(s, wv[g].x));
-          av[g].y = __fadd_rn(av[g].y, __fmul_rn(s, wv[g].y));
-        }
-#pragma unroll
-        for (int g = 0; g < kDenseGroup; ++g)
-          if (e[g].x >= 0) acc2[e[g].x * (kDenseCols / 2) + lane] = av[g];
-      }
-      __syncthreads();                 // stage, wst and counts are free
+      bm25::owner_round(ent, block_size, sorted, wst, w, n_cols, col, acc,
+                        stage, counts, s_scan, s_seg);
       m0 = m1;
       if (sorted && m0 < n_matched) {                 // the run holding m0
         int lo = r0, hi = n_runs - 1;

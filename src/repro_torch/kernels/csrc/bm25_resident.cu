@@ -11,8 +11,9 @@
 //
 // What it computes. `desc` is the [6, nf] fragment table of
 // repro_torch.sparse.block_csr.fragment_plan (rows start, valid, uniq,
-// block, first, last); a block's fragments are contiguous (a span). For
-// every span, in table order:
+// block, first, last); a block's fragments are contiguous (a span), and a
+// fragment's postings are one CSC run, so their documents are distinct.
+// For every span, in table order:
 //   acc[d, b] += fl(score[start + j] * w[uniq, b]) for each posting j <
 //               valid of each fragment, d = doc[start + j] - block * bs;
 //   rows whose doc id is >= n_docs are padding (-FLT_MAX, id -1);
@@ -20,97 +21,190 @@
 // over all visited blocks, in (score desc, id asc) order, id -1 wherever
 // the score is the padding value. K3 takes one more operand, the [nb, B]
 // per-block upper bounds (already slack-inflated), and skips a span when
-// no column of the CTA's B-tile can still reach its board: the board is
-// the same as K1's in every column whose bounds are finite, and K3 also
-// reports how many real fragments it skipped.
+// no column of the CTA's column group can still reach its board: the
+// board is the same as K1's in every column whose bounds are finite, and
+// K3 also reports how many real fragments it skipped.
 //
 // Bound on the H100: each gathered posting is read once (8 bytes against
 // 3.35 TB/s) and costs one FP32 multiply and one add per query column
-// (2 operations against 67 TFLOP/s); at B = 256 the adds dominate. K3
-// also reads one bound row per span, at its first fragment (4 bytes a
-// column; the span's block), and every span it skips removes that span's
-// postings from the work. The fragment walk is latency-bound in this
-// first version: one barrier per fragment, and fragments of Zipf tails
-// hold few postings.
+// (2 operations against 67 TFLOP/s); at B = 256 the operations dominate
+// (0.671 ms at phase 5's 87.8 M postings). K3 also reads one bound row per
+// span, and every span it skips removes that span's postings from the
+// work. In practice the limit is the shared-memory read-modify-write of
+// the accumulator, as in K6, which adds the same (posting, column)
+// products.
 //
-// Design:
-// * The TPU grid walks the fragment table in order with one [block, B]
-//   VMEM accumulator. Here CTAs run in parallel: grid = (B-tile, G). CTA g
-//   owns the spans whose first fragment lies in its slice of the table
-//   [g * F, (g + 1) * F); it finds its first span leader with one
-//   block-wide search and walks each span's fragments in table order, so
-//   no prologue pass is needed. A span that runs past the slice is
-//   finished by the CTA that started it.
-// * The [block_size, B] accumulator does not fit a CTA's shared memory
-//   (512 KB at 512 x 256), so B is split into tiles of bt <= 32 columns;
-//   rows are padded to bt + 1 words so a warp reading one column of 32
-//   rows touches 32 distinct shared-memory banks.
-// * Postings of one fragment belong to one CSC run, so their doc ids are
-//   distinct: threads over (posting, column) pairs add without conflicts,
-//   and a barrier between fragments keeps the per-element order equal to
-//   table order. No atomics; __fmul_rn / __fadd_rn keep nvcc from fusing
-//   the update into an FMA, so the plain torch twin matches bit for bit.
-// * At a span's end each warp folds one column: k rounds that pick the
-//   better of the accumulator's best untaken row and the head of the CTA's
-//   sorted board (kept in the CTA's slice of the [G, k, B] output). The
-//   cross-CTA merge that the TPU does inside its sequential grid is the
-//   second kernel, board_merge.cuh: a warp per column merges the G sorted
-//   boards.
-// * K3's skip is decided once per span, at its first fragment, against the
-//   CTA's OWN running board: skip iff bound[block(f), c] < board[k-1, c]
-//   for every column c of the tile. That board holds k real documents with full
-//   scores (or the float minimum), so its row k-1 is a certified lower
-//   bound on the final k-th score, and a span that cannot beat it cannot
-//   change the merged board. A span is never switched from scoring to
-//   skipping part way (a partly scored block would fold a wrong score), so
-//   a threshold from another CTA is not consulted (that needs a global
-//   threshold, later work). A skipped span adds and folds nothing. Each
-//   CTA writes its count of skipped real fragments to its own slot (no
-//   atomics); the wrapper sums them.
+// What the first version lost, 263.5 ms at phase 5's shapes: a
+// CTA held 32 columns, so each of 8 column tiles re-read every posting and
+// descriptor; every fragment (about 48 postings at full width) cost a
+// barrier and three dependent global trips (flag, descriptor, postings);
+// each span's fold took k rounds a column, each a scan of the whole
+// column, a butterfly and a dependent read of the board's head; and the
+// table was cut into slices by fragment count, padding included.
+//
+// Design, one CTA of 16 warps a (column group of 64, range of spans), two
+// columns a lane, the [block_size, 64] f32 accumulator in shared memory
+// (128 KB at block 512, one CTA an SM), K6's schedule on the fragment
+// table:
+// * The grid is persistent: G ranges a column group, about one CTA an SM.
+//   The wrapper cuts the table into G ranges of whole spans balanced by
+//   posting count, on the card (a cumulative sum of `valid`, a search and
+//   the next span leader), so no range splits a span and pads take none.
+// * A span is walked in windows of up to 2,048 fragments: one load of
+//   their descriptors (all in flight), a CTA minimum for the span's last
+//   fragment, and one scan of `valid` that lays the window's real
+//   fragments out as runs (start, weight row, first posting). No barrier a
+//   fragment.
+// * Rounds of up to 2,048 postings and 128 runs load every posting, its
+//   run's weights (staged in shared memory) and its row at once, then
+//   owner_round.cuh (shared with K6) partitions them stably by owner warp
+//   (row % 16) and each warp adds its list in table order: one writer an
+//   element, in table order, __fmul_rn then __fadd_rn, no atomics, so the
+//   sums are the twin's bit for bit.
+// * The fold takes K5's threshold in place of k rounds. Each CTA keeps its
+//   running board in device memory ([G, B, k], a column's k rows
+//   contiguous) and the board's row k - 1 of each column in shared memory.
+//   After a span each warp marks, for its two columns, which of its 32
+//   rows rank before that row (one conflict-free pass); then each warp
+//   takes 4 columns and merges only the marked rows, 32 at a time, into
+//   the sorted board by rank: a board entry moves down by the candidates
+//   ahead of it, a candidate lands at the count of the entries and
+//   candidates ahead of it (ballots, no sort), the board rewritten in
+//   place from its last rows up. Once the board is full a span costs one
+//   pass over its rows and a few merges, not k rounds a column. The
+//   boards of the G CTAs are merged by board_merge.cuh, as before.
+// * K3's skip is decided once per span, at its first fragment, against
+//   the CTA's OWN running board: skip iff bound[block(f), c] < board[k-1,
+//   c] for every column c of the group. That board holds k real documents
+//   with full scores (or the float minimum), so its row k-1 is a certified
+//   lower bound on the final k-th score, and a span that cannot beat it
+//   cannot change the merged board. A span is never switched from scoring
+//   to skipping part way (a partly scored block would fold a wrong score),
+//   so a threshold from another CTA is not consulted. A skipped span adds
+//   and folds nothing; each CTA writes its count of skipped real fragments
+//   to its own slot (no atomics), and the wrapper sums them. Padding
+//   columns (-inf bounds) never keep a span alive.
 #include "board_merge.cuh"
+#include "owner_round.cuh"
 #include "select_topk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kInFlight = 4;  // (posting, column) loads a thread keeps open
+constexpr int kThreads = bm25::kRoundThreads;
+constexpr int kWarps = bm25::kRoundWarps;
+constexpr int kCols = bm25::kRoundCols;
+constexpr int kStage = bm25::kRoundStage;
+constexpr int kPer = bm25::kRoundPer;
+constexpr int kRuns = bm25::kRoundRuns;
+constexpr int kCounts = bm25::kRoundCounts;
+constexpr int kWindow = 2048;                // fragments a window
+constexpr int kWinPer = kWindow / kThreads;  // a thread's share
+constexpr int kMaxBlock = 32 * kWarps;       // a warp's rows in one mask
+constexpr int kWarpCols = kCols / kWarps;    // columns a warp merges
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kWarps * kCols * 4 <= kStage * 16,
+              "the fold's row masks fit the stage");
 
-// Last fragment of the span that starts at f: the first g >= f whose
-// `last` flag is set (or the table's end). Every thread of the CTA calls it
-// and gets the same answer.
-__device__ int span_end(const int* __restrict__ d_last, int f, int nf_pad,
-                        int* s_end) {
-  for (int lo = f;; lo += kThreads) {
-    if (threadIdx.x == 0) *s_end = INT_MAX;
-    __syncthreads();
-    const int g = lo + static_cast<int>(threadIdx.x);
-    if (g < nf_pad && (d_last[g] || g + 1 >= nf_pad)) atomicMin(s_end, g);
-    __syncthreads();
-    const int e = *s_end;
-    __syncthreads();
-    if (e != INT_MAX) return e;
+// Position of the n-th (from 0) set bit of m; n < popc(m).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int lo = __popc(m & ((1u << s) - 1u));
+    if (n >= lo) {
+      n -= lo;
+      m >>= s;
+      pos += s;
+    }
   }
+  return pos;
+}
+
+// Merge the lanes' candidates (v, g), where `valid`, into the sorted
+// column (col_v, col_g)[0, k) of a board, in place; *thr_v / *thr_g take
+// its new row k - 1. Candidates are distinct from each other and from the
+// board's real entries. The whole warp calls it.
+__device__ __forceinline__ void merge_column(float* col_v, int* col_g,
+                                             int k, bool valid, float v,
+                                             int g, float* thr_v, int* thr_g,
+                                             int lane) {
+  const unsigned bal = __ballot_sync(kFull, valid);
+  if (bal == 0) return;
+  __syncwarp();
+  // board entries, from the last 32 up: entry i moves to i + (candidates
+  // ahead of it) >= i, into rows already read
+  int ahead_b = 0;  // board entries ahead of my candidate
+  for (int j = (k - 1) >> 5; j >= 0; --j) {
+    const int i = (j << 5) + lane;
+    const bool has = i < k;
+    const float bv = has ? col_v[i] : 0.f;
+    const int bg = has ? col_g[i] : 0;
+    int pos = i;
+    for (unsigned rest = bal; rest; rest &= rest - 1) {
+      const int t = __ffs(rest) - 1;
+      const float tv = __shfl_sync(kFull, v, t);
+      const int tg = __shfl_sync(kFull, g, t);
+      pos += has && bm25::rank_before(tv, tg, bv, bg);
+      const unsigned m = __ballot_sync(
+          kFull, has && bm25::rank_before(bv, bg, tv, tg));
+      if (lane == t) ahead_b += __popc(m);
+    }
+    if (has && pos < k) {
+      col_v[pos] = bv;
+      col_g[pos] = bg;
+      if (pos == k - 1) {
+        *thr_v = bv;
+        *thr_g = bg;
+      }
+    }
+  }
+  int ahead_c = 0;  // candidates ahead of mine
+  for (unsigned rest = bal; rest; rest &= rest - 1) {
+    const int t = __ffs(rest) - 1;
+    const float tv = __shfl_sync(kFull, v, t);
+    const int tg = __shfl_sync(kFull, g, t);
+    ahead_c += valid && bm25::rank_before(tv, tg, v, g);
+  }
+  __syncwarp();  // every board row is read before a candidate lands
+  const int pos = ahead_b + ahead_c;
+  if (valid && pos < k) {
+    col_v[pos] = v;
+    col_g[pos] = g;
+    if (pos == k - 1) {
+      *thr_v = v;
+      *thr_g = g;
+    }
+  }
+  __syncwarp();
 }
 
 // kPruned = false: K1. kPruned = true: K3 (reads `bounds` [nb, n_cols],
 // writes its skipped-fragment count to skips[blockIdx.y * gridDim.x +
-// blockIdx.x]).
+// blockIdx.x]). CTA (x, y) takes columns [64 x, 64 x + 64) and the spans
+// whose leaders lie in [ranges[y], ranges[y + 1]); each range boundary is
+// a span leader or nf_pad.
 template <bool kPruned>
-__global__ void __launch_bounds__(kThreads) resident_topk_kernel(
-    const int* __restrict__ desc, int nf_pad, const float* __restrict__ w,
-    int n_cols, const int* __restrict__ doc_res,
-    const float* __restrict__ sc_res, int block_size, int k,
-    long long n_docs, int frags_per_cta, int bt,
+__global__ void __launch_bounds__(kThreads, 1) resident_topk_kernel(
+    const int* __restrict__ desc, int nf_pad, const int* __restrict__ ranges,
+    const float* __restrict__ w, int n_cols,
+    const int* __restrict__ doc_res, const float* __restrict__ sc_res,
+    int block_size, int k, long long n_docs,
     const float* __restrict__ bounds, float* __restrict__ board_v,
     int* __restrict__ board_g, int* __restrict__ skips) {
-  extern __shared__ unsigned char smem_raw[];
-  const int ld = bt + 1;  // acc row stride: a column's rows in distinct banks
-  float* acc = reinterpret_cast<float*>(smem_raw);  // [block_size * ld]
-  float* st_v = acc + static_cast<size_t>(block_size) * ld;  // [k * bt]
-  int* st_g = reinterpret_cast<int*>(st_v + static_cast<size_t>(k) * bt);
-  __shared__ int s_lead;
-  __shared__ int s_end;
-  __shared__ int s_warp_skips[kThreads / 32];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* acc = reinterpret_cast<float*>(smem_raw);  // [block_size][64]
+  int4* stage = reinterpret_cast<int4*>(
+      acc + static_cast<size_t>(block_size) * kCols);  // [kStage]
+  float* wst = reinterpret_cast<float*>(stage + kStage);  // [kRuns][64]
+  int* counts = reinterpret_cast<int*>(wst + kRuns * kCols);
+  int* run_u = counts + kCounts;                    // [kWindow]
+  int* run_lo = run_u + kWindow;                    // [kWindow]
+  int* run_off = run_lo + kWindow;                  // [kWindow + 1]
+  float* thr_v = reinterpret_cast<float*>(run_off + kWindow + 1);  // [64]
+  int* thr_g = reinterpret_cast<int*>(thr_v + kCols);              // [64]
+  __shared__ unsigned long long s_scan[kWarps];
+  __shared__ int s_seg[kWarps + 1];
+  __shared__ unsigned s_min[kWarps];
 
   const int* d_start = desc;
   const int* d_valid = desc + nf_pad;
@@ -122,150 +216,234 @@ __global__ void __launch_bounds__(kThreads) resident_topk_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int col0 = blockIdx.x * bt;
-  float* my_v = board_v + static_cast<size_t>(blockIdx.y) * k * n_cols;
-  int* my_g = board_g + static_cast<size_t>(blockIdx.y) * k * n_cols;
+  const int col0 = blockIdx.x * kCols;
+  const int col = col0 + 2 * lane;                  // my two columns
+  // this CTA's board: column c's k rows at my_v[c * k]
+  float* my_v = board_v + (static_cast<size_t>(blockIdx.y) * n_cols + col0)
+                              * k;
+  int* my_g = board_g + (static_cast<size_t>(blockIdx.y) * n_cols + col0)
+                            * k;
+  const int n_mine = min(kCols, n_cols - col0);     // columns of the group
 
-  for (int i = tid; i < k * bt; i += kThreads) {
-    const int gcol = col0 + i % bt;
-    if (gcol < n_cols) {
-      my_v[static_cast<size_t>(i / bt) * n_cols + gcol] = -FLT_MAX;
-      my_g[static_cast<size_t>(i / bt) * n_cols + gcol] = -1;
-    }
+  float4* acc4 = reinterpret_cast<float4*>(acc);
+  const float2* acc2 = reinterpret_cast<const float2*>(acc);
+  for (int i = tid; i < block_size * (kCols / 4); i += kThreads)
+    acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < kCounts; i += kThreads) counts[i] = 0;
+  for (int i = tid; i < n_mine * k; i += kThreads) {
+    my_v[i] = -FLT_MAX;
+    my_g[i] = -1;
   }
-
-  const long long f0 = static_cast<long long>(blockIdx.y) * frags_per_cta;
-  const int f1 = static_cast<int>(
-      f0 + frags_per_cta < nf_pad ? f0 + frags_per_cta : nf_pad);
-  if (tid == 0) s_lead = f1;
-  __syncthreads();
-  for (long long f = f0 + tid; f < f1; f += kThreads) {
-    if (d_first[f]) {
-      atomicMin(&s_lead, static_cast<int>(f));
-      break;
-    }
+  if (tid < kCols) {
+    thr_v[tid] = -FLT_MAX;
+    thr_g[tid] = -1;
   }
   __syncthreads();
 
   int n_skipped = 0;  // real fragments of skipped spans this thread counted
-  int f = s_lead;
-  while (f < f1) {
+  const int f_end = ranges[blockIdx.y + 1];
+  for (int f = ranges[blockIdx.y]; f < f_end;) {     // f leads a span
+    const long long blk = d_blk[f];
+    const long long base = blk * block_size;
+    bool dead = false;
     if constexpr (kPruned) {
       // decide the whole span now, against this CTA's own board
-      const float* brow = bounds + static_cast<size_t>(d_blk[f]) * n_cols;
-      int dead = 1;
-      for (int c = tid; c < bt; c += kThreads) {
-        const int gcol = col0 + c;
-        if (gcol < n_cols
-            && !(brow[gcol] < my_v[static_cast<size_t>(k - 1) * n_cols
-                                   + gcol])) {
-          dead = 0;
-        }
-      }
-      if (__syncthreads_and(dead)) {
-        const int e = span_end(d_last, f, nf_pad, &s_end);
-        for (int g = f + tid; g <= e; g += kThreads) {
-          n_skipped += d_valid[g] > 0;
-        }
-        f = e + 1;
-        if (f >= f1 || !d_first[f]) break;  // next span is another CTA's
-        continue;
-      }
+      const bool alive =
+          tid < n_mine
+          && !(bounds[blk * n_cols + col0 + tid] < thr_v[tid]);
+      dead = !__syncthreads_or(alive);
     }
-    for (int i = tid; i < block_size * ld; i += kThreads) acc[i] = 0.f;
-    const long long base = static_cast<long long>(d_blk[f]) * block_size;
-    __syncthreads();
-    for (;;) {  // the span's fragments, in table order
-      const int start = d_start[f];
-      const int n = d_valid[f] * bt;
-      const size_t wrow = static_cast<size_t>(d_uniq[f]) * n_cols;
-      // a fragment's docs are distinct, so each element is added at most
-      // once here: a thread issues all its loads (kInFlight (posting,
-      // column) pairs) before its adds
-      for (int i0 = tid; i0 < n; i0 += kInFlight * kThreads) {
-        int slot[kInFlight];
-        float sv[kInFlight], wv[kInFlight];
+    int last = f;                                   // the span's last
+    for (int fw = f;; fw += kWindow) {    // windows of the span's fragments
+      const int g0 = fw + kWinPer * tid;            // mine: g0 + j
+      int val[kWinPer], st[kWinPer], un[kWinPer];
+      unsigned my_e = INT_MAX;
 #pragma unroll
-        for (int u = 0; u < kInFlight; ++u) {
-          const int i = i0 + u * kThreads;
-          slot[u] = -1;
-          if (i < n && col0 + i % bt < n_cols) {
-            const int j = start + i / bt;
-            const long long row = doc_res[j] - base;
-            if (row >= 0 && row < block_size) {
-              slot[u] = static_cast<int>(row) * ld + i % bt;
-              sv[u] = sc_res[j];
-              wv[u] = w[wrow + col0 + i % bt];
+      for (int j = 0; j < kWinPer; ++j) {
+        const int g = g0 + j;
+        const bool in = g < f_end;
+        val[j] = in ? d_valid[g] : 0;
+        st[j] = in ? d_start[g] : 0;
+        un[j] = in ? d_uniq[g] : 0;
+        if ((!in || d_last[g] || g + 1 == f_end)
+            && static_cast<unsigned>(g) < my_e)
+          my_e = g;
+      }
+      my_e = __reduce_min_sync(kFull, my_e);
+      if (lane == 0) s_min[warp] = my_e;
+      __syncthreads();
+      unsigned e = s_min[0];
+#pragma unroll
+      for (int i = 1; i < kWarps; ++i) e = min(e, s_min[i]);
+      const int w_end = static_cast<int>(
+          min(e, static_cast<unsigned>(fw + kWindow - 1)));
+      unsigned long long mine = 0;                  // runs << 32 | postings
+#pragma unroll
+      for (int j = 0; j < kWinPer; ++j)
+        if (g0 + j <= w_end && val[j] > 0) mine += (1ull << 32) + val[j];
+      if (dead) {
+        n_skipped += static_cast<int>(mine >> 32);
+        __syncthreads();                            // s_min is read
+      } else {
+        // the window's real fragments as runs, in table order
+        unsigned long long total;
+        const unsigned long long at = bm25::cta_scan(mine, s_scan, total);
+        const int n_runs = static_cast<int>(total >> 32);
+        const int n_matched = static_cast<int>(total & 0xffffffffu);
+        int r = static_cast<int>(at >> 32), m = static_cast<int>(at);
+#pragma unroll
+        for (int j = 0; j < kWinPer; ++j) {
+          if (g0 + j > w_end || val[j] <= 0) continue;
+          run_u[r] = un[j];
+          run_lo[r] = st[j];
+          run_off[r] = m;
+          m += val[j];
+          ++r;
+        }
+        if (tid == 0) run_off[n_runs] = n_matched;
+        __syncthreads();
+
+        // rounds of at most kStage postings and kRuns runs
+        int r0 = 0;                                 // run holding m0
+        for (int m0 = 0; m0 < n_matched;) {
+          const int r_end = min(r0 + kRuns, n_runs);
+          const int m1 = min(m0 + kStage, run_off[r_end]);
+          // this thread's postings m0 + tid + j * 512 and weights: every
+          // load of the round issued before the first one is used
+          constexpr int kW = kRuns * kCols / kThreads;
+          int pos[kPer], slot[kPer];
+          float wreg[kW];
+#pragma unroll
+          for (int j = 0; j < kW; ++j) {            // the runs' weight rows
+            const int i = tid + j * kThreads;
+            const int c = col0 + (i % kCols);
+            wreg[j] = r0 + i / kCols < r_end && c < n_cols
+                          ? w[static_cast<size_t>(run_u[r0 + i / kCols])
+                                  * n_cols + c]
+                          : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) {
+            const int mm = m0 + tid + j * kThreads;
+            int lo = r0;          // the last run starting <= mm, in a
+#pragma unroll                          // fixed number of steps
+            for (int step = kRuns / 2; step > 0; step >>= 1)
+              if (lo + step < r_end && run_off[lo + step] <= mm) lo += step;
+            pos[j] = mm < m1 ? run_lo[lo] + (mm - run_off[lo]) : -1;
+            slot[j] = lo - r0;
+          }
+          int4 ent[kPer];
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) {
+            if (pos[j] >= 0) {
+              const long long row = doc_res[pos[j]] - base;
+              ent[j] = make_int4(
+                  row >= 0 && row < block_size ? static_cast<int>(row) : -1,
+                  __float_as_int(sc_res[pos[j]]), slot[j], 0);
+            } else {
+              ent[j] = make_int4(-1, 0, slot[j], 0);
             }
           }
-        }
 #pragma unroll
-        for (int u = 0; u < kInFlight; ++u) {
-          if (slot[u] >= 0) {
-            acc[slot[u]] = __fadd_rn(acc[slot[u]], __fmul_rn(sv[u], wv[u]));
+          for (int j = 0; j < kW; ++j) wst[tid + j * kThreads] = wreg[j];
+          bm25::owner_round(ent, block_size, true, wst, w, n_cols, col, acc,
+                            stage, counts, s_scan, s_seg);
+          m0 = m1;
+          if (m0 < n_matched) {                     // the run holding m0
+            int lo = r0, hi = n_runs - 1;
+            while (lo < hi) {
+              const int mid = (lo + hi + 1) >> 1;
+              if (run_off[mid] <= m0) lo = mid; else hi = mid - 1;
+            }
+            r0 = lo;
           }
         }
       }
+      if (static_cast<int>(e) <= fw + kWindow - 1) {
+        last = static_cast<int>(e);
+        break;
+      }
+    }
+
+    if (!dead) {
+      // the fold, 1: a warp marks, for its lane's two columns, which of
+      // its rows (warp + 16 j) rank before the column's row k - 1; rows
+      // past n_docs are padding, which never does
+      unsigned* masks = reinterpret_cast<unsigned*>(stage);  // [16][64]
+      {
+        const int c = 2 * lane;
+        const float tv0 = thr_v[c], tv1 = thr_v[c + 1];
+        const int tg0 = thr_g[c], tg1 = thr_g[c + 1];
+        const bool live0 = c < n_mine, live1 = c + 1 < n_mine;
+        unsigned m0 = 0, m1 = 0;
+        for (int j = 0; j < 32; ++j) {
+          const int row = warp + (j << 4);
+          if (row >= block_size || base + row >= n_docs) break;  // uniform
+          const float2 a = acc2[row * (kCols / 2) + lane];
+          const int id = static_cast<int>(base + row);
+          if (live0 && bm25::rank_before(a.x, id, tv0, tg0)) m0 |= 1u << j;
+          if (live1 && bm25::rank_before(a.y, id, tv1, tg1)) m1 |= 1u << j;
+        }
+        masks[warp * kCols + c] = m0;
+        masks[warp * kCols + c + 1] = m1;
+      }
       __syncthreads();
-      if (d_last[f] || f + 1 >= nf_pad) break;
-      ++f;
-    }
-
-    // block padding past n_docs: the floor score and id -1
-    for (int i = tid; i < block_size * ld; i += kThreads) {
-      if (base + i / ld >= n_docs) acc[i] = -FLT_MAX;
-    }
-    __syncthreads();
-
-    // fold the span into this CTA's board, one column per warp
-    for (int cc = warp; cc < bt; cc += kThreads / 32) {
-      const int gcol = col0 + cc;
-      if (gcol >= n_cols) continue;  // warp-uniform
-      float* colp = acc + cc;
-      auto id_of = [base, n_docs](int row) {
-        return base + row < n_docs ? static_cast<int>(base + row) : -1;
-      };
-      int h = 0;  // head of the sorted board
-      for (int r = 0; r < k; ++r) {
-        float v;
-        int g, pos;
-        bm25::column_best(colp, ld, block_size, id_of, lane, v, g, pos);
-        const float hv = my_v[static_cast<size_t>(h) * n_cols + gcol];
-        const int hg = my_g[static_cast<size_t>(h) * n_cols + gcol];
-        if (bm25::rank_before(v, g, hv, hg)) {
-          bm25::column_take(colp, ld, pos, lane);
-        } else {
-          v = hv;
-          g = hg;
-          ++h;
+      // 2: warp w merges columns 4 w .. 4 w + 3, 32 marked rows at a time
+      for (int cc = 0; cc < kWarpCols; ++cc) {
+        const int c = warp * kWarpCols + cc;
+        if (c >= n_mine) break;                     // warp-uniform
+        const unsigned mk = lane < kWarps ? masks[lane * kCols + c] : 0u;
+        const int cnt = __popc(mk);
+        int incl = cnt;                             // marked rows of warps
+#pragma unroll                                      // 0 .. lane
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(kFull, incl, d);
+          if (lane >= d) incl += y;
         }
-        if (lane == 0) {
-          st_v[r * bt + cc] = v;
-          st_g[r * bt + cc] = v == -FLT_MAX ? -1 : g;
+        const int excl = incl - cnt;
+        const int total = __shfl_sync(kFull, incl, 31);
+        for (int t0 = 0; t0 < total; t0 += 32) {
+          const int t = t0 + lane;                  // my candidate
+          int o = 0;                // its warp: the last o with excl <= t
+#pragma unroll
+          for (int q = 1; q < kWarps; ++q)
+            if (__shfl_sync(kFull, excl, q) <= t) o = q;
+          const unsigned mo = __shfl_sync(kFull, mk, o);
+          const int eo = __shfl_sync(kFull, excl, o);
+          bool valid = t < total;
+          float v = 0.f;
+          int g = 0;
+          if (valid) {
+            const int row = o + (nth_set_bit(mo, t - eo) << 4);
+            v = acc[row * kCols + c];
+            g = static_cast<int>(base + row);
+            // an earlier merge may have raised the threshold past it
+            valid = bm25::rank_before(v, g, thr_v[c], thr_g[c]);
+          }
+          merge_column(my_v + static_cast<size_t>(c) * k,
+                       my_g + static_cast<size_t>(c) * k, k, valid, v, g,
+                       thr_v + c, thr_g + c, lane);
         }
-        __syncwarp();
       }
-      for (int r = lane; r < k; r += 32) {
-        my_v[static_cast<size_t>(r) * n_cols + gcol] = st_v[r * bt + cc];
-        my_g[static_cast<size_t>(r) * n_cols + gcol] = st_g[r * bt + cc];
-      }
-      __syncwarp();
+      __syncthreads();                              // acc is read
+      for (int i = tid; i < block_size * (kCols / 4); i += kThreads)
+        acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncthreads();
-    ++f;
-    if (f >= f1 || !d_first[f]) break;  // next span is another CTA's
+    f = last + 1;
+    if (f >= f_end || !d_first[f]) break;           // padding follows
   }
 
   if constexpr (kPruned) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      n_skipped += __shfl_xor_sync(0xffffffffu, n_skipped, off);
+      n_skipped += __shfl_xor_sync(kFull, n_skipped, off);
     }
-    if (lane == 0) s_warp_skips[warp] = n_skipped;
+    __syncthreads();                                // s_min is free
+    if (lane == 0) s_min[warp] = static_cast<unsigned>(n_skipped);
     __syncthreads();
     if (tid == 0) {
       int total = 0;
-      for (int i = 0; i < kThreads / 32; ++i) total += s_warp_skips[i];
+      for (int i = 0; i < kWarps; ++i) total += static_cast<int>(s_min[i]);
       skips[static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x] = total;
     }
   }
@@ -273,10 +451,21 @@ __global__ void __launch_bounds__(kThreads) resident_topk_kernel(
 
 }  // namespace
 
-// Dynamic shared memory of the scoring kernel, in bytes.
-extern "C" long long bm25_resident_topk_smem(int block_size, int k, int bt) {
-  return (static_cast<long long>(block_size) * (bt + 1)
-          + 2LL * static_cast<long long>(k) * bt) * 4;
+// Dynamic shared memory of the scoring kernel, in bytes (any k): the
+// accumulator, the staged postings, weights and owner counts, the
+// window's run table and the thresholds. 0 when block_size exceeds what
+// the fold's row masks cover.
+constexpr long long smem_bytes(int block_size) {
+  return static_cast<long long>(block_size) * kCols * 4 + kStage * 16LL
+         + kRuns * kCols * 4LL + kCounts * 4LL + (3LL * kWindow + 1) * 4
+         + 2LL * kCols * 4;
+}
+static_assert(smem_bytes(kMaxBlock) + 1024 <= 232448,
+              "the largest block fits a CTA beside the static shared memory");
+
+extern "C" long long bm25_resident_topk_smem(int block_size) {
+  return block_size < 1 || block_size > kMaxBlock ? 0
+                                                  : smem_bytes(block_size);
 }
 
 namespace {
@@ -284,62 +473,63 @@ namespace {
 // Launch the scoring kernel and the board merge on `stream`; returns the
 // CUDA error code (0 = ok).
 template <bool kPruned>
-int launch_resident(const void* desc, int nf_pad, const void* w, int n_cols,
+int launch_resident(const void* desc, int nf_pad, const void* ranges,
+                    int n_ranges, const void* w, int n_cols,
                     const void* bounds, const void* doc_res,
                     const void* sc_res, int block_size, int k,
-                    long long n_docs, int n_boards, int frags_per_cta,
-                    int bt, void* board_v, void* board_g, void* skips,
-                    void* out_v, void* out_g, void* stream) {
+                    long long n_docs, void* board_v, void* board_g,
+                    void* skips, void* out_v, void* out_g, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long smem = bm25_resident_topk_smem(block_size, k, bt);
+  const long long smem = bm25_resident_topk_smem(block_size);
+  if (smem == 0 || k < 1 || k > block_size || n_ranges < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       resident_topk_kernel<kPruned>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_cols + bt - 1) / bt, n_boards);
+  const dim3 grid((n_cols + kCols - 1) / kCols, n_ranges);
   resident_topk_kernel<kPruned>
       <<<grid, kThreads, static_cast<size_t>(smem), s>>>(
           static_cast<const int*>(desc), nf_pad,
-          static_cast<const float*>(w), n_cols,
-          static_cast<const int*>(doc_res),
+          static_cast<const int*>(ranges), static_cast<const float*>(w),
+          n_cols, static_cast<const int*>(doc_res),
           static_cast<const float*>(sc_res), block_size, k, n_docs,
-          frags_per_cta, bt, static_cast<const float*>(bounds),
-          static_cast<float*>(board_v), static_cast<int*>(board_g),
-          static_cast<int*>(skips));
+          static_cast<const float*>(bounds), static_cast<float*>(board_v),
+          static_cast<int*>(board_g), static_cast<int*>(skips));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(bm25::launch_board_merge(
       static_cast<const float*>(board_v), static_cast<const int*>(board_g),
-      n_boards, k, n_cols, static_cast<float*>(out_v),
-      static_cast<int*>(out_g), s));
+      n_ranges, k, n_cols, static_cast<float*>(out_v),
+      static_cast<int*>(out_g), s, /*col_major=*/true));
 }
 
 }  // namespace
 
-// K1. board_v / board_g are [n_boards, k, n_cols] scratch, out_* are
-// [k, n_cols].
+// K1. ranges is [n_ranges + 1] int32 (span leaders, then nf_pad);
+// board_v / board_g are [n_ranges, n_cols, k] scratch, out_* [k, n_cols].
 extern "C" int bm25_resident_topk_launch(
-    const void* desc, int nf_pad, const void* w, int n_cols,
-    const void* doc_res, const void* sc_res, int block_size, int k,
-    long long n_docs, int n_boards, int frags_per_cta, int bt,
-    void* board_v, void* board_g, void* out_v, void* out_g, void* stream) {
-  return launch_resident<false>(desc, nf_pad, w, n_cols, nullptr, doc_res,
-                                sc_res, block_size, k, n_docs, n_boards,
-                                frags_per_cta, bt, board_v, board_g, nullptr,
-                                out_v, out_g, stream);
+    const void* desc, int nf_pad, const void* ranges, int n_ranges,
+    const void* w, int n_cols, const void* doc_res, const void* sc_res,
+    int block_size, int k, long long n_docs, void* board_v, void* board_g,
+    void* out_v, void* out_g, void* stream) {
+  return launch_resident<false>(desc, nf_pad, ranges, n_ranges, w, n_cols,
+                                nullptr, doc_res, sc_res, block_size, k,
+                                n_docs, board_v, board_g, nullptr, out_v,
+                                out_g, stream);
 }
 
 // K3. bounds is [nb, n_cols] f32, one row per block (every block the
-// table names); skips is [n_boards * n_tiles] int32,
-// one count of skipped real fragments per CTA.
+// table names); skips is [n_ranges * n_groups] int32, one count of
+// skipped real fragments per CTA.
 extern "C" int bm25_resident_pruned_launch(
-    const void* desc, int nf_pad, const void* w, int n_cols,
-    const void* bounds, const void* doc_res, const void* sc_res,
-    int block_size, int k, long long n_docs, int n_boards,
-    int frags_per_cta, int bt, void* board_v, void* board_g, void* skips,
-    void* out_v, void* out_g, void* stream) {
-  return launch_resident<true>(desc, nf_pad, w, n_cols, bounds, doc_res,
-                               sc_res, block_size, k, n_docs, n_boards,
-                               frags_per_cta, bt, board_v, board_g, skips,
-                               out_v, out_g, stream);
+    const void* desc, int nf_pad, const void* ranges, int n_ranges,
+    const void* w, int n_cols, const void* bounds, const void* doc_res,
+    const void* sc_res, int block_size, int k, long long n_docs,
+    void* board_v, void* board_g, void* skips, void* out_v, void* out_g,
+    void* stream) {
+  return launch_resident<true>(desc, nf_pad, ranges, n_ranges, w, n_cols,
+                               bounds, doc_res, sc_res, block_size, k,
+                               n_docs, board_v, board_g, skips, out_v,
+                               out_g, stream);
 }

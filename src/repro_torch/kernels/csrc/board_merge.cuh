@@ -15,6 +15,10 @@
 // (ties on (score, id) go to the lower board), and the winner's head
 // advances.
 //
+// K4's boards are [G, k, B] (row-major); K1/K3's are [G, B, k], each
+// column's k rows contiguous, so that a scoring warp reads and rewrites a
+// column in coalesced runs. A template flag picks the layout.
+//
 // Bound: k rounds over G heads per column, k * G * B reads of 8 bytes.
 #pragma once
 
@@ -25,7 +29,9 @@ namespace bm25 {
 constexpr int kMergeMaxWarps = 8;   // columns per CTA, at most
 constexpr int kMergeSmemLimit = 232448;
 
-// board_v / board_g are [n_boards, k, n_cols]; out_v / out_g [k, n_cols].
+// board_v / board_g are [n_boards, k, n_cols] ([n_boards, n_cols, k] with
+// kColMajor); out_v / out_g [k, n_cols].
+template <bool kColMajor>
 __global__ void __launch_bounds__(kMergeMaxWarps * 32) board_merge_kernel(
     const float* __restrict__ board_v, const int* __restrict__ board_g,
     int n_boards, int k, int n_cols, float* __restrict__ out_v,
@@ -44,7 +50,9 @@ __global__ void __launch_bounds__(kMergeMaxWarps * 32) board_merge_kernel(
     for (int l = lane; l < n_boards; l += 32) {
       const int hl = h[l];
       if (hl >= k) continue;
-      const size_t o = (static_cast<size_t>(l) * k + hl) * n_cols + col;
+      const size_t o = kColMajor
+          ? (static_cast<size_t>(l) * n_cols + col) * k + hl
+          : (static_cast<size_t>(l) * k + hl) * n_cols + col;
       const float x = board_v[o];
       const int id = board_g[o];
       if (rank_before(x, id, v, g)) {
@@ -65,24 +73,27 @@ __global__ void __launch_bounds__(kMergeMaxWarps * 32) board_merge_kernel(
 
 // Launch the merge on `stream`: as many columns a CTA (at most
 // kMergeMaxWarps) as the heads of n_boards boards leave room for in
-// shared memory. Returns the CUDA error code (0 = ok); too many boards for
-// one warp's heads is cudaErrorInvalidValue (the wrappers check first).
+// shared memory; col_major picks the [n_boards, n_cols, k] layout.
+// Returns the CUDA error code (0 = ok); too many boards for one warp's
+// heads is cudaErrorInvalidValue (the wrappers check first).
 inline cudaError_t launch_board_merge(const float* board_v,
                                       const int* board_g, int n_boards,
                                       int k, int n_cols, float* out_v,
-                                      int* out_g, cudaStream_t stream) {
+                                      int* out_g, cudaStream_t stream,
+                                      bool col_major = false) {
   const long long per_warp = 4LL * n_boards;
   if (per_warp > kMergeSmemLimit) return cudaErrorInvalidValue;
   int warps = static_cast<int>(kMergeSmemLimit / per_warp);
   if (warps > kMergeMaxWarps) warps = kMergeMaxWarps;
   const size_t smem = static_cast<size_t>(warps) * per_warp;
+  const auto kern =
+      col_major ? board_merge_kernel<true> : board_merge_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      board_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  board_merge_kernel<<<(n_cols + warps - 1) / warps, warps * 32, smem,
-                       stream>>>(board_v, board_g, n_boards, k, n_cols,
-                                 out_v, out_g);
+  kern<<<(n_cols + warps - 1) / warps, warps * 32, smem, stream>>>(
+      board_v, board_g, n_boards, k, n_cols, out_v, out_g);
   return cudaGetLastError();
 }
 

@@ -9,9 +9,10 @@ The kernels run on CUDA copies of the inputs, the twins on the CPU
 tensors, and results must agree bit for bit: the kernels add in the same
 fixed order as the CPU twins' ``index_add_`` and round each product and
 sum separately. K3 is held in the columns whose bounds are finite (in
-padding columns the kernel decides per B-tile, the twin over the whole
-batch); the device planner on the card must equal the host plan byte for
-byte, and the pruned retriever on the card the CPU path. K4 is held
+padding columns the kernel decides per column group of 64, the twin
+over the whole batch), also at the edges of its persistent schedule;
+the device planner on the card must equal the host plan byte for byte,
+and the pruned retriever on the card the CPU path. K4 is held
 bitwise to its twin in both modes (per-chunk boards and the two-level
 fold), and the ladder walked on the card with faults armed and breakers
 tripped serves every rung exactly, bit for bit the CPU path's boards. The
@@ -154,8 +155,9 @@ def _late_saturating_index(rng):
 
 
 def test_k3_one_cta_per_tile_counts_as_twin(cuda_device, monkeypatch):
-    """With one CTA per B-tile K3 walks the table in order, as the twin
-    does: the same board and the same skip count, above half the table."""
+    """With one CTA per column group (one group of 64 here) K3 walks the
+    table in order, as the twin does: the same board and the same skip
+    count, above half the table."""
     idx = _late_saturating_index(np.random.default_rng(0))
     di = DeviceIndex.build(idx, device="cpu", block_size=16, tile=16,
                            frag=8, with_blocked=False)
@@ -174,6 +176,108 @@ def test_k3_one_cta_per_tile_counts_as_twin(cuda_device, monkeypatch):
     assert torch.equal(_bits(got[0]), _bits(ref[0]))
     assert torch.equal(_bits(got[1]), _bits(ref[1]))
     assert int(got[2]) == int(ref[2]) > fp.n_frags // 2
+
+
+# K1/K3's schedule edges: (block size, frag, docs, vocab, max doc
+# length, queries, tokens a query, table rows, padding columns, k, CTAs)
+_RESIDENT_EDGES = {
+    # spans of ~10,000 postings (several 2,048-posting rounds); 3,000
+    # docs leave the last block of 512 partly padding
+    "long-spans": (512, 512, 3000, 40, 60, 64, 5, 64, 0, 100, None),
+    "k-512": (512, 512, 1200, 50, 40, 8, 5, 64, 0, 512, None),
+    "k-1-b-1": (512, 512, 2500, 40, 60, 1, 5, 64, 0, 1, None),
+    "b-8": (16, 8, 1000, 60, 25, 8, 5, 64, 0, 7, None),
+    "b-48-pad-8": (16, 8, 1000, 60, 25, 40, 5, 64, 8, 7, None),
+    "b-100": (16, 8, 900, 70, 25, 100, 5, 128, 0, 9, None),
+    # 4,096 weight rows (past K6's 2,048-row pieces) and 4 column groups
+    "b-256-wide-table": (16, 8, 4001, 6000, 30, 256, 12, 4096, 0, 10,
+                         None),
+    # one posting a fragment: spans of ~8,000 fragments, several windows
+    # of 2,048, and rounds cut at 128 runs
+    "frag-1-windows": (512, 1, 3000, 30, 80, 16, 4, 32, 0, 50, None),
+    # a range a fragment: range boundaries fall inside long spans
+    "ranges-through-spans": (512, 512, 3000, 40, 60, 64, 5, 64, 0, 100,
+                             4096),
+    "one-cta": (512, 512, 3000, 40, 60, 64, 5, 64, 0, 100, 1),
+}
+
+
+@pytest.mark.parametrize("edge", sorted(_RESIDENT_EDGES))
+def test_k1_k3_bitwise_at_schedule_edges(cuda_device, monkeypatch, edge):
+    """K1 on the card equals its CPU twin bit for bit in every column,
+    and K3 equals K1 in every column whose bounds are finite, at the
+    edges of the persistent schedule: rounds, windows, column groups,
+    wide weight tables, k up to the block size, a partly padded last
+    block and ranges that would cut through spans."""
+    (bs, frag, n_docs, n_vocab, max_len, n_q, q_len, u_max, pad_cols, k,
+     ctas) = _RESIDENT_EDGES[edge]
+    rng = np.random.default_rng(len(edge))
+    corpus = make_corpus(rng, n_docs=n_docs, n_vocab=n_vocab,
+                         max_len=max_len)
+    idx = build_index(corpus, n_vocab, params=BM25Params(method="bm25l"))
+    assert idx.n_docs % bs != 0                      # a partly padded block
+    di = DeviceIndex.build(idx, device="cpu", block_size=bs, tile=bs,
+                           frag=frag, with_blocked=False)
+    qs = [rng.integers(0, n_vocab, size=rng.integers(1, q_len + 1)
+                       ).astype(np.int32) for _ in range(n_q)]
+    toks, wts, uniq = pad_queries(qs, max(8, q_len), return_uniq=True)
+    tab, w = pack_query_batch(toks, wts, u_max, uniq=uniq)
+    w = np.concatenate([w, np.zeros((u_max, pad_cols), np.float32)], 1)
+    fp = fragment_plan(idx, uniq, block_size=bs, frag=frag)
+    ub = block_upper_bounds(di.bmax, tab, w)
+    live = w.shape[1] - pad_cols
+    ub[:, live:] = -np.inf
+    ops = (torch.as_tensor(fp.desc), torch.as_tensor(w), di.csc_doc_ids,
+           di.csc_scores)
+    kw = dict(block_size=bs, frag=frag, k=k, n_docs=idx.n_docs)
+    if ctas is not None:
+        monkeypatch.setattr(k1, "_CTAS", ctas)
+    ref = k1.bm25_resident_score_topk(*ops, **kw)
+    got = k1.bm25_resident_score_topk(*(t.to(cuda_device) for t in ops),
+                                      **kw)
+    assert torch.equal(_bits(got[0]), _bits(ref[0]))
+    assert torch.equal(_bits(got[1]), _bits(ref[1]))
+    ops3 = ops[:2] + (torch.as_tensor(ub),) + ops[2:]
+    got3 = k1.bm25_resident_score_topk_pruned(
+        *(t.to(cuda_device) for t in ops3), **kw)
+    assert torch.equal(_bits(got3[0])[:, :live], _bits(ref[0])[:, :live])
+    assert torch.equal(_bits(got3[1])[:, :live], _bits(ref[1])[:, :live])
+    if ctas == 1 and w.shape[1] <= 64:      # in order, as the twin
+        ref3 = k1.bm25_resident_score_topk_pruned(*ops3, **kw)
+        assert int(got3[2]) == int(ref3[2])
+
+
+def test_k1_k3_all_padding_table(cuda_device):
+    """A table of padding only (no span) gives the empty board: the float
+    minimum and id -1 everywhere, and K3 skips nothing."""
+    desc = torch.zeros((6, 64), dtype=torch.int32)
+    w = torch.rand(64, 70)
+    doc = torch.zeros((1, 64), dtype=torch.int32)
+    sc = torch.zeros((1, 64))
+    kw = dict(block_size=16, frag=8, k=5, n_docs=100)
+    ref = k1.bm25_resident_score_topk(desc, w, doc, sc, **kw)
+    assert bool((ref[1] == -1).all())
+    got = k1.bm25_resident_score_topk(
+        *(t.to(cuda_device) for t in (desc, w, doc, sc)), **kw)
+    got3 = k1.bm25_resident_score_topk_pruned(
+        *(t.to(cuda_device) for t in (desc, w, torch.zeros(4, 70), doc,
+                                      sc)), **kw)
+    for g in (got, got3):
+        assert torch.equal(_bits(g[0]), _bits(ref[0]))
+        assert torch.equal(_bits(g[1]), _bits(ref[1]))
+    assert int(got3[2]) == 0
+
+
+def test_k1_refuses_blocks_past_512_rows(cuda_device):
+    """The fold marks a warp's rows in one 32-bit mask: blocks of more
+    than 512 rows raise instead of launching."""
+    desc = torch.zeros((6, 8), dtype=torch.int32, device=cuda_device)
+    w = torch.zeros((8, 4), device=cuda_device)
+    doc = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    sc = torch.zeros((1, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="512"):
+        k1.bm25_resident_score_topk(desc, w, doc, sc, block_size=1024,
+                                    frag=8, k=5, n_docs=100)
 
 
 @pytest.mark.parametrize("profile", ["head", "dense"])
