@@ -29,9 +29,12 @@ Phases (any failure exits non-zero; nothing is caught):
    every segment's positions distinct; K6 at B in {8, 64, 100, 256} with
    tables of up to 1,280 rows, and at B = 256 with 8,192 (256 x Q_MAX),
    on 20,011 documents, on the token-sorted
-   layout and on its postings shuffled within each block, and K7 at S =
-   10,000 and 50,000 (cut into segment ranges), each bitwise equal to its
-   CPU twin;
+   layout and on its postings shuffled within each block, K7 at S =
+   10,000 and 50,000 (cut into segment ranges), K2 at B = 256 with
+   8,192 table rows at k = 100 at blocks of 512, 700 and 1,024 rows and
+   at k = 200 at 512, and K4 at k = 200 (``acc_block`` 512) and k = 600
+   (``acc_block`` 1,024) on a chunk of fewer real candidates than 600,
+   per chunk and two-level, each bitwise equal to its CPU twin;
 3. full width (``repro.configs.bm25s``: 2,097,152 docs, V = 200,000,
    ~120 unique tokens a doc, doc block 512, batches of 256 queries of at
    most 32 tokens, k = 100, lucene k1 = 1.5, b = 0.75; queries of five
@@ -63,10 +66,11 @@ Phases (any failure exits non-zero; nothing is caught):
    beside the host ``fragment_plan`` (tables byte-equal) and profiled
    with ``torch.profiler``, ``torch.cummax`` and ``torch.cumsum`` timed
    over a stream of the planner's size, the host survivor estimate
-   timed; each kernel bitwise equal to its CPU twin on the first 32 query
-   columns (K1 and K3: the first 64, every lane of the first CTA's column
-   group; every column is scored on its own), K1 also timed at k = 1 and
-   on the first 32 columns beside its full call (the split), timed with
+   timed; each kernel bitwise equal to its CPU twin on the first 64 query
+   columns (every lane of the first CTA's column group; every column is
+   scored on its own), K1, K2 and K4 also timed at k = 1 and k = 200
+   beside k = 100 (the fold's share; K2 and K4 select k = 200 in two
+   passes) and K1 on the first 32 columns (the split), timed with
    CUDA events beside its twin on the card (atomics there, so values agree
    within atol 1e-4 + rtol 1e-6, and where an id differs from the twin's
    the kernel's id must carry its exact score from the index), and the
@@ -92,7 +96,10 @@ Phases (any failure exits non-zero; nothing is caught):
    run twice on the card bitwise equal, and its rows of 8 sampled queries
    bitwise equal to ``score_batch`` on the CPU over the same arrays; the
    retriever's ids and values bitwise equal to the same retriever built
-   with ``device="cpu"``; K6 bitwise equal to its CPU twin on 128
+   with ``device="cpu"``; the fused batch's merge of K2's 409,600
+   candidates a query through ``ops.topk`` (K5, then the rank merge)
+   bitwise equal, ids and values, to a full ``rank_order`` sort of them,
+   both timed; K6 bitwise equal to its CPU twin on 128
    columns, 32 of each 64-column CTA (one a lane), and K5 to its twin on
    the card; K6 and K5 timed with CUDA events
    in turns with ``torch.sparse.mm`` of the doc × token CSR by the
@@ -118,6 +125,11 @@ Phases (any failure exits non-zero; nothing is caught):
    card, K8 bitwise against its CPU twin on both bag sets and within
    1e-5 of ``F.embedding_bag``; each kernel, its twin on the card and the
    library call are timed with CUDA events.
+
+With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
+operands and keyword arguments there (``torch.save``, ~3.5 GB at full
+width), for ``tools/time_board_kernels.py`` to time another tree's
+kernels on the same inputs.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; before them a ``[bound]`` line a
@@ -149,6 +161,7 @@ DOC_BLOCK = 512
 QUERY_BATCH = 256
 Q_MAX = 32
 TOP_K = 100
+WIDE_K = 200                   # K2/K4: past fold_select's 128-row pass
 ALPHA = 1.07                   # data/corpus.py::zipf_corpus
 Q_LEN = 5                      # data/corpus.py::zipf_queries
 AVG_LEN = 170                  # Poisson mean giving ~120 unique tokens a doc
@@ -156,9 +169,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # CUDA-core FP32 (FMA counted as 2)
 EXACT_ATOL = 1e-4              # boards vs ScipyBM25 (different sum order)
 ATOL, RTOL = 1e-4, 1e-6        # kernel vs twin on the card (atomics there)
-TWIN_COLS = 32                 # query columns held bitwise at full width
-# K1's and K3's: a CTA takes a group of 64 columns, a lane two of them
-K1_TWIN_COLS = tuple(range(64))
+# K1-K4's query columns held bitwise at full width: a CTA takes a group of
+# 64 columns, a lane two of them
+GROUP_TWIN_COLS = tuple(range(64))
 # K6's: a CTA takes 64 columns, a lane two of them; 32 of each CTA's, one
 # a lane (its first in even CTAs, its second in odd ones)
 K6_TWIN_COLS = tuple(64 * c + 2 * j + c % 2 for c in range(4)
@@ -507,6 +520,80 @@ def phase_k6_k7_vs_twins(seed: int) -> None:
         check(ok, f"K7 bitwise equal to its twin at S={s_len}")
 
 
+def phase_k2_k4_vs_twins(seed: int) -> None:
+    """Phase 2, K2 and K4 beyond the main path's shapes: K2 at B = 256
+    with the widest table a batch packs (256 x Q_MAX = 8,192 rows), at
+    k = 100 at blocks of 512, 700 and 1,024 rows (two windows of the walk
+    past 512 rows, the board in device memory) and at k = WIDE_K at 512
+    (two passes of the select); K4 at k = WIDE_K (``acc_block`` 512) and
+    k = 600 (``acc_block`` 1,024, as ``DeviceRetriever`` sizes it) on a
+    batch whose one chunk holds fewer real candidates than 600, per chunk
+    and two-level. Each bitwise equal to its CPU twin, values and ids."""
+    import torch
+
+    from repro_torch.core import BM25Params, build_index
+    from repro_torch.kernels import bm25_block_score as k2
+    from repro_torch.kernels import bm25_gather_score as k1
+    from repro_torch.serve import DeviceRetriever
+    from repro_torch.sparse.block_csr import DeviceIndex, gather_posting_runs
+    rng = np.random.default_rng(seed + 18)
+    cuda = torch.device("cuda")
+    n_docs, n_vocab = 20_011, 30_000
+    idx = build_index(zipf_corpus(rng, n_docs, n_vocab, 60), n_vocab,
+                      params=BM25Params(method="robertson"))
+    uniq = np.sort(rng.choice(n_vocab, QUERY_BATCH * Q_MAX, replace=False))
+    uniq[-QUERY_BATCH * Q_MAX // 16:] = np.iinfo(np.int32).max  # pad rows
+    tab = torch.as_tensor(uniq.astype(np.int32))
+    w = torch.as_tensor(rng.random((uniq.size, QUERY_BATCH))
+                        .astype(np.float32))
+    for bs, k in ((DOC_BLOCK, TOP_K), (DOC_BLOCK, WIDE_K), (700, TOP_K),
+                  (1024, TOP_K)):
+        t0 = time.perf_counter()
+        di = DeviceIndex.build(idx, device="cpu", block_size=bs,
+                               with_bmax=False)
+        ops2 = (di.blk_tok, di.blk_loc, di.blk_sc, tab, w)
+        kw2 = dict(block_size=bs, k=k, n_docs=n_docs)
+        ref = k2.bm25_block_score_topk(*ops2, **kw2)
+        got = k2.bm25_block_score_topk(*(t.to(cuda) for t in ops2), **kw2)
+        torch.cuda.synchronize()
+        ok = bits_equal(got[0], ref[0]) and bits_equal(got[1], ref[1])
+        print(f"[kernel-vs-twin] K2 block={bs} B={QUERY_BATCH} "
+              f"U={uniq.size} k={k} on {n_docs} docs "
+              f"({di.blk_tok.shape[0]} blocks): bitwise {ok} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        check(ok, f"K2 bitwise equal to its twin (block {bs}, k {k}, U "
+                  f"{uniq.size})")
+    cpu = DeviceRetriever(idx, block_size=DOC_BLOCK, q_max=Q_MAX,
+                          device="cpu")
+    # three one-token queries of rare tokens: one chunk, mostly padding
+    df = np.diff(idx.indptr)
+    rare = rng.choice(np.flatnonzero((df >= 20) & (df <= 150)), 3,
+                      replace=False)
+    pk = cpu.pack_batch([np.array([t], np.int32) for t in rare])
+    for acc_block, k in ((DOC_BLOCK, WIDE_K), (1024, 600)):
+        gp = gather_posting_runs(idx, pk.uniq_batch, acc_block=acc_block,
+                                 tile=64)
+        check(gp.n_candidates < 600, "a chunk holds fewer than 600 real "
+                                     "candidates")
+        ops4 = tuple(torch.as_tensor(a) for a in (
+            gp.token_ids, gp.slot_ids, gp.scores, pk.uniq_tab, pk.weights,
+            gp.candidates))
+        oks = {}
+        for two_level in (False, True):
+            kw4 = dict(acc_block=acc_block, k=k, two_level=two_level)
+            ref = k1.bm25_gather_score_topk(*ops4, **kw4)
+            got = k1.bm25_gather_score_topk(*(t.to(cuda) for t in ops4),
+                                            **kw4)
+            torch.cuda.synchronize()
+            oks[two_level] = (bits_equal(got[0], ref[0])
+                              and bits_equal(got[1], ref[1]))
+        print(f"[kernel-vs-twin] K4 acc_block={acc_block} k={k} B={pk.b}: "
+              f"{gp.n_candidates} candidates in {gp.n_chunks} chunks; "
+              f"bitwise per chunk {oks[False]}, two-level {oks[True]}",
+              flush=True)
+        check(all(oks.values()), f"K4 bitwise equal to its twin at k = {k}")
+
+
 def exact_raw_scores(sub_csr, w, docs, cols) -> np.ndarray:
     """Exact raw score (float64) of doc ``docs[i]`` for query column
     ``cols[i]``: the sum over the batch's tokens ``u`` of
@@ -585,7 +672,7 @@ def boards_equal(a, b) -> bool:
 
 
 def twin_bitwise(fn, ops, col_at, got, kw, what: str,
-                 cols=tuple(range(TWIN_COLS))) -> bool:
+                 cols=GROUP_TWIN_COLS) -> bool:
     """The kernel's query columns ``cols`` against the wrapper on CPU
     copies of the same operands (so its twin runs) with only those columns
     of the operands at ``col_at`` (weights, bounds): bit for bit, the one
@@ -606,21 +693,18 @@ def twin_bitwise(fn, ops, col_at, got, kw, what: str,
     return ok
 
 
-def k1_split(fn, ops, ms: float, kw) -> dict:
-    """K1's time at phase 5's operands beside two cuts of the same call,
-    through the public wrapper: k = 1 (the per-span fold almost vanishes)
-    and the first 32 query columns (one column group, so no posting is
-    read by two groups' CTAs)."""
-    w = ops[1]
-    b = w.shape[1]
-    ms_k1 = cuda_ms(lambda: fn(*ops, **dict(kw, k=1)), reps=3)
-    ops32 = (ops[0], w[:, :32].contiguous(), *ops[2:])
-    ms_b32 = cuda_ms(lambda: fn(*ops32, **kw), reps=3)
-    split = {f"k{kw['k']}_b{b}": ms, f"k1_b{b}": ms_k1,
-             f"k{kw['k']}_b32": ms_b32}
-    print(f"[kernels] K1 split: k={kw['k']} B={b} {ms:.3f} ms; k=1 B={b} "
-          f"{ms_k1:.3f} ms; k={kw['k']} B=32 {ms_b32:.3f} ms", flush=True)
-    return split
+def timed_cuts(fn, ops, ms: float, kw, what: str, b: int) -> dict:
+    """A board kernel's time at the main path's operands (``b`` query
+    columns) beside the same call at k = 1 (the fold almost vanishes) and
+    at k = WIDE_K (K2 and K4 select their boards in two passes), through
+    the public wrapper."""
+    cuts = {f"k{kw['k']}_b{b}": ms}
+    for k in (1, WIDE_K):
+        cuts[f"k{k}_b{b}"] = cuda_ms(lambda: fn(*ops, **dict(kw, k=k)),
+                                     reps=3)
+    print(f"[kernels] {what} split: " + "; ".join(
+        f"{key} {t:.3f} ms" for key, t in cuts.items()), flush=True)
+    return cuts
 
 
 def split_index(idx, n: int) -> list:
@@ -887,7 +971,30 @@ def phase_dense(dr, idx, oracle, rng) -> list:
           f"{worst:.3g} ({time.perf_counter() - t0:.1f}s)", flush=True)
     check(vals_same and ids_tied, "unfused board == fused board, "
                                   "tie-aware")
-    del f_ids, f_vals
+    # the fused batch's merge (K5 over segments of 4,096, then the rank
+    # merge) against a full sort of K2's candidates by (score, doc id)
+    from repro_torch.core.retrieval import rank_order
+    c_v, c_loc = k2.bm25_block_score_topk(*blk, k=TOP_K, **kwb)
+    nb = c_v.shape[0]
+    flat_v = c_v.permute(2, 0, 1).reshape(QUERY_BATCH, nb * TOP_K)
+    flat_i = (c_loc + (torch.arange(nb, dtype=torch.int32, device=dev)
+                       * DOC_BLOCK)[:, None, None]
+              ).permute(2, 0, 1).reshape(QUERY_BATCH, nb * TOP_K)
+    del c_v, c_loc
+    sel = rank_order(flat_v, flat_i)[:, :TOP_K]
+    merge_same = (bits_equal(torch.gather(flat_i, 1, sel), f_ids)
+                  and bits_equal(torch.gather(flat_v, 1, sel)
+                                 + shift[:, None], f_vals))
+    del sel
+    topk_merge_ms = cuda_ms(lambda: ops.topk(flat_v, TOP_K))
+    sort_merge_ms = cuda_ms(lambda: rank_order(flat_v, flat_i))
+    print(f"[dense] the fused batch's merge of {QUERY_BATCH} x "
+          f"{nb * TOP_K} candidates through ops.topk (K5, then the rank "
+          f"merge) equals a full rank_order sort, ids and values bitwise: "
+          f"{merge_same}; ops.topk {topk_merge_ms:.3f} ms, the sort "
+          f"{sort_merge_ms:.3f} ms (CUDA events)", flush=True)
+    check(merge_same, "the blocked merge through K5 == the full sort")
+    del f_ids, f_vals, flat_v, flat_i
 
     # -- score_batch + ops.topk ---------------------------------------------
     t0 = time.perf_counter()
@@ -1452,11 +1559,9 @@ def phase_bm25(args) -> list:
     dev = dr.device
     kernels = []
     tol = f"atol {ATOL} + rtol {RTOL} vs the twin on the card"
-    bitwise_at = (f"full width, query columns 0-{TWIN_COLS - 1}, CPU twin; "
-                  "phase 2: all columns, 100,003 docs, B 8 and 64")
-    k1_at = (f"full width, query columns 0-{len(K1_TWIN_COLS) - 1} (the "
-             "first CTA column group, every lane), CPU twin; phase 2: all "
-             "columns, 100,003 docs, B 8 and 64")
+    group_at = (f"full width, query columns 0-{len(GROUP_TWIN_COLS) - 1} "
+                "(the first CTA column group, every lane), CPU twin; phase "
+                "2: all columns, 100,003 docs, B 8 and 64")
     # every kernel on the last batch's operands (served under each regime)
     pk = dr.pack_batch(served[-1][2])
     n_u = pk.uniq_batch.size
@@ -1511,11 +1616,18 @@ def phase_bm25(args) -> list:
     got = k1.bm25_resident_score_topk(*ops1, frag=dr.dindex.frag, **kw1)
     ms = cuda_ms(lambda: k1.bm25_resident_score_topk(
         *ops1, frag=dr.dindex.frag, **kw1), reps=5)
-    split = k1_split(k1.bm25_resident_score_topk, ops1, ms,
-                     dict(kw1, frag=dr.dindex.frag))
+    cuts1 = timed_cuts(k1.bm25_resident_score_topk, ops1, ms,
+                       dict(kw1, frag=dr.dindex.frag), "K1", w.shape[1])
+    # the first 32 query columns: one column group, so no posting is read
+    # by two groups' CTAs
+    ops32 = (ops1[0], ops1[1][:, :32].contiguous(), *ops1[2:])
+    cuts1[f"k{TOP_K}_b32"] = cuda_ms(lambda: k1.bm25_resident_score_topk(
+        *ops32, frag=dr.dindex.frag, **kw1), reps=3)
+    print(f"[kernels] K1 at the first 32 columns: "
+          f"{cuts1[f'k{TOP_K}_b32']:.3f} ms", flush=True)
+    del ops32
     bitwise = twin_bitwise(k1.bm25_resident_score_topk, ops1, (1,), got,
-                           dict(kw1, frag=dr.dindex.frag), "K1",
-                           cols=K1_TWIN_COLS)
+                           dict(kw1, frag=dr.dindex.frag), "K1")
     check(bitwise, "K1 bitwise equal to its CPU twin at full width")
     ref = k1.bm25_resident_score_topk_plain(*ops1, **kw1)
     plain_ms = cuda_ms(lambda: k1.bm25_resident_score_topk_plain(*ops1,
@@ -1533,8 +1645,8 @@ def phase_bm25(args) -> list:
         source="src/repro_torch/kernels/csrc/bm25_resident.cu",
         replaces="src/repro/kernels/bm25_gather_score.py:593",
         launches=launches["bm25_resident_score_topk"], max_abs_err=err,
-        tolerance=tol, twin_bitwise=bitwise, twin_bitwise_at=k1_at,
-        ms=ms, plain_ms=plain_ms, split_ms=split, bytes=nbytes, ops=nops))
+        tolerance=tol, twin_bitwise=bitwise, twin_bitwise_at=group_at,
+        ms=ms, plain_ms=plain_ms, split_ms=cuts1, bytes=nbytes, ops=nops))
     # K2
     tab, w = pk.uniq_tab, pk.weights
     di = dr.dindex
@@ -1543,6 +1655,8 @@ def phase_bm25(args) -> list:
     kw2 = dict(block_size=DOC_BLOCK, k=TOP_K, n_docs=n_docs)
     got = k2.bm25_block_score_topk(*ops2, **kw2)
     ms = cuda_ms(lambda: k2.bm25_block_score_topk(*ops2, **kw2), reps=3)
+    cuts2 = timed_cuts(k2.bm25_block_score_topk, ops2, ms, kw2, "K2",
+                       w.shape[1])
     bitwise = twin_bitwise(k2.bm25_block_score_topk, ops2, (4,), got, kw2,
                            "K2")
     check(bitwise, "K2 bitwise equal to its CPU twin at full width")
@@ -1557,18 +1671,33 @@ def phase_bm25(args) -> list:
     check(ids_hold_their_scores(got[0], got[1], ref[1], gdoc, n_docs,
                                 sub_csr, w[:n_u], "K2"), "K2 ids vs twin")
     del gdoc, ref
+    if args.save_board_operands is not None:
+        args.save_board_operands.mkdir(parents=True, exist_ok=True)
+        torch.save({"ops": ops2, "kw": kw2},
+                   args.save_board_operands / "k2.pt")
     hits = int(torch.isin(di.blk_tok, ops2[3]).sum())
     b = w.shape[1]
-    nbytes = (di.blk_tok.numel() * 12 + tab.nbytes + w.nbytes
+    # the token of every slot; the row and score of a matched posting only
+    nbytes = (di.blk_tok.numel() * 4 + hits * 8 + tab.nbytes + w.nbytes
               + got[0].numel() * 8)
     nops = 2.0 * hits * b
+    # the bound as first stated, 12 bytes for every slot (pads included),
+    # kept for comparison with the first kernel's rows
+    every_slot_ms = max(
+        (di.blk_tok.numel() * 12 + tab.nbytes + w.nbytes
+         + got[0].numel() * 8) / HBM_BYTES_PER_S * 1e3,
+        nops / FP32_OPS_PER_S * 1e3)
+    print(f"[kernels] K2 reads: {di.blk_tok.numel()} posting slots, {hits} "
+          f"matched; bound with 12 bytes every slot {every_slot_ms:.4f} ms",
+          flush=True)
     kernels.append(dict(
         name="bm25_block_score_topk", route="cuda",
         source="src/repro_torch/kernels/csrc/bm25_block_score.cu",
         replaces="src/repro/kernels/bm25_block_score.py:184",
         launches=launches["bm25_block_score_topk"], max_abs_err=err,
-        tolerance=tol, twin_bitwise=bitwise, twin_bitwise_at=bitwise_at,
-        ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=nops))
+        tolerance=tol, twin_bitwise=bitwise, twin_bitwise_at=group_at,
+        ms=ms, plain_ms=plain_ms, split_ms=cuts2,
+        bound_ms_every_slot=every_slot_ms, bytes=nbytes, ops=nops))
     # K3 on the same batch's pruned operands (seed pass + compaction)
     w_dev = torch.as_tensor(pk.weights, device=dev)
     desc3, bounds3, _, nf_planned, n_surv = dr._plan_pruned(
@@ -1579,7 +1708,7 @@ def phase_bm25(args) -> list:
     ms = cuda_ms(lambda: k1.bm25_resident_score_topk_pruned(*ops3, **kw3),
                  reps=5)
     bitwise = twin_bitwise(k1.bm25_resident_score_topk_pruned, ops3,
-                           (1, 2), got, kw3, "K3", cols=K1_TWIN_COLS)
+                           (1, 2), got, kw3, "K3")
     check(bitwise, "K3 bitwise equal to its CPU twin at full width")
     k1_got = k1.bm25_resident_score_topk(*ops3[:2], *ops3[3:], **kw3)
     same_k1 = bits_equal(got[0], k1_got[0]) and bits_equal(got[1],
@@ -1615,7 +1744,7 @@ def phase_bm25(args) -> list:
         replaces="src/repro/kernels/bm25_gather_score.py:521",
         launches=launches["bm25_resident_score_topk_pruned"],
         max_abs_err=err, tolerance=tol, twin_bitwise=bitwise,
-        twin_bitwise_at=k1_at, fragments=int(desc3.shape[1]),
+        twin_bitwise_at=group_at, fragments=int(desc3.shape[1]),
         survivors=n_surv, skipped=int(got[2]), ms=ms, plain_ms=plain_ms,
         bytes=nbytes, ops=nops))
     # K4 at the host rung's shapes: shard 0's gather of the host-rung batch
@@ -1640,6 +1769,8 @@ def phase_bm25(args) -> list:
           f"host gather_posting_runs {gather_ms:.1f} ms, upload "
           f"{gp.token_ids.nbytes * 3 + gp.candidates.nbytes} bytes in "
           f"{upload_ms:.1f} ms, K4 (two-level) {ms:.3f} ms", flush=True)
+    cuts4 = timed_cuts(k1.bm25_gather_score_topk, ops4, ms, kw4, "K4",
+                       pk0.weights.shape[1])
     bitwise = twin_bitwise(k1.bm25_gather_score_topk, ops4, (4,), got, kw4,
                            "K4")
     check(bitwise, "K4 bitwise equal to its CPU twin at full width")
@@ -1653,11 +1784,14 @@ def phase_bm25(args) -> list:
     check(ids_hold_their_scores(got[0], got[1], ref[1], got[1],
                                 sh0.doc_lens.size, sub0,
                                 pk0.weights[:n_u0], "K4"), "K4 ids vs twin")
+    if args.save_board_operands is not None:
+        torch.save({"ops": ops4, "kw": kw4},
+                   args.save_board_operands / "k4.pt")
     del ref, ops4
     b = pk0.weights.shape[1]
-    nbytes = (gp.token_ids.nbytes + gp.slot_ids.nbytes + gp.scores.nbytes
-              + gp.candidates.nbytes + pk0.uniq_tab.nbytes
-              + pk0.weights.nbytes + TOP_K * b * 8)
+    # the token of every slot; the slot and score of a real posting only
+    nbytes = (gp.token_ids.nbytes + gp.sum_df * 8 + gp.candidates.nbytes
+              + pk0.uniq_tab.nbytes + pk0.weights.nbytes + TOP_K * b * 8)
     nops = 2.0 * gp.sum_df * b
     kernels.append(dict(
         name="bm25_gather_score_topk", route="cuda",
@@ -1666,11 +1800,12 @@ def phase_bm25(args) -> list:
         launches=ladder_launches["bm25_gather_score_topk"],
         max_abs_err=err, tolerance=tol, twin_bitwise=bitwise,
         twin_bitwise_at=(f"shard 0's host-rung gather, query columns "
-                         f"0-{TWIN_COLS - 1}, CPU twin; phase 2: all "
-                         "columns, 100,003 docs, B 8 and 64"),
+                         f"0-{len(GROUP_TWIN_COLS) - 1} (the first CTA "
+                         "column group, every lane), CPU twin; phase 2: "
+                         "all columns, 100,003 docs, B 8 and 64"),
         n_chunks=gp.n_chunks, p_pad=gp.p_pad, sum_df=gp.sum_df,
-        gather_ms=gather_ms, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-        ops=nops))
+        gather_ms=gather_ms, ms=ms, plain_ms=plain_ms, split_ms=cuts4,
+        bytes=nbytes, ops=nops))
     for kd in kernels[:3]:
         kd["launches_ladder"] = ladder_launches[kd["name"]]
     print(f"[kernels] done in {time.perf_counter() - t_k:.1f}s", flush=True)
@@ -1691,6 +1826,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, default=3,
                     help="batches served under each regime")
+    ap.add_argument("--save-board-operands", type=Path, default=None,
+                    metavar="DIR", help="write K2's and K4's phase 5 "
+                    "operands to DIR (for tools/time_board_kernels.py)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1721,6 +1859,7 @@ def main(argv=None) -> int:
     phase_kernels_vs_twins(args.seed)
     phase_topk_vs_twin(args.seed)
     phase_k6_k7_vs_twins(args.seed)
+    phase_k2_k4_vs_twins(args.seed)
     print(f"[kernel-vs-twin] done in {time.perf_counter() - t0:.1f}s",
           flush=True)
 

@@ -64,8 +64,8 @@ def block_accumulate(token_ids, local_doc, scores, uniq_tokens, weights,
     ``u``) adds ``fl(score · weights[u, b])`` to its row ``local_doc`` of
     its block, with ``index_add_``. On the CPU ``index_add_`` adds source
     rows serially in index order, so each element sums its postings in
-    posting order — the order of K2 and K4 (``csrc/block_scatter.cuh``)
-    and of K6 — and equals them bit for bit. On a
+    posting order — the order of the walk that K2, K4 and K6 share
+    (``csrc/block_walk.cuh``) — and equals them bit for bit. On a
     CUDA tensor ``index_add_`` uses atomics: then it agrees only to
     rounding. Matched postings are added ``_ROWS_PER_STEP`` at a time to
     bound memory.
@@ -135,13 +135,14 @@ def _library(n_blocks: int):
     if lib.bm25_block_score_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bm25_block_score_topk_launch.argtypes = [
-            p, p, p, i, i, p, i, p, i, i, i, ctypes.c_longlong, p, p, p]
+            p, p, p, i, i, p, i, p, i, i, i, ctypes.c_longlong, p, p, p, p,
+            p]
         lib.bm25_block_score_topk_launch.restype = ctypes.c_int
+        lib.bm25_block_score_topk_scratch.argtypes = [i]
+        lib.bm25_block_score_topk_scratch.restype = ctypes.c_int
         lib.bm25_block_score_launch.argtypes = [p, p, p, i, i, p, i, p, i,
                                                 i, p, p]
         lib.bm25_block_score_launch.restype = ctypes.c_int
-        lib.bm25_block_score_smem.argtypes = [i, i]
-        lib.bm25_block_score_smem.restype = ctypes.c_longlong
         lib.bm25_block_score_dense_smem.argtypes = [i]
         lib.bm25_block_score_dense_smem.restype = ctypes.c_longlong
     return lib
@@ -154,7 +155,11 @@ def bm25_block_score_topk(token_ids, local_doc, scores, uniq_tokens,
     ``[nb, k, B]``.
 
     A CPU tensor runs the plain twin; a CUDA tensor launches the kernel
-    (and raises if it cannot): there is no fall-back between the two.
+    (and raises if it cannot): there is no fall-back between the two. The
+    kernel takes any ``block_size`` (it walks a block 512 rows at a time)
+    and any number of table rows. A block of at most 512 rows selects its
+    board in shared memory; a wider block merges into a device-memory
+    board of ``[nb, B, k]`` values and rows.
     """
     _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
                     block_size, k)
@@ -168,19 +173,21 @@ def bm25_block_score_topk(token_ids, local_doc, scores, uniq_tokens,
     nb, p = token_ids.shape
     u, b = weights.shape
     lib = _library(nb)
-    if lib.bm25_block_score_smem(block_size, u) > _build.SMEM_LIMIT:
-        raise ValueError(f"block_size={block_size} with {u} unique tokens "
-                         "does not fit a CTA's shared memory")
     ops = [t.contiguous() for t in (token_ids, local_doc, scores,
                                     uniq_tokens, weights)]
     out_v = torch.empty((nb, k, b), dtype=torch.float32, device=dev)
     out_i = torch.empty((nb, k, b), dtype=torch.int32, device=dev)
+    scratch = (None, None)      # the kernel selects its board in smem
+    if lib.bm25_block_score_topk_scratch(block_size):
+        scratch = (torch.empty((nb, b, k), dtype=torch.float32, device=dev),
+                   torch.empty((nb, b, k), dtype=torch.int32, device=dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bm25_block_score_topk_launch(
             ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(), nb, p,
             ops[3].data_ptr(), u, ops[4].data_ptr(), b, block_size, k,
-            n_docs, out_v.data_ptr(), out_i.data_ptr(), stream)
+            n_docs, out_v.data_ptr(), out_i.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in scratch), stream)
     _build.check(err, "bm25_block_score_topk")
     LAUNCHES.add()
     return out_v, out_i

@@ -469,11 +469,12 @@ def _gather_fns(lib):
     f = lib.bm25_gather_score_topk_launch
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, i, i, p, i, p, i, p, i, i, p, p, i, p, p, p]
+        f.argtypes = [p, p, p, i, i, p, i, p, i, p, i, i, p, p, i, p, p, p,
+                      p, p]
         f.restype = ctypes.c_int
-        s = lib.bm25_gather_score_topk_smem
-        s.argtypes = [i, i]
-        s.restype = ctypes.c_longlong
+        c = lib.bm25_gather_score_topk_scratch
+        c.argtypes = [i]
+        c.restype = ctypes.c_int
     return f
 
 
@@ -491,7 +492,11 @@ def bm25_gather_score_topk(token_ids, slot_ids, scores, uniq_tokens,
     ``two_level=True`` their fold into one ``[k, B]`` board (the kernel
     merges the chunk boards in the same launch function; see
     :func:`gather_fold_fits` for its limit). A CPU tensor runs the plain
-    twin; a CUDA tensor launches the kernel (and raises if it cannot).
+    twin; a CUDA tensor launches the kernel (and raises if it cannot). The
+    kernel takes any ``acc_block`` (512 rows at a time) and any number of
+    table rows. A chunk of at most 512 slots selects its board in shared
+    memory; a wider one merges into an ``[nc, B, k]`` device-memory
+    board.
     """
     _check_gather_operands(token_ids, slot_ids, scores, uniq_tokens,
                            weights, candidates, acc_block, k)
@@ -511,9 +516,6 @@ def bm25_gather_score_topk(token_ids, slot_ids, scores, uniq_tokens,
                          "fold's shared memory; use two_level=False")
     lib = _build.load("bm25_gather_score")
     launch = _gather_fns(lib)
-    if lib.bm25_gather_score_topk_smem(acc_block, u) > _build.SMEM_LIMIT:
-        raise ValueError(f"acc_block={acc_block} with {u} unique tokens "
-                         "does not fit a CTA's shared memory")
     ops = [t.contiguous() for t in (token_ids, slot_ids, scores,
                                     uniq_tokens, weights, candidates)]
     out_v = torch.empty((nc, k, b), dtype=torch.float32, device=dev)
@@ -522,13 +524,19 @@ def bm25_gather_score_topk(token_ids, slot_ids, scores, uniq_tokens,
         if two_level else out_v
     fold_i = torch.empty((k, b), dtype=torch.int32, device=dev) \
         if two_level else out_i
+    scratch = (None, None)      # the kernel selects its board in smem
+    if lib.bm25_gather_score_topk_scratch(acc_block):
+        scratch = (torch.empty((nc, b, k), dtype=torch.float32, device=dev),
+                   torch.empty((nc, b, k), dtype=torch.int32, device=dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
                      nc, p, ops[3].data_ptr(), u, ops[4].data_ptr(), b,
                      ops[5].data_ptr(), acc_block, k, out_v.data_ptr(),
                      out_i.data_ptr(), int(two_level), fold_v.data_ptr(),
-                     fold_i.data_ptr(), stream)
+                     fold_i.data_ptr(),
+                     *(None if t is None else t.data_ptr() for t in scratch),
+                     stream)
     _build.check(err, "bm25_gather_score_topk")
     LAUNCHES_GATHER.add()
     return (fold_v, fold_i) if two_level else (out_v, out_i)

@@ -71,8 +71,9 @@
 //   ahead of it, a candidate lands at the count of the entries and
 //   candidates ahead of it (ballots, no sort), the board rewritten in
 //   place from its last rows up. Once the board is full a span costs one
-//   pass over its rows and a few merges, not k rounds a column. The
-//   boards of the G CTAs are merged by board_merge.cuh, as before.
+//   pass over its rows and a few merges, not k rounds a column. The fold
+//   is threshold_fold.cuh, shared with K2 and K4. The boards of the G
+//   CTAs are merged by board_merge.cuh, as before.
 // * K3's skip is decided once per span, at its first fragment, against
 //   the CTA's OWN running board: skip iff bound[block(f), c] < board[k-1,
 //   c] for every column c of the group. That board holds k real documents
@@ -86,7 +87,7 @@
 //   columns (-inf bounds) never keep a span alive.
 #include "board_merge.cuh"
 #include "owner_round.cuh"
-#include "select_topk.cuh"
+#include "threshold_fold.cuh"
 
 namespace {
 
@@ -99,84 +100,10 @@ constexpr int kRuns = bm25::kRoundRuns;
 constexpr int kCounts = bm25::kRoundCounts;
 constexpr int kWindow = 2048;                // fragments a window
 constexpr int kWinPer = kWindow / kThreads;  // a thread's share
-constexpr int kMaxBlock = 32 * kWarps;       // a warp's rows in one mask
-constexpr int kWarpCols = kCols / kWarps;    // columns a warp merges
+constexpr int kMaxBlock = bm25::kFoldRows;   // a warp's rows in one mask
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kWarps * kCols * 4 <= kStage * 16,
+static_assert(bm25::kFoldMaskBytes <= kStage * 16,
               "the fold's row masks fit the stage");
-
-// Position of the n-th (from 0) set bit of m; n < popc(m).
-__device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
-  int pos = 0;
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    const int lo = __popc(m & ((1u << s) - 1u));
-    if (n >= lo) {
-      n -= lo;
-      m >>= s;
-      pos += s;
-    }
-  }
-  return pos;
-}
-
-// Merge the lanes' candidates (v, g), where `valid`, into the sorted
-// column (col_v, col_g)[0, k) of a board, in place; *thr_v / *thr_g take
-// its new row k - 1. Candidates are distinct from each other and from the
-// board's real entries. The whole warp calls it.
-__device__ __forceinline__ void merge_column(float* col_v, int* col_g,
-                                             int k, bool valid, float v,
-                                             int g, float* thr_v, int* thr_g,
-                                             int lane) {
-  const unsigned bal = __ballot_sync(kFull, valid);
-  if (bal == 0) return;
-  __syncwarp();
-  // board entries, from the last 32 up: entry i moves to i + (candidates
-  // ahead of it) >= i, into rows already read
-  int ahead_b = 0;  // board entries ahead of my candidate
-  for (int j = (k - 1) >> 5; j >= 0; --j) {
-    const int i = (j << 5) + lane;
-    const bool has = i < k;
-    const float bv = has ? col_v[i] : 0.f;
-    const int bg = has ? col_g[i] : 0;
-    int pos = i;
-    for (unsigned rest = bal; rest; rest &= rest - 1) {
-      const int t = __ffs(rest) - 1;
-      const float tv = __shfl_sync(kFull, v, t);
-      const int tg = __shfl_sync(kFull, g, t);
-      pos += has && bm25::rank_before(tv, tg, bv, bg);
-      const unsigned m = __ballot_sync(
-          kFull, has && bm25::rank_before(bv, bg, tv, tg));
-      if (lane == t) ahead_b += __popc(m);
-    }
-    if (has && pos < k) {
-      col_v[pos] = bv;
-      col_g[pos] = bg;
-      if (pos == k - 1) {
-        *thr_v = bv;
-        *thr_g = bg;
-      }
-    }
-  }
-  int ahead_c = 0;  // candidates ahead of mine
-  for (unsigned rest = bal; rest; rest &= rest - 1) {
-    const int t = __ffs(rest) - 1;
-    const float tv = __shfl_sync(kFull, v, t);
-    const int tg = __shfl_sync(kFull, g, t);
-    ahead_c += valid && bm25::rank_before(tv, tg, v, g);
-  }
-  __syncwarp();  // every board row is read before a candidate lands
-  const int pos = ahead_b + ahead_c;
-  if (valid && pos < k) {
-    col_v[pos] = v;
-    col_g[pos] = g;
-    if (pos == k - 1) {
-      *thr_v = v;
-      *thr_g = g;
-    }
-  }
-  __syncwarp();
-}
 
 // kPruned = false: K1. kPruned = true: K3 (reads `bounds` [nb, n_cols],
 // writes its skipped-fragment count to skips[blockIdx.y * gridDim.x +
@@ -226,7 +153,6 @@ __global__ void __launch_bounds__(kThreads, 1) resident_topk_kernel(
   const int n_mine = min(kCols, n_cols - col0);     // columns of the group
 
   float4* acc4 = reinterpret_cast<float4*>(acc);
-  const float2* acc2 = reinterpret_cast<const float2*>(acc);
   for (int i = tid; i < block_size * (kCols / 4); i += kThreads)
     acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i = tid; i < kCounts; i += kThreads) counts[i] = 0;
@@ -366,65 +292,19 @@ __global__ void __launch_bounds__(kThreads, 1) resident_topk_kernel(
     }
 
     if (!dead) {
-      // the fold, 1: a warp marks, for its lane's two columns, which of
-      // its rows (warp + 16 j) rank before the column's row k - 1; rows
-      // past n_docs are padding, which never does
+      // the fold (threshold_fold.cuh): rows past n_docs are padding, which
+      // never ranks before the board's row k - 1
       unsigned* masks = reinterpret_cast<unsigned*>(stage);  // [16][64]
-      {
-        const int c = 2 * lane;
-        const float tv0 = thr_v[c], tv1 = thr_v[c + 1];
-        const int tg0 = thr_g[c], tg1 = thr_g[c + 1];
-        const bool live0 = c < n_mine, live1 = c + 1 < n_mine;
-        unsigned m0 = 0, m1 = 0;
-        for (int j = 0; j < 32; ++j) {
-          const int row = warp + (j << 4);
-          if (row >= block_size || base + row >= n_docs) break;  // uniform
-          const float2 a = acc2[row * (kCols / 2) + lane];
-          const int id = static_cast<int>(base + row);
-          if (live0 && bm25::rank_before(a.x, id, tv0, tg0)) m0 |= 1u << j;
-          if (live1 && bm25::rank_before(a.y, id, tv1, tg1)) m1 |= 1u << j;
-        }
-        masks[warp * kCols + c] = m0;
-        masks[warp * kCols + c + 1] = m1;
-      }
+      const int n_rows = static_cast<int>(
+          max(0LL, min(static_cast<long long>(block_size), n_docs - base)));
+      const auto raw = [](int, float v) { return v; };
+      const auto gid = [base](int row) {
+        return static_cast<int>(base + row);
+      };
+      bm25::fold_mark(acc, n_rows, n_mine, thr_v, thr_g, raw, gid, masks);
       __syncthreads();
-      // 2: warp w merges columns 4 w .. 4 w + 3, 32 marked rows at a time
-      for (int cc = 0; cc < kWarpCols; ++cc) {
-        const int c = warp * kWarpCols + cc;
-        if (c >= n_mine) break;                     // warp-uniform
-        const unsigned mk = lane < kWarps ? masks[lane * kCols + c] : 0u;
-        const int cnt = __popc(mk);
-        int incl = cnt;                             // marked rows of warps
-#pragma unroll                                      // 0 .. lane
-        for (int d = 1; d < 32; d <<= 1) {
-          const int y = __shfl_up_sync(kFull, incl, d);
-          if (lane >= d) incl += y;
-        }
-        const int excl = incl - cnt;
-        const int total = __shfl_sync(kFull, incl, 31);
-        for (int t0 = 0; t0 < total; t0 += 32) {
-          const int t = t0 + lane;                  // my candidate
-          int o = 0;                // its warp: the last o with excl <= t
-#pragma unroll
-          for (int q = 1; q < kWarps; ++q)
-            if (__shfl_sync(kFull, excl, q) <= t) o = q;
-          const unsigned mo = __shfl_sync(kFull, mk, o);
-          const int eo = __shfl_sync(kFull, excl, o);
-          bool valid = t < total;
-          float v = 0.f;
-          int g = 0;
-          if (valid) {
-            const int row = o + (nth_set_bit(mo, t - eo) << 4);
-            v = acc[row * kCols + c];
-            g = static_cast<int>(base + row);
-            // an earlier merge may have raised the threshold past it
-            valid = bm25::rank_before(v, g, thr_v[c], thr_g[c]);
-          }
-          merge_column(my_v + static_cast<size_t>(c) * k,
-                       my_g + static_cast<size_t>(c) * k, k, valid, v, g,
-                       thr_v + c, thr_g + c, lane);
-        }
-      }
+      bm25::fold_merge(acc, masks, n_mine, k, my_v, my_g, thr_v, thr_g, raw,
+                       gid);
       __syncthreads();                              // acc is read
       for (int i = tid; i < block_size * (kCols / 4); i += kThreads)
         acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);

@@ -1,22 +1,18 @@
-// Column-wise top-k selection shared by the BM25 kernels of the port.
+// The port's total order on (score, id) entries, shared by the BM25
+// kernels: score descending, then id ascending (rank_before), and the
+// warp-wide best entry under it (warp_best, used by board_merge.cuh).
 //
-// Replaces: src/repro/kernels/blockwise_topk.py::select_topk (k rounds of
-// max / argmax / mask over a VMEM accumulator) and the winner fold of
-// src/repro/kernels/bm25_gather_score.py::_fold_winners.
+// Replaces: src/repro/kernels/blockwise_topk.py::select_topk's order (k
+// rounds of max / argmax / mask over a VMEM accumulator) and the winner
+// fold of src/repro/kernels/bm25_gather_score.py::_fold_winners.
 //
 // On the TPU one grid step owns the whole [rows, B] accumulator and the
-// sequential grid orders equal scores by schedule. Here a warp owns one
-// query column: each lane scans a strided slice of the column held in
-// shared memory, a butterfly of shuffles picks the warp-wide winner, and
-// the winning lane marks its entry taken (-INF, below the padding value
-// -FLT_MAX, so padding is still selected before anything taken). Every
-// comparison follows one total order — score descending, then document id
-// ascending, then position — so the result does not depend on which warp,
+// sequential grid orders equal scores by schedule. Here every comparison
+// follows one total order, so the result does not depend on which warp,
 // CTA or launch saw an entry first, and the plain torch twin reproduces it
-// with one sort (repro_torch.core.retrieval.rank_order).
-//
-// Bound: k rounds over `rows` entries per column, all in shared memory;
-// small next to the scoring loops that fill the accumulator.
+// with one sort (repro_torch.core.retrieval.rank_order). The selection
+// itself is threshold_fold.cuh's (K1-K4) and board_merge.cuh's merge of
+// sorted boards.
 #pragma once
 
 #include <cfloat>
@@ -46,35 +42,6 @@ __device__ __forceinline__ void warp_best(float& v, int& g, int& p) {
       p = op;
     }
   }
-}
-
-// Best entry of a strided shared-memory column col[r * ld], r < n, whose
-// id is id_of(r). Taken entries hold -INF. The caller guarantees at least
-// one untaken entry, so the winner is always a real position.
-template <typename IdOf>
-__device__ __forceinline__ void column_best(const float* col, int ld, int n,
-                                            IdOf id_of, int lane, float& v,
-                                            int& g, int& p) {
-  v = -INFINITY;
-  g = INT_MAX;
-  p = INT_MAX;
-  for (int r = lane; r < n; r += 32) {
-    const float x = col[static_cast<size_t>(r) * ld];
-    const int id = id_of(r);
-    if (rank_before(x, id, v, g)) {
-      v = x;
-      g = id;
-      p = r;
-    }
-  }
-  warp_best(v, g, p);
-}
-
-// Mark position p of the column taken; the lane that scans p does it, so
-// the next round's read of p is ordered after the write in that thread.
-__device__ __forceinline__ void column_take(float* col, int ld, int p,
-                                            int lane) {
-  if (lane == (p & 31)) col[static_cast<size_t>(p) * ld] = -INFINITY;
 }
 
 }  // namespace bm25

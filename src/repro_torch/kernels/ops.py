@@ -93,22 +93,28 @@ def bm25_retrieve_blocked(token_ids, local_doc, scores, uniq_tokens,
 
     Stage 1 is the fused score→top-k kernel (``[nb, kb, B]`` winners; the
     dense ``[nb, block_size, B]`` matrix never reaches device memory).
-    Stage 2 is the global merge over ``nb·kb`` candidates per query —
-    lossless because every global winner wins its own block. The §2.1
-    shift is a per-query constant, added after the merge.
+    Stage 2 is :func:`topk` over the ``nb·kb`` candidates per query (K5
+    over segments of 4,096, then the rank merge) — lossless because every
+    global winner wins its own block — and the winners' global ids are
+    gathered at the positions it returns. A candidate's position is
+    ``blk·kb + r`` and K2 ranks equal scores by row ascending, so among
+    equal scores position order is doc id order: the board is the one a
+    sort of all candidates by (score desc, doc id asc) gives, bit for bit.
+    The §2.1 shift is a per-query constant, added after the merge.
     """
     kb = min(k, block_size, n_docs)
     vals, loc = bm25_block_score_topk(
         token_ids, local_doc, scores, uniq_tokens, weights,
         block_size=block_size, k=kb, n_docs=n_docs)
     nb, _, b = vals.shape
-    gids = loc + (torch.arange(nb, dtype=torch.int32, device=loc.device)
-                  * block_size)[:, None, None]
     flat_v = vals.permute(2, 0, 1).reshape(b, nb * kb)
-    flat_i = gids.permute(2, 0, 1).reshape(b, nb * kb)
-    sel = rank_order(flat_v, flat_i)[:, :min(k, n_docs, nb * kb)]
-    return (torch.gather(flat_i, 1, sel),
-            torch.gather(flat_v, 1, sel) + nonocc_shift[:, None])
+    top_v, pos = topk(flat_v, min(k, n_docs, nb * kb))
+    # the winner at flat position blk·kb + r of query q is loc[blk, r, q]
+    pos = pos.long()
+    q = torch.arange(b, device=pos.device)[:, None]
+    rows = loc.reshape(-1)[pos * b + q]
+    ids = torch.div(pos, kb, rounding_mode="floor") * block_size + rows
+    return ids.to(torch.int32), top_v + nonocc_shift[:, None]
 
 
 def bm25_retrieve_gathered(token_ids, slot_ids, scores, uniq_tokens,

@@ -514,6 +514,189 @@ def test_k6_bitwise_equal_twin_wide_table(cuda_device, n_uniq, layout):
     assert torch.equal(_bits(got), _bits(ref))
 
 
+def _k2_operands(rng, method, block_size, b, layout, n_uniq=None):
+    """Blocked postings of a seeded corpus (its last block part padding),
+    every third document a copy of the one before (exact ties), and a
+    query table: a packed batch of ``b`` queries or, with ``n_uniq``, that
+    many sorted table rows. Every fifth weight column is zero (a column of
+    ties only). Layouts as K6's tests: token-sorted, shuffled within each
+    block, and one with an empty block, a long run, rows out of range and
+    a repeated table row."""
+    n_vocab = 3000 if n_uniq is None else 12_000
+    n_docs = 2 * block_size + block_size // 3 + 5
+    corpus = make_corpus(rng, n_docs=n_docs, n_vocab=n_vocab, max_len=60)
+    corpus[2::3] = corpus[1::3][:len(corpus[2::3])]
+    idx = build_index(corpus, n_vocab, params=BM25Params(method=method))
+    di = DeviceIndex.build(idx, device="cpu", block_size=block_size, tile=64,
+                           frag=8, with_bmax=False)
+    tok, loc, sc = (t.clone() for t in (di.blk_tok, di.blk_loc, di.blk_sc))
+    if n_uniq is None:
+        qs = [rng.integers(0, n_vocab, size=rng.integers(1, 8))
+              .astype(np.int32) for _ in range(b)]
+        toks, wts, uniq = pad_queries(qs, 8, return_uniq=True)
+        tab, w = pack_query_batch(toks, wts, 8 * b, uniq=uniq)
+        tab, w = torch.as_tensor(tab), torch.as_tensor(w)
+    else:
+        tab = torch.as_tensor(np.sort(rng.choice(n_vocab, n_uniq,
+                                                 replace=False))
+                              .astype(np.int32))
+        w = torch.as_tensor(rng.normal(size=(n_uniq, b)).astype(np.float32))
+    w[:, ::5] = 0.0
+    if layout == "shuffled":
+        perm = torch.as_tensor(np.stack([rng.permutation(tok.shape[1])
+                                         for _ in range(tok.shape[0])]))
+        tok, loc, sc = (torch.gather(t, 1, perm) for t in (tok, loc, sc))
+    elif layout == "holes":
+        tok[1] = -1                              # no posting at all
+        tok[2, : tok.shape[1] // 2] = int(tab[5])    # one long run
+        loc[0, ::7] = block_size                 # rows out of range
+        loc[0, 3::11] = -3
+        tab[11] = tab[10]                        # a repeated row
+    return (tok, loc, sc, tab, w), idx.n_docs
+
+
+# (block_size, k): blocks of 16, 200 and 700 rows (not multiples of 32 or
+# 512), one window of 512 and two of 1,024; k from 1 to the whole block.
+# A block of at most 512 rows selects its board 128 rows a pass (k = 129
+# to 512 in two to four passes); a block past 512 rows puts the board in
+# device memory
+_K2_SHAPES = [(16, 1), (16, 7), (16, 16), (64, 1), (64, 7), (64, 32),
+              (64, 64), (512, 1), (512, 32), (512, 100), (512, 512),
+              (700, 1), (700, 100), (700, 700), (1024, 7), (1024, 100),
+              (1024, 1024), (512, 7), (700, 7), (700, 32), (1024, 1),
+              (1024, 32), (512, 128), (512, 129), (512, 200), (512, 385),
+              (200, 150)]
+
+
+@pytest.mark.parametrize("layout", ["sorted", "shuffled", "holes"])
+@pytest.mark.parametrize("block_size,k", _K2_SHAPES)
+def test_k2_bitwise_equal_twin_any_shape(cuda_device, block_size, k,
+                                         layout):
+    """K2 (K6's walk, a window of 512 rows at a time, then the select in
+    passes of 128 board rows, or past 512 rows the threshold fold into an
+    empty board) against its CPU twin bit for bit, values and rows: block
+    sizes 16 to 1,024, k from 1 to the block, B in {3, 64,
+    100, 256}, robertson's negative IDF among three variants, columns of
+    ties only, repeated documents, and a last block part padding (its
+    padding rows are taken, in row order, when k asks for them)."""
+    i = _K2_SHAPES.index((block_size, k))
+    b = (3, 64, 100, 256)[i % 4]
+    method = ("robertson", "lucene", "bm25l")[i % 3]
+    ops_t, n_docs = _k2_operands(np.random.default_rng(1000 + i), method,
+                                 block_size, b, layout)
+    assert n_docs % block_size != 0
+    kw = dict(block_size=block_size, k=k, n_docs=n_docs)
+    n0 = k2.LAUNCHES.n
+    ref = k2.bm25_block_score_topk(*ops_t, **kw)
+    got = k2.bm25_block_score_topk(*(t.to(cuda_device) for t in ops_t),
+                                   **kw)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES.n == n0 + 1
+    for a, r in zip(got, ref):
+        assert torch.equal(_bits(a), _bits(r))
+
+
+@pytest.mark.parametrize("layout", ["sorted", "shuffled", "holes"])
+@pytest.mark.parametrize("n_uniq", [2048, 2049, 8192])
+def test_k2_bitwise_equal_twin_wide_table(cuda_device, n_uniq, layout):
+    """K2 at B = 256, k = 100, block 512 with unique tables of one to four
+    2,048-row pieces (8,192 rows: 256 queries of Q_MAX 32 tokens), against
+    its CPU twin bit for bit."""
+    ops_t, n_docs = _k2_operands(np.random.default_rng(n_uniq), "robertson",
+                                 512, 256, layout, n_uniq=n_uniq)
+    kw = dict(block_size=512, k=100, n_docs=n_docs)
+    ref = k2.bm25_block_score_topk(*ops_t, **kw)
+    got = k2.bm25_block_score_topk(*(t.to(cuda_device) for t in ops_t),
+                                   **kw)
+    for a, r in zip(got, ref):
+        assert torch.equal(_bits(a), _bits(r))
+
+
+def test_k2_k4_take_tables_the_first_kernels_refused(cuda_device):
+    """The first K2 and K4 kept the unique table in shared memory beside
+    their accumulator and refused tables past ~40 k rows at 512 rows; the
+    walk searches the table 2,048 rows a piece, so 50,000 rows (the pack's
+    pad rows among them) run, bitwise equal to the twins."""
+    rng = np.random.default_rng(50)
+    n_vocab = 60_000
+    corpus = make_corpus(rng, n_docs=1500, n_vocab=n_vocab, max_len=60)
+    idx = build_index(corpus, n_vocab, params=BM25Params(method="lucene"))
+    di = DeviceIndex.build(idx, device="cpu", block_size=512, tile=64,
+                           frag=8, with_bmax=False)
+    tab = np.sort(rng.choice(n_vocab, 50_000, replace=False)).astype(np.int32)
+    tab[-500:] = np.iinfo(np.int32).max
+    tab_t = torch.as_tensor(tab)
+    w = torch.as_tensor(rng.normal(size=(50_000, 8)).astype(np.float32))
+    ops2 = (di.blk_tok, di.blk_loc, di.blk_sc, tab_t, w)
+    kw2 = dict(block_size=512, k=10, n_docs=idx.n_docs)
+    for a, r in zip(k2.bm25_block_score_topk(*(t.to(cuda_device)
+                                               for t in ops2), **kw2),
+                    k2.bm25_block_score_topk(*ops2, **kw2)):
+        assert torch.equal(_bits(a), _bits(r))
+    gp = gather_posting_runs(idx, np.unique(tab[:-500]), acc_block=512,
+                             tile=64)
+    ops4 = tuple(torch.as_tensor(a) for a in (
+        gp.token_ids, gp.slot_ids, gp.scores, tab, w, gp.candidates))
+    for two_level in (False, True):
+        kw4 = dict(acc_block=512, k=10, two_level=two_level)
+        for a, r in zip(k1.bm25_gather_score_topk(*(t.to(cuda_device)
+                                                    for t in ops4), **kw4),
+                        k1.bm25_gather_score_topk(*ops4, **kw4)):
+            assert torch.equal(_bits(a), _bits(r))
+
+
+def test_k2_k4_refuse_more_than_65535_blocks(cuda_device):
+    """What K2 and K4 still refuse: more than 65,535 blocks or chunks (a
+    CTA row each in the grid's y dimension); the twins take any count."""
+    n = 65_536
+    tok = torch.full((n, 1), -1, dtype=torch.int32, device=cuda_device)
+    loc = torch.zeros((n, 1), dtype=torch.int32, device=cuda_device)
+    sc = torch.zeros((n, 1), device=cuda_device)
+    tab = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    w = torch.zeros((1, 4), device=cuda_device)
+    cand = torch.full((n, 16), -1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="65535"):
+        k2.bm25_block_score_topk(tok, loc, sc, tab, w, block_size=16, k=1,
+                                 n_docs=16 * n)
+    with pytest.raises(ValueError, match="65535"):
+        k1.bm25_gather_score_topk(tok, loc, sc, tab, w, cand, acc_block=16,
+                                  k=1)
+
+
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("k", [1, 7, 32, 100, 200, 600])
+def test_k4_bitwise_equal_twin_wide_boards(cuda_device, k, two_level):
+    """K4 at ``acc_block`` as ``DeviceRetriever`` sizes it,
+    ``bucket_pow2(k, floor=512)``: 512 rows (one window; k = 200 selects
+    in two passes) for k <= 512 and 1,024 (two windows, the board in
+    device memory) for k = 600; robertson's
+    negative IDF, and chunks with fewer real candidates than k (the last
+    chunk, and a batch of 3 rare-token queries whose one chunk is mostly
+    padding: winners of id -1), against the CPU twin bit for bit."""
+    acc = 1024 if k > 512 else 512
+    rng = np.random.default_rng(600 + k)
+    corpus = make_corpus(rng, n_docs=3000, n_vocab=300, max_len=25)
+    idx = build_index(corpus, 300, params=BM25Params(method="robertson"))
+    for b, q_len in ((40, 6), (3, 2)):
+        qs = [rng.integers(0, 300, size=rng.integers(1, q_len))
+              .astype(np.int32) for _ in range(b)]
+        toks, wts, uniq = pad_queries(qs, 8, return_uniq=True)
+        tab, w = pack_query_batch(toks, wts, 8 * b, uniq=uniq)
+        gp = gather_posting_runs(idx, uniq, acc_block=acc, tile=16)
+        assert int((gp.candidates[-1] < 0).sum()) > 0    # padding slots
+        ops = tuple(torch.as_tensor(a) for a in (
+            gp.token_ids, gp.slot_ids, gp.scores, tab, w, gp.candidates))
+        kw = dict(acc_block=acc, k=k, two_level=two_level)
+        n0 = k1.LAUNCHES_GATHER.n
+        ref = k1.bm25_gather_score_topk(*ops, **kw)
+        got = k1.bm25_gather_score_topk(*(t.to(cuda_device) for t in ops),
+                                        **kw)
+        torch.cuda.synchronize()
+        assert k1.LAUNCHES_GATHER.n == n0 + 1
+        for a, r in zip(got, ref):
+            assert torch.equal(_bits(a), _bits(r))
+
+
 def _k5_rows(rng, kind, r, n):
     if kind == "normal":
         return rng.normal(size=(r, n)).astype(np.float32)

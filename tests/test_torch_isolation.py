@@ -3,7 +3,7 @@
 * ``import repro_torch`` (and every subpackage) leaves ``jax`` out of
   ``sys.modules``;
 * an AST scan finds no import of ``jax`` or ``repro`` in any module of
-  ``src/repro_torch`` or in ``chip_smoke.py``;
+  ``src/repro_torch``, in ``chip_smoke.py`` or in ``tools/``;
 * every CUDA source names the TPU kernel it replaces and its bound, and
   every one is built; the BM25 sources round each product and sum
   separately, and no source adds with atomics;
@@ -11,7 +11,8 @@
   compiler only when asked to build (this suite imports every module
   without one);
 * ``chip_smoke.py`` exits non-zero and prints no result without a GPU and
-  outside the repository.
+  outside the repository, and ``tools/time_board_kernels.py`` exits 2
+  without a GPU.
 """
 
 import ast
@@ -90,7 +91,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tools").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_module_imports_jax_or_repro(path):
     bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
@@ -105,6 +107,57 @@ def test_cuda_sources_carry_their_note(name):
     assert "Bound on the H100" in src
     assert "__fadd_rn" in src and "__fmul_rn" in src   # no FMA contraction
     assert "atomicAdd" not in src                      # fixed sum order
+
+
+def _code(text: str) -> str:
+    """A CUDA source without its comments."""
+    return re.sub(r"//[^\n]*", "", text)
+
+
+def test_block_scatter_is_gone_and_no_k_round_select_remains():
+    """K2 and K4 left their first template: ``block_scatter.cuh`` is
+    deleted and included by no source, and no source keeps the k-round
+    column select (``column_best`` / ``column_take``)."""
+    csrc = PORT / "kernels" / "csrc"
+    assert not (csrc / "block_scatter.cuh").exists()
+    for f in sorted(csrc.glob("*.cu*")):
+        code = _code(f.read_text())
+        assert "block_scatter" not in code, f.name
+        assert "column_best" not in code and "column_take" not in code, \
+            f.name
+
+
+@pytest.mark.parametrize("name", ["block_walk.cuh", "threshold_fold.cuh",
+                                  "block_topk.cuh", "owner_round.cuh"])
+def test_shared_headers_round_and_use_no_atomics(name):
+    """The headers K1-K4 and K6 share: none adds with atomics; the walk's
+    sums are owner_round.cuh's, rounded separately (__fmul_rn then
+    __fadd_rn: no FMA contraction), and each header names them."""
+    csrc = PORT / "kernels" / "csrc"
+    src = (csrc / name).read_text()
+    assert "atomic" not in _code(src)
+    assert "__fadd_rn" in src and "__fmul_rn" in src
+    rounds = _code((csrc / "owner_round.cuh").read_text())
+    assert "__fadd_rn(" in rounds and "__fmul_rn(" in rounds
+    includes = {
+        "block_walk.cuh": ["owner_round.cuh"],
+        "block_topk.cuh": ["block_walk.cuh", "threshold_fold.cuh"],
+        "threshold_fold.cuh": ["owner_round.cuh", "select_topk.cuh"],
+        "owner_round.cuh": []}[name]
+    for inc in includes:
+        assert f'#include "{inc}"' in src
+
+
+@pytest.mark.parametrize("name,uses", [
+    ("bm25_block_score", ["block_topk<false>", "walk_block("]),
+    ("bm25_gather_score", ["block_topk<true>", "launch_board_merge("]),
+    ("bm25_resident", ["fold_mark(", "fold_merge(", "owner_round("])])
+def test_kernels_share_the_walk_and_the_fold(name, uses):
+    """K2 and K4 run the shared body (the walk, then the threshold fold);
+    K6 the walk alone; K1/K3 the owner rounds and the same fold."""
+    code = _code((PORT / "kernels" / "csrc" / f"{name}.cu").read_text())
+    for u in uses:
+        assert u in code, u
 
 
 def test_topk_source_carries_its_note():
@@ -158,6 +211,15 @@ def test_chip_smoke_fails_without_a_gpu():
     r = _run([str(ROOT / "chip_smoke.py")], cwd=ROOT)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_time_board_kernels_fails_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the tool would run for real")
+    r = _run([str(ROOT / "tools" / "time_board_kernels.py"), str(tmp_path),
+              "--src", str(ROOT / "src"), "--label", "cpu"], cwd=ROOT)
+    assert r.returncode == 2
+    assert "no CUDA device" in r.stderr
 
 
 def test_chip_smoke_fails_outside_the_repository(tmp_path):
