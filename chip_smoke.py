@@ -41,7 +41,8 @@ Phases (any failure exits non-zero; nothing is caught):
    Zipf tokens as ``repro.data.corpus.zipf_queries`` draws them): build a
    ``DeviceRetriever`` on cuda with its defaults (``plan="device"``, a
    block-max table of the ``auto`` dtype) and serve each batch under
-   ``auto``, ``gathered``, ``blocked`` and ``pruned``; every pruned board
+   ``auto`` (its survivor estimate on the card), ``gathered``,
+   ``blocked`` and ``pruned``; every pruned board
    bitwise equal to the gathered board of the same batch, ``auto`` equal
    to the regime it chose; zero posting AND descriptor bytes after the
    build, the launch counters of K1-K3 > 0, and sampled queries of every
@@ -126,6 +127,23 @@ Phases (any failure exits non-zero; nothing is caught):
    1e-5 of ``F.embedding_bag``; each kernel, its twin on the card and the
    library call are timed with CUDA events.
 
+8. after phase 3, on its retriever: ``auto``'s survivor estimate on the
+   card (``estimate_survivors_device``) against the host numpy one on
+   every phase 3 ``auto`` batch (the same ``survivor_frac`` and regime,
+   ``ub`` within one f32 ulp, the ulps counted; both timed at B = 256),
+   then 4,096 single Zipf queries submitted at once and 1,024 more at
+   seeded exponential gaps at half the burst's QPS through
+   ``ServingFrontend(dr, k=100, max_batch=32, batch_deadline_s=0.002)``
+   (``max_queue`` 4,096, so the burst is admitted): p50/p99 of each
+   request's ``latency_s`` and ``queue_s``, QPS, mean batch, flush
+   reasons, the regime mix and the launches, zero posting and descriptor
+   bytes, every future resolved within 300 s, 128 sampled requests exact
+   against ``ScipyBM25``, every recorded batch bitwise equal to a direct
+   ``retrieve_batch`` on its queries; then a ``frontend.former`` thread
+   death recovers, an unguarded ``queue.flood`` raises
+   ``QueueOverflowError`` and ``close(drain=False)`` fails pending
+   futures with ``StageFailedError``.
+
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
 width), for ``tools/time_board_kernels.py`` to time another tree's
@@ -138,7 +156,8 @@ true, ...}`` JSON. The script exits non-zero without a CUDA device, and
 when run outside the repository (it imports ``src/repro_torch``). The
 kernels line lists K1-K8; ``launches`` counts each kernel on its own
 path: phase 3 for K1-K3, phase 4 for K4, phase 6 for K5 and K6, phase 7
-for K7 (once) and K8 (twice).
+for K7 (once) and K8 (twice); ``launches_frontend`` counts K1-K6 in phase
+8's front-end pass.
 """
 
 from __future__ import annotations
@@ -213,6 +232,16 @@ SAMPLE_SEEDS = 1024
 FANOUTS = (15, 10)
 K7_RTOL = 1e-4                 # K7 vs index_add_ (atomics: another order)
 K8_RTOL = 1e-5                 # K8 vs F.embedding_bag (another order)
+# phase 8: the micro-batching front-end over phase 3's retriever
+FE_MAX_BATCH = 32              # ServingFrontend(max_batch=...)
+FE_DEADLINE_S = 0.002          # ServingFrontend(batch_deadline_s=...)
+FE_BURST = 4096                # single queries submitted at once
+FE_PACED = 1024                # then paced at half the burst's QPS
+FE_SAMPLES = 128               # requests held exact against ScipyBM25
+FE_TIMEOUT_S = 300.0           # every future resolves within this
+REGIME_KERNEL = {"gathered": "bm25_resident_score_topk",
+                 "blocked": "bm25_block_score_topk",
+                 "pruned": "bm25_resident_score_topk_pruned"}
 
 
 def check(ok, what: str) -> None:
@@ -1441,6 +1470,189 @@ def phase_sparse(seed: int) -> list:
     return [entry7, entry8]
 
 
+def percentiles_ms(xs) -> str:
+    a = np.asarray(xs) * 1e3
+    return (f"p50 {np.percentile(a, 50):.2f} ms, p99 "
+            f"{np.percentile(a, 99):.2f} ms")
+
+
+def phase_frontend(dr, oracle, rng, auto_served) -> dict:
+    """Phase 8: ``auto``'s survivor estimate on the card against the host
+    numpy one, then single queries through ``ServingFrontend`` over phase
+    3's retriever, and its faults. Returns the launches of the front-end
+    pass, by kernel."""
+    import torch
+    from types import SimpleNamespace
+
+    from repro_torch.core.retrieval import plan_retrieval
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.serve import (QueueOverflowError, ServingFrontend,
+                                   StageFailedError)
+    from repro_torch.serve.faults import inject_faults
+    from repro_torch.sparse.block_csr import (TRANSFERS,
+                                              estimate_prune_survivors,
+                                              reset_transfer_stats)
+    from repro_torch.sparse.fragment_device import estimate_survivors_device
+
+    # -- the estimate: device against host on phase 3's auto batches --------
+    bm = dr.dindex.bmax
+    for n, (i, qs, res) in enumerate(auto_served):
+        pk = dr.pack_batch(qs)
+        t0 = time.perf_counter()
+        f_host, ub_host = estimate_prune_survivors(
+            bm, pk.uniq_tab, pk.weights, k=TOP_K, b_true=pk.b)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        operands = (bm.device, bm.scale_dev,
+                    torch.as_tensor(pk.uniq_tab, device=dr.device),
+                    torch.as_tensor(pk.weights, device=dr.device))
+
+        def on_card():
+            return estimate_survivors_device(
+                *operands, quantized=bm.quantized, k=TOP_K, b_true=pk.b)
+
+        f_dev, ub_dev = on_card()
+        dev_ms = cuda_ms(on_card, reps=5)
+        regime = plan_retrieval(
+            dr.dindex.sum_df(pk.uniq_batch), dr.dindex.nnz, regime="auto",
+            crossover=dr.crossover, plan=dr.plan_mode,
+            survivor_frac=f_host).regime
+        # ub: an f64 sum over the batch's tokens cast to f32, by cuBLAS on
+        # the card and by numpy on the host (another order): held bitwise,
+        # the one ulp it may differ by counted and bounded
+        a = ub_dev.cpu().numpy().view(np.int32).astype(np.int64)
+        b = ub_host.view(np.int32).astype(np.int64)
+        ulps = np.abs(a - b)
+        print(f"[frontend] phase 3 auto batch {i}: survivor_frac card "
+              f"{f_dev!r} host {f_host!r} served {res.plan.survivor_frac!r};"
+              f" regime served {res.plan.regime}, by the host estimate "
+              f"{regime}; ub [{ub_host.shape[0]}, {ub_host.shape[1]}] "
+              f"entries differing by one f32 ulp {int((ulps == 1).sum())}, "
+              f"by more {int((ulps > 1).sum())}; estimate at B = "
+              f"{pk.weights.shape[1]}: card {dev_ms:.3f} ms (CUDA events, 5 "
+              f"calls), host {host_ms:.1f} ms", flush=True)
+        check(f_dev == f_host == res.plan.survivor_frac,
+              "device survivor_frac == host survivor_frac")
+        check(regime == res.plan.regime, "auto's regime == the host's")
+        check(int(ulps.max()) <= 1, "device ub within one f32 ulp of host")
+
+    # -- the front-end pass ------------------------------------------------
+    qs_all = zipf_queries(rng, FE_BURST + FE_PACED, N_VOCAB)
+    fe = ServingFrontend(dr, k=TOP_K, max_batch=FE_MAX_BATCH,
+                         batch_deadline_s=FE_DEADLINE_S,
+                         max_queue=FE_BURST, record_batches=True)
+    reset_transfer_stats()
+    for c in COUNTERS:
+        c.reset()
+    t0 = time.perf_counter()
+    futs = [fe.submit(q) for q in qs_all[:FE_BURST]]
+    rows = [f.result(timeout=FE_TIMEOUT_S) for f in futs]
+    burst_s = time.perf_counter() - t0
+    burst_qps = FE_BURST / burst_s
+    gaps = rng.exponential(2.0 / burst_qps, size=FE_PACED)
+    t0 = time.perf_counter()
+    futs = []
+    for q, at in zip(qs_all[FE_BURST:], np.cumsum(gaps)):
+        wait = t0 + at - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        futs.append(fe.submit(q))
+    paced = [f.result(timeout=FE_TIMEOUT_S) for f in futs]
+    paced_s = time.perf_counter() - t0
+    fe.close()
+    launches = {c.name: c.n for c in COUNTERS}
+    h = fe.health()
+    mix: dict = {}
+    for _, _, res in fe.recorded:
+        mix[res.plan.regime] = mix.get(res.plan.regime, 0) + 1
+    for name, part in (("burst", rows), ("paced", paced)):
+        print(f"[frontend] {name}: latency_s "
+              f"{percentiles_ms([r.latency_s for r in part])}; queue_s "
+              f"{percentiles_ms([r.timings['queue_s'] for r in part])}",
+              flush=True)
+    print(f"[frontend] {FE_BURST} burst requests in {burst_s:.3f} s "
+          f"({burst_qps:.1f} QPS), {FE_PACED} paced at "
+          f"{burst_qps / 2:.1f} QPS offered in {paced_s:.3f} s "
+          f"({FE_PACED / paced_s:.1f} QPS); {h['batches']} batches, mean "
+          f"batch {h['mean_batch']:.2f}, flushes {h['flushes']}, regime mix "
+          f"{mix}; served {h['served']} degraded {h['degraded']} faults "
+          f"{h['faults']}; launches {launches}; posting bytes "
+          f"{TRANSFERS.posting_bytes}, descriptor bytes "
+          f"{TRANSFERS.descriptor_bytes}", flush=True)
+    total = FE_BURST + FE_PACED
+    check(h["served"] == h["submitted"] == total and h["pending"] == 0,
+          "every front-end request served")
+    check(h["faults"] == {} and h["degraded"] == 0,
+          "no fault or degradation in the front-end pass")
+    check(sum(len(r[0]) for r in fe.recorded) == total,
+          "recorded batches hold every request")
+    check(TRANSFERS.posting_bytes == 0 and TRANSFERS.descriptor_bytes == 0,
+          "the front-end pass ships no posting or descriptor bytes")
+    for regime in mix:
+        check(launches[REGIME_KERNEL[regime]] > 0,
+              f"{REGIME_KERNEL[regime]} launched in the front-end pass")
+    check(launches["bm25_resident_score_topk"] > 0,
+          "K1 launched in the front-end pass")
+
+    # -- exactness: sampled requests, recorded batches replayed directly ----
+    t0 = time.perf_counter()
+    allrows = rows + paced
+    board_all = SimpleNamespace(ids=np.stack([r.ids for r in allrows]),
+                                scores=np.stack([r.scores for r in allrows]))
+    worst = sampled_exact(oracle, qs_all, board_all, rng, FE_SAMPLES)
+    same = all(boards_equal(res, dr.retrieve_batch(bq, kk))
+               for bq, kk, res in fe.recorded)
+    print(f"[frontend] {FE_SAMPLES} sampled requests exact against "
+          f"ScipyBM25, max |score - oracle| {worst:.3g} (atol {EXACT_ATOL});"
+          f" {len(fe.recorded)} recorded batches bitwise equal to direct "
+          f"retrieve_batch calls {same} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    check(same, "front-end batches == direct retrieve_batch")
+
+    # -- faults: former death, queue flood, close(drain=False) -------------
+    few = qs_all[:8]
+    with inject_faults({"site": "frontend.former", "kind": "thread_death",
+                        "times": 1, "seed": 1}) as sp:
+        fe = ServingFrontend(dr, k=TOP_K, max_batch=FE_MAX_BATCH,
+                             batch_deadline_s=FE_DEADLINE_S,
+                             record_batches=True)
+        got = [f.result(timeout=FE_TIMEOUT_S)
+               for f in [fe.submit(q) for q in few]]
+        fe.close()
+    recovered = (sp[0].fired == 1 and fe.health()["restarts"] == 1
+                 and len(got) == len(few)
+                 and all(boards_equal(res, dr.retrieve_batch(bq, kk))
+                         for bq, kk, res in fe.recorded))
+    fe = ServingFrontend(dr, k=TOP_K, max_batch=FE_MAX_BATCH,
+                         batch_deadline_s=FE_DEADLINE_S, max_queue=64)
+    with inject_faults({"site": "queue.flood", "kind": "flood", "times": 1,
+                        "seed": 1, "guarded": False}) as sp:
+        try:
+            fe.submit(few[0])
+            flood = None
+        except QueueOverflowError as e:
+            flood = e
+    flood_ok = (flood is not None and sp[0].fired == 1
+                and fe.health()["pending"] == 0
+                and fe.submit(few[0]).result(timeout=FE_TIMEOUT_S)
+                .ids.shape == (TOP_K,))
+    fe.close()
+    fe = ServingFrontend(dr, k=TOP_K, max_batch=64, batch_deadline_s=30.0)
+    futs = [fe.submit(q) for q in few]
+    fe.close(drain=False)
+    aborted = [f.exception(timeout=FE_TIMEOUT_S) for f in futs]
+    abort_ok = (all(isinstance(e, StageFailedError) and e.stage == "close"
+                    for e in aborted) and fe.health()["aborted"] == len(few))
+    print(f"[frontend] faults: frontend.former thread death recovered "
+          f"{recovered}; queue.flood raised "
+          f"{type(flood).__name__ if flood else None} {flood_ok}; "
+          f"close(drain=False) failed {len(few)} pending futures with "
+          f"StageFailedError {abort_ok}", flush=True)
+    check(recovered, "frontend.former thread death recovers")
+    check(flood_ok, "queue.flood raises QueueOverflowError")
+    check(abort_ok, "close(drain=False) fails pending futures typed")
+    return launches
+
+
 def phase_bm25(args) -> list:
     """Phases 3-6: the BM25 query paths at full width (retriever,
     ladder, kernels, dense path). Returns the ``kernels`` entries of
@@ -1547,6 +1759,13 @@ def phase_bm25(args) -> list:
           f"regimes) exact against ScipyBM25, max |score - oracle| "
           f"{worst:.3g} (atol {EXACT_ATOL}; "
           f"{time.perf_counter() - t0:.1f}s)", flush=True)
+
+    # -- phase 8: the micro-batching front-end ----------------------------
+    t0 = time.perf_counter()
+    fe_launches = phase_frontend(
+        dr, oracle, np.random.default_rng(args.seed + 8),
+        [(i, qs, res) for regime, i, qs, res in served if regime == "auto"])
+    print(f"[frontend] done in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- phase 4: the ladder through the engine ---------------------------
     t0 = time.perf_counter()
@@ -1817,6 +2036,8 @@ def phase_bm25(args) -> list:
     t0 = time.perf_counter()
     kernels += phase_dense(dr, idx, oracle, rng)
     print(f"[dense] done in {time.perf_counter() - t0:.1f}s", flush=True)
+    for kd in kernels:
+        kd["launches_frontend"] = fe_launches[kd["name"]]
     return kernels
 
 

@@ -1,5 +1,6 @@
 """Serving surface of the PyTorch port: the device retriever with its exact
-degradation ladder, the sharded engine, and their types.
+degradation ladder, the sharded engine, the micro-batching front-end, and
+their types.
 
 Every retrieval entry point (``DeviceRetriever.retrieve`` /
 ``retrieve_batch``, ``RetrievalEngine.retrieve`` / ``retrieve_batch``)
@@ -10,10 +11,11 @@ the same at every level:
 
 * ``schema``  — :data:`~repro_torch.serve.health.HEALTH_SCHEMA` (``2``);
 * ``served``  — batches for a retriever or shard, scatter-gather rounds
-  for the engine;
+  for the engine, client requests for the front-end;
 * ``degraded`` — how many of those were served degraded: ladder hops
   (retriever/shard), missed shards under quorum + deadline hedging
-  (engine). Degraded responses are still exact;
+  (engine), a hopped batch or a missed SLO (front-end). Degraded
+  responses are still exact;
 * ``faults``  — typed-fault counts keyed by ``RetrievalError`` subclass
   name, summed upward;
 * ``queries`` — sanitizer repair counters
@@ -22,9 +24,10 @@ the same at every level:
 The overload knobs are the reference's: ``watchdog_s`` (None),
 ``retry_budget`` (0), ``retry_backoff_s`` (0.005),
 ``breaker_threshold`` (3; None disables), ``breaker_window_s`` (30.0) and
-``breaker_cooldown_s`` (5.0) on ``DeviceRetriever``. The front-end's
-admission gate (:class:`AdmissionController`) is here; the front-end that
-uses it, and snapshots, come with later slices of the port.
+``breaker_cooldown_s`` (5.0) on ``DeviceRetriever``, and the front-end's
+admission gate (:class:`AdmissionController`) and ``max_stage_restarts``
+(3) on :class:`ServingFrontend`. Snapshots come with a later slice of the
+port.
 """
 
 from .errors import (AdmissionRejectedError, DeadlineExceededError,
@@ -34,6 +37,7 @@ from .errors import (AdmissionRejectedError, DeadlineExceededError,
                      ScoreIntegrityError, SnapshotIntegrityError,
                      SnapshotVersionError, StageFailedError,
                      TruncationWarning)
+from .frontend import ServingFrontend
 from .health import HEALTH_SCHEMA, health_envelope
 from .overload import (AdmissionController, CircuitBreaker, RetryPolicy,
                        WatchdogExecutor)
@@ -49,6 +53,7 @@ __all__ = ["AdmissionController", "AdmissionRejectedError",
            "PlanOverflowError", "PrunedRetriever", "QueueOverflowError",
            "ResidencyError", "RetrievalConfigError", "RetrievalEngine",
            "RetrievalError", "RetrievalResult", "RetryPolicy",
-           "ScoreIntegrityError", "ShardRuntime", "SnapshotIntegrityError",
-           "SnapshotVersionError", "StageFailedError", "TruncationWarning",
-           "WatchdogExecutor", "health_envelope"]
+           "ScoreIntegrityError", "ServingFrontend", "ShardRuntime",
+           "SnapshotIntegrityError", "SnapshotVersionError",
+           "StageFailedError", "TruncationWarning", "WatchdogExecutor",
+           "health_envelope"]

@@ -40,8 +40,12 @@ Fault sites and their call sites in the port
   (``manifest_corrupt`` / ``stale_version``) and ``snapshot.array``
   (``truncate`` / ``bit_flip``) mutate the real files on disk, as in the
   reference; their call sites come with the port's snapshot slice.
-* ``frontend.former`` (``thread_death``) and ``queue.flood`` (``flood``)
-  get their call sites with the port's front-end slice.
+* ``frontend.former`` (``thread_death``), at the top of a
+  ``ServingFrontend`` former iteration inside :func:`guard` — the former
+  thread dies with a ``RuntimeError`` that only the stage supervisor
+  absorbs; and ``queue.flood`` (``flood``), in ``ServingFrontend.submit``
+  outside any guard (so only an unguarded spec fires) — the depth the
+  admission gate reads is inflated and the request is shed typed.
 
 Every mutation is a pure function of ``(seed, fire_count)`` — re-running
 the same test with the same spec replays the same corruption, byte for

@@ -1,9 +1,9 @@
 """Overload-protection primitives for the serving path.
 
 The port's copy of ``repro.serve.overload`` (numpy and threading only),
-whole: the retriever uses the breakers, the watchdog and the retry policy;
-the micro-batching front-end that gates on :class:`AdmissionController`
-comes with its own slice.
+whole: the retriever uses the breakers, the watchdog and the retry policy,
+and the micro-batching front-end (``serve/frontend.py``) gates on
+:class:`AdmissionController`.
 
 BM25S's eager-scoring speed only matters if the serving path stays up
 when traffic exceeds capacity or a regime starts failing repeatedly.

@@ -9,8 +9,10 @@ index:
    sanitizer, and turns the batch into pow2-bucketed ``[U]`` / ``[U, B]``
    query tables and a ``[B]`` §2.1 shift (host numpy);
 2. ``core.retrieval.plan_retrieval`` picks full scan, gathered or pruned
-   from Σ df, nnz and (under ``auto``) the host survivor estimate — the
-   entry rung of the ladder;
+   from Σ df, nnz and (under ``auto``) the survivor estimate — on the
+   resident block-max table (``sparse.fragment_device``) under
+   ``plan="device"``, in numpy under ``plan="host"`` — the entry rung of
+   the ladder;
 3. the rung runs on the device: pruned (a seed pass through K1, the
    threshold compaction, K3), resident (the fragment table — built on the
    device by ``sparse.fragment_device`` or on the host by
@@ -35,9 +37,9 @@ and donor reuse. Unlike the reference, whose engine defaults to
 ``scorer="scipy"``, the port's defaults to ``"auto"``: an entry point of
 the port runs on the card unless asked otherwise.
 
-Not ported yet (later slices, see ROADMAP): doc-id reordering, snapshots
-(``save``/``load``/``device_index=``/``device_indexes=``) and the
-micro-batching front-end. Asking for one raises
+Not ported yet (later slices, see ROADMAP): doc-id reordering and
+snapshots (``save``/``load``/``device_index=``/``device_indexes=``).
+Asking for one raises
 :class:`~repro_torch.serve.errors.RetrievalConfigError`.
 """
 
@@ -534,12 +536,23 @@ class DeviceRetriever:
         # window matching its block grid (k can outgrow the block height)
         prune_ok = self._hop_available("pruned", kk)
         want = regime or self.regime
+        dev = self.device
+        weights = torch.as_tensor(packed.weights, device=dev)
+        shift = torch.as_tensor(packed.shift, device=dev)
         survivor_frac, prune_ub = None, None
-        # the host estimate feeds the auto cost model and (under host
-        # planning) hands its bounds to the execution; a FORCED pruned
-        # batch under device planning needs neither
-        if prune_ok and (want == "auto"
-                         or (want == "pruned" and self.plan_mode == "host")):
+        # the survivor estimate feeds the auto cost model and hands its
+        # bounds to the pruned execution: under device planning on the
+        # resident block-max table, under host planning in numpy (a FORCED
+        # pruned batch under device planning needs neither)
+        if prune_ok and want == "auto" and self.plan_mode == "device":
+            from ..sparse.fragment_device import estimate_survivors_device
+            bm = self.dindex.bmax
+            survivor_frac, prune_ub = estimate_survivors_device(
+                bm.device, bm.scale_dev,
+                torch.as_tensor(packed.uniq_tab, device=dev), weights,
+                quantized=bm.quantized, k=kk, b_true=b)
+        elif prune_ok and want in ("auto", "pruned") \
+                and self.plan_mode == "host":
             from ..sparse.block_csr import estimate_prune_survivors
             survivor_frac, prune_ub = estimate_prune_survivors(
                 self.dindex.bmax, packed.uniq_tab, packed.weights, k=kk,
@@ -574,9 +587,6 @@ class DeviceRetriever:
         else:
             entry = "resident" if self.gather_mode == "resident" else "host"
 
-        dev = self.device
-        weights = torch.as_tensor(packed.weights, device=dev)
-        shift = torch.as_tensor(packed.shift, device=dev)
         trail = plan.degradations
         hops = ((entry,) if strict
                 else self._LADDER[self._LADDER.index(entry):])
@@ -818,14 +828,15 @@ class DeviceRetriever:
                                                   compact_fragment_table,
                                                   prune_fragment_mask,
                                                   seed_fragment_mask)
-            ub = block_bounds_device(
-                bm.device, bm.scale_dev,
-                torch.as_tensor(packed.uniq_tab, device=self.device),
-                weights, quantized=bm.quantized)
-            # pow2 batch-padding columns are sliced off after retrieval:
-            # their trivial thresholds must not veto pruning (real empty
-            # queries keep theirs)
-            ub[:, b_true:] = -torch.inf
+            if ub is None:                    # else auto's estimate made it
+                ub = block_bounds_device(
+                    bm.device, bm.scale_dev,
+                    torch.as_tensor(packed.uniq_tab, device=self.device),
+                    weights, quantized=bm.quantized)
+                # pow2 batch-padding columns are sliced off after
+                # retrieval: their trivial thresholds must not veto
+                # pruning (real empty queries keep theirs)
+                ub[:, b_true:] = -torch.inf
             seed_keep = seed_fragment_mask(desc_full, ub,
                                            n_seed=seed_block_budget(kk))
             seed_desc, n_seed = compact_fragment_table(desc_full, seed_keep)

@@ -26,10 +26,12 @@ Integer arithmetic stays int32 as in the reference (``torch.cumsum`` of
 int32 would give int64, so every cumsum names its dtype).
 
 The rest is the pruned regime's device half (``block_bounds_device``,
-``seed_fragment_mask``, ``prune_fragment_mask``, ``compact_fragment_table``):
-under ``plan="device"`` the bound product, the threshold masks and the
-compaction read only resident tensors, so the pruned regime also ships zero
-descriptor bytes per batch.
+``estimate_survivors_device``, ``seed_fragment_mask``,
+``prune_fragment_mask``, ``compact_fragment_table``): under
+``plan="device"`` the bound product, ``auto``'s survivor estimate, the
+threshold masks and the compaction read only resident tensors, so the
+pruned regime also ships zero descriptor bytes per batch and an ``auto``
+batch makes no host pass over the block-max rows.
 """
 
 from __future__ import annotations
@@ -226,6 +228,21 @@ def plan_fragments_device(dindex, uniq_tab, *, sum_df: int, k: int,
 # -- device half of the pruned regime ----------------------------------------
 
 
+def _bound_rows(table: torch.Tensor, scale: torch.Tensor,
+                uniq: torch.Tensor, *, quantized: bool) -> torch.Tensor:
+    """Dequantized ``[U, nb_pad]`` f32 bound rows of the batch's tokens:
+    ``BlockMaxTable.rows`` on the resident table (u8 codes times the
+    per-token scale in f32, as the host multiplies them)."""
+    safe = torch.clamp(uniq.long(), 0, table.shape[0] - 1)
+    rows = table[safe].to(torch.float32)
+    return rows * scale[safe][:, None] if quantized else rows
+
+
+def _bounds(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    ub = rows.double().T @ weights.double()              # [nb_pad, B]
+    return (ub * (1.0 + _BOUND_SLACK) + _BOUND_ABS).to(torch.float32)
+
+
 def block_bounds_device(table: torch.Tensor, scale: torch.Tensor,
                         uniq: torch.Tensor, weights: torch.Tensor, *,
                         quantized: bool) -> torch.Tensor:
@@ -239,12 +256,76 @@ def block_bounds_device(table: torch.Tensor, scale: torch.Tensor,
     version does: so the bound never depends on a TF32 setting, whose
     ~1e-3 relative error is as large as the slack.
     """
-    safe = torch.clamp(uniq.long(), 0, table.shape[0] - 1)
-    rows = table[safe].to(torch.float32)                 # [U, nb_pad]
-    if quantized:
-        rows = rows * scale[safe][:, None]
-    ub = rows.double().T @ weights.double()              # [nb_pad, B]
-    return (ub * (1.0 + _BOUND_SLACK) + _BOUND_ABS).to(torch.float32)
+    return _bounds(_bound_rows(table, scale, uniq, quantized=quantized),
+                   weights)
+
+
+# the per-query lower bounds' transient, [query tokens, query columns,
+# nb_pad] f32, is cut into chunks of query columns of at most this many
+# elements: 256 MB
+LB_CHUNK_ELEMS = 1 << 26
+
+
+def estimate_survivors_device(table: torch.Tensor, scale: torch.Tensor,
+                              uniq: torch.Tensor, weights: torch.Tensor, *,
+                              quantized: bool, k: int,
+                              b_true: int | None = None
+                              ) -> tuple[float, torch.Tensor]:
+    """Device ``block_csr.estimate_prune_survivors`` on the resident table.
+
+    The same function as the host's: ``ub`` is :func:`block_bounds_device`
+    with the pow2 padding columns past ``b_true`` set to ``-inf``; the
+    visited blocks are those whose bound beats ``2 · _BOUND_ABS`` for some
+    real query; a query's lower bound on a block is its best single-term
+    score ``max_u rows[u, b] · w[u, q]``, each product and max in f32 as
+    the host takes them (so bit-identical); ``τ̂[q]`` is the
+    ``min(k, nv)``-th largest lower bound over the visited blocks; the
+    fraction counts the visited blocks whose bound reaches ``τ̂`` for any
+    query. Returns 1.0 when there is no real query or no visited block.
+
+    The lower bounds read only each query's own token rows (the rows of
+    nonzero weight; every other row's product is ``+0.0``, which a
+    non-negative maximum already covers), in chunks of query columns of at
+    most :data:`LB_CHUNK_ELEMS` elements. Two host syncs: the widest
+    query's token count, and the two counts of the fraction.
+
+    Returns ``(survivor_frac, ub [nb_pad, B] f32)``, ``ub`` on the table's
+    device, for the pruned regime to reuse.
+    """
+    rows = _bound_rows(table, scale, uniq, quantized=quantized)
+    ub = _bounds(rows, weights)
+    b = weights.shape[1]
+    b_true = b if b_true is None else min(b_true, b)
+    ub[:, b_true:] = -torch.inf
+    if b_true == 0:
+        return 1.0, ub
+    visited = ub[:, :b_true].amax(1) > 2.0 * _BOUND_ABS    # [nb_pad]
+    nv = visited.sum()
+    w = weights[:, :b_true]
+    nz = w != 0
+    width = max(int(nz.sum(0).max()), 1)
+    # each query's token rows first, in row order
+    at = torch.sort((~nz).to(torch.int8), dim=0, stable=True
+                    ).indices[:width]                      # [W, b_true]
+    w_at = torch.gather(w, 0, at)
+    nb = rows.shape[1]
+    lb = torch.empty((b_true, nb), dtype=torch.float32, device=rows.device)
+    step = max(1, LB_CHUNK_ELEMS // (width * nb))
+    for c in range(0, b_true, step):
+        prod = rows[at[:, c:c + step]]                     # [W, c, nb]
+        prod.mul_(w_at[:, c:c + step, None])
+        lb[c:c + step] = prod.amax(0)
+    lb = torch.where(visited[None, :], lb, -torch.inf)
+    # the kb-th largest over the visited blocks: the unvisited ones are
+    # -inf and rank last (every lower bound is >= 0)
+    top = torch.topk(lb, min(k, nb), dim=1).values         # [b_true, .]
+    kb = torch.clamp(torch.clamp(nv, max=k) - 1, min=0)
+    tau_hat = top.gather(1, kb.expand(b_true, 1))          # [b_true, 1]
+    surv = visited & (ub[:, :b_true] >= tau_hat.T).any(1)
+    n_vis, n_surv = torch.stack([nv, surv.sum()]).tolist()
+    if n_vis == 0:
+        return 1.0, ub
+    return n_surv / n_vis, ub
 
 
 def compact_fragment_table(desc: torch.Tensor, keep: torch.Tensor

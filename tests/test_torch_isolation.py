@@ -3,7 +3,9 @@
 * ``import repro_torch`` (and every subpackage) leaves ``jax`` out of
   ``sys.modules``;
 * an AST scan finds no import of ``jax`` or ``repro`` in any module of
-  ``src/repro_torch``, in ``chip_smoke.py`` or in ``tools/``;
+  ``src/repro_torch``, in ``chip_smoke.py`` or in ``tools/``, and no
+  ``sys.modules.get`` of a ``repro.`` module (the fault sites peek at
+  ``repro_torch.serve.faults``);
 * every CUDA source names the TPU kernel it replaces and its bound, and
   every one is built; the BM25 sources round each product and sum
   separately, and no source adds with atomics;
@@ -43,7 +45,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.kernels, repro_torch.serve, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.serve.faults, "
             "repro_torch.serve.overload, repro_torch.serve.health, "
-            "repro_torch.serve.retrieval_engine, repro_torch.core.scoring, "
+            "repro_torch.serve.retrieval_engine, repro_torch.serve.frontend, "
+            "repro_torch.core.scoring, "
             "repro_torch.kernels.blockwise_topk, "
             "repro_torch.kernels.bm25_block_score, repro_torch.device, "
             "repro_torch.data, repro_torch.data.graphs, "
@@ -52,6 +55,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.kernels.block_segment_sum, "
             "repro_torch.kernels.embedding_bag\n"
             "from repro_torch.core import BM25Retriever, score_batch\n"
+            "from repro_torch.serve import ServingFrontend\n"
             "from repro_torch.kernels.ops import topk, bm25_score_blocked\n"
             "from repro_torch.kernels.ops import (embedding_bag, "
             "segment_sum_blocked)\n"
@@ -90,13 +94,47 @@ def _imported_roots(path: Path):
             yield (node.module or "").split(".")[0], node.lineno
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"]
-                         + sorted((ROOT / "tools").glob("*.py")),
+def _sys_modules_lookups(path: Path):
+    """The string constants passed to ``sys.modules.get`` (the fault
+    sites' peek at the harness), with their lines."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "get"
+                and isinstance(node.func.value, ast.Attribute)
+                and node.func.value.attr == "modules"
+                and node.args and isinstance(node.args[0], ast.Constant)
+                and isinstance(node.args[0].value, str)):
+            yield node.args[0].value, node.lineno
+
+
+PY_PATHS = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
+
+
+@pytest.mark.parametrize("path", PY_PATHS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_module_imports_jax_or_repro(path):
+    """No import of ``jax`` or ``repro``, and no ``sys.modules.get`` of a
+    ``repro.`` (or jax) module: a copied fault site that peeks at
+    ``"repro.serve.faults"`` imports nothing, but never fires."""
     bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+    bad = [(m, ln) for m, ln in _sys_modules_lookups(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} looks up {bad} in sys.modules"
+
+
+def test_the_sys_modules_scan_finds_the_fault_sites():
+    """The scan sees every fault site's peek (so an empty result above
+    means the names are right, not that the scan is blind)."""
+    found = {(p.relative_to(PORT).as_posix(), m)
+             for p in sorted(PORT.rglob("*.py"))
+             for m, _ in _sys_modules_lookups(p)}
+    assert {("serve/frontend.py", "repro_torch.serve.faults"),
+            ("serve/retrieval_engine.py", "repro_torch.serve.faults"),
+            ("sparse/fragment_device.py", "repro_torch.serve.faults")} <= found
 
 
 @pytest.mark.parametrize("name", ["bm25_resident", "bm25_block_score",

@@ -18,7 +18,8 @@ The ladder tests of ``tests/test_faults.py``, ported to ``repro_torch`` on
 * a ``RuntimeError`` from a kernel launch (a kernel that does not build or
   launch) surfaces instead of being served by a lower rung.
 
-The snapshot, perm, front-end and queue-flood tests wait for their slices.
+The front-end and queue-flood tests are in ``test_torch_frontend.py``; the
+snapshot and perm tests wait for their slice.
 """
 
 import time

@@ -4,7 +4,8 @@ The unit tests of ``tests/test_overload.py`` for the primitives the port
 copies whole (``repro_torch.serve.overload``), the retriever's knob
 validation, and a hammer test of the thread-safe counters (the retriever's
 health counters and the kernels' launch counters) under concurrent calls.
-The front-end tests wait for the port's front-end slice.
+The front-end's admission, close and supervisor tests are in
+``test_torch_frontend.py``.
 """
 
 import threading
