@@ -142,7 +142,34 @@ Phases (any failure exits non-zero; nothing is caught):
    ``retrieve_batch`` on its queries; then a ``frontend.former`` thread
    death recovers, an unguarded ``queue.flood`` raises
    ``QueueOverflowError`` and ``close(drain=False)`` fails pending
-   futures with ``StageFailedError``.
+   futures with ``StageFailedError``;
+9. after phase 8, on phase 3's retriever (the launch counts read around
+   its serving calls only): (a) K1/K3 past 512 rows — one batch of 256
+   queries each under ``gathered``, ``pruned`` and ``auto`` at k = 600
+   (resident blocks of 1,024 rows), 20 sampled queries of each exact
+   against ``ScipyBM25``; K1 and K3 called at 1,024 rows on that batch's
+   device fragment table (K3 with each block's bound the larger of its
+   two 512-row halves'), bitwise equal to their CPU twins on 10 sampled
+   query columns (both lanes' columns at the edges of each CTA column
+   group), K3's board bitwise equal to K1's, both timed with CUDA events;
+   (b) a cold start at full width — ``dr.save`` into a fresh
+   ``tempfile.mkdtemp`` (the free disk space printed first; a short disk
+   fails the phase), ``DeviceIndex.load(mmap=True)`` onto the card and a
+   ``DeviceRetriever(device_index=...)``: save seconds, bytes on disk,
+   the checksum algorithm, read + verify and upload seconds, posting
+   bytes (equal to the layouts' size); phase 3's first batch under each
+   regime bitwise equal to phase 3's boards, and a second batch shipping
+   no posting or descriptor byte; the store is deleted; (c) the snapshot
+   fault lanes at 65,536 documents (cut: the small run's depth):
+   ``torn_write`` (the save raises, the previous generation serves),
+   ``manifest_corrupt``, ``truncate`` and ``bit_flip`` (each load heals
+   through a recovery hop) and ``stale_version`` (a typed
+   ``SnapshotVersionError``), every recovered board bitwise equal to the
+   saving retriever's; (d) ``DeviceRetriever(regime="auto",
+   reorder="signature")`` built on phase 3's index (host reorder seconds
+   and build seconds), then pruned batches at B = 32 and 256 on it and on
+   phase 3's retriever: ``frags_planned/pruned/skipped``, batch ms, zero
+   posting and descriptor bytes, sampled queries exact in client ids.
 
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
@@ -157,7 +184,8 @@ when run outside the repository (it imports ``src/repro_torch``). The
 kernels line lists K1-K8; ``launches`` counts each kernel on its own
 path: phase 3 for K1-K3, phase 4 for K4, phase 6 for K5 and K6, phase 7
 for K7 (once) and K8 (twice); ``launches_frontend`` counts K1-K6 in phase
-8's front-end pass.
+8's front-end pass and ``launches_phase9`` in phase 9's serving calls; K1
+and K3 carry ``ms_rows1024_k600``, their times at 1,024 rows.
 """
 
 from __future__ import annotations
@@ -242,6 +270,19 @@ FE_TIMEOUT_S = 300.0           # every future resolves within this
 REGIME_KERNEL = {"gathered": "bm25_resident_score_topk",
                  "blocked": "bm25_block_score_topk",
                  "pruned": "bm25_resident_score_topk_pruned"}
+# phase 9: K1/K3 past 512 rows, snapshots and reordering at full width
+F3_K = 600                     # k past 512: resident blocks of 1,024 rows
+F3_SAMPLES = 20                # sampled queries held exact a regime
+# K1/K3's sampled query columns at 1,024 rows: both lanes' columns at the
+# edges of each of the four CTA column groups
+F3_TWIN_COLS = (0, 1, 62, 63, 64, 127, 128, 191, 192, 255)
+SNAP_FAULT_DOCS = 65_536       # 9c's fault lanes (cut: the small run's depth)
+SNAP_FAULTS = (("snapshot.write", "torn_write"),
+               ("snapshot.manifest", "manifest_corrupt"),
+               ("snapshot.manifest", "stale_version"),
+               ("snapshot.array", "truncate"),
+               ("snapshot.array", "bit_flip"))
+REORDER_WIDTHS = (32, 256)     # 9d's pruned batches: phase 8's and phase 3's
 
 
 def check(ok, what: str) -> None:
@@ -760,7 +801,7 @@ def split_index(idx, n: int) -> list:
     return shards
 
 
-def sampled_exact(oracle, qs, res, rng, n: int) -> float:
+def sampled_exact(oracle, qs, res, rng, n: int, k: int = TOP_K) -> float:
     """``n`` sampled queries of a ``[B, k]`` result exact against the
     oracle: the score vector within ``EXACT_ATOL`` of the oracle's top-k,
     each id carrying its oracle score (ties may come in either order), no
@@ -769,12 +810,12 @@ def sampled_exact(oracle, qs, res, rng, n: int) -> float:
     worst = 0.0
     for qi in rng.choice(len(qs), size=n, replace=False):
         s = oracle.score(qs[qi])
-        _, ref_v = topk_numpy(s[None], TOP_K)
+        _, ref_v = topk_numpy(s[None], k)
         np.testing.assert_allclose(res.scores[qi], ref_v[0], rtol=0,
                                    atol=EXACT_ATOL)
         np.testing.assert_allclose(s[res.ids[qi]], res.scores[qi], rtol=0,
                                    atol=EXACT_ATOL)
-        check(len(set(res.ids[qi].tolist())) == TOP_K, "distinct ids")
+        check(len(set(res.ids[qi].tolist())) == k, "distinct ids")
         worst = max(worst, float(np.abs(res.scores[qi] - ref_v[0]).max()))
     return worst
 
@@ -1653,6 +1694,298 @@ def phase_frontend(dr, oracle, rng, auto_served) -> dict:
     return launches
 
 
+def launch_counts() -> dict:
+    from repro_torch.kernels import COUNTERS
+    return {c.name: c.n for c in COUNTERS}
+
+
+def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
+    """Phase 9, on phase 3's retriever ``dr`` (``phase3``: its first
+    batch's queries and board under each regime). Returns K1's and K3's
+    times at 1,024 rows and the launches of the phase's serving calls."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import ScipyBM25, build_index
+    from repro_torch.core.scoring import bucket_pow2
+    from repro_torch.kernels import bm25_gather_score as k1
+    from repro_torch.serve import DeviceRetriever, SnapshotVersionError
+    from repro_torch.serve.faults import inject_faults
+    from repro_torch.sparse import reorder, snapshot
+    from repro_torch.sparse.block_csr import (TRANSFERS, DeviceIndex,
+                                              reset_transfer_stats)
+    from repro_torch.sparse.fragment_device import (block_bounds_device,
+                                                    plan_fragments_device)
+
+    di = dr.dindex
+    dev = dr.device
+    served = {name: 0 for name in launch_counts()}
+
+    def serve(r, qs, k, regime=None):
+        """One timed batch; its launches count as the phase's."""
+        before = launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = r.retrieve_batch(qs, k, regime=regime)
+        end.record()
+        end.synchronize()
+        for name, n in launch_counts().items():
+            served[name] += n - before[name]
+        check(res.ids.shape == (len(qs), k), "board shape")
+        check(np.isfinite(res.scores).all(), "finite board")
+        return res, start.elapsed_time(end)
+
+    # -- 9a: K1/K3 past 512 rows at full width ------------------------------
+    rows = bucket_pow2(F3_K, floor=DOC_BLOCK)
+    qs = zipf_queries(rng, QUERY_BATCH, N_VOCAB)
+    for regime in ("gathered", "pruned", "auto"):
+        n0 = k1.LAUNCHES.n
+        res, ms = serve(dr, qs, F3_K, regime)
+        worst = sampled_exact(oracle, qs, res, rng, F3_SAMPLES, k=F3_K)
+        p = res.plan
+        print(f"[f3] regime={regime} k={F3_K} (resident blocks of {rows} "
+              f"rows) chose={p.regime} frags_planned={p.frags_planned} "
+              f"ms={ms:.1f}; {F3_SAMPLES} sampled queries exact, max "
+              f"|score - oracle| {worst:.3g}", flush=True)
+        if p.regime != "blocked":
+            check(k1.LAUNCHES.n > n0, f"K1 served {regime} at k={F3_K}")
+    pk = dr.pack_batch(qs)
+    w = torch.as_tensor(pk.weights, device=dev)
+    desc, _, _ = plan_fragments_device(di, pk.uniq_tab,
+                                       sum_df=di.sum_df(pk.uniq_batch),
+                                       k=F3_K, block_size=rows)
+    kw = dict(block_size=rows, frag=di.frag, k=F3_K, n_docs=idx.n_docs)
+    ops1 = (desc, w, di.csc_doc_ids, di.csc_scores)
+    got1 = k1.bm25_resident_score_topk(*ops1, **kw)
+    k1_ms = cuda_ms(lambda: k1.bm25_resident_score_topk(*ops1, **kw), reps=3)
+    ok1 = twin_bitwise(k1.bm25_resident_score_topk, ops1, (1,), got1, kw,
+                       f"K1 at {rows} rows, k={F3_K}", cols=F3_TWIN_COLS)
+    check(ok1, f"K1 bitwise equal to its twin at {rows} rows")
+    # K3's bounds at 1,024 rows: the larger of each block's two 512-row
+    # halves' bounds (still an upper bound of every document in it)
+    bm = di.bmax
+    ub = block_bounds_device(bm.device, bm.scale_dev,
+                             torch.as_tensor(pk.uniq_tab, device=dev), w,
+                             quantized=bm.quantized)
+    per = rows // DOC_BLOCK
+    ub = ub[:ub.shape[0] // per * per].reshape(-1, per, ub.shape[1])
+    ops3 = (desc, w, ub.amax(1).contiguous(), di.csc_doc_ids,
+            di.csc_scores)
+    got3 = k1.bm25_resident_score_topk_pruned(*ops3, **kw)
+    k3_ms = cuda_ms(lambda: k1.bm25_resident_score_topk_pruned(*ops3, **kw),
+                    reps=3)
+    ok3 = twin_bitwise(k1.bm25_resident_score_topk_pruned, ops3, (1, 2),
+                       got3, kw, f"K3 at {rows} rows, k={F3_K}",
+                       cols=F3_TWIN_COLS)
+    check(ok3, f"K3 bitwise equal to its twin at {rows} rows")
+    same = bits_equal(got3[0], got1[0]) and bits_equal(got3[1], got1[1])
+    print(f"[f3] at {rows} rows, k={F3_K}, B={w.shape[1]}: K1 {k1_ms:.3f} "
+          f"ms, K3 {k3_ms:.3f} ms ({int(got3[2])} fragments skipped, mean "
+          f"over column groups; board bitwise equal to K1 {same}); "
+          f"{desc.shape[1]} fragment slots", flush=True)
+    check(same, "K3 board == K1 board at 1,024 rows")
+    del ops1, ops3, got1, got3, desc, ub
+
+    # -- 9b: cold start from a snapshot at full width ------------------------
+    def layouts(d):
+        return (d.csc_doc_ids, d.csc_scores, d.blk_tok, d.blk_loc, d.blk_sc)
+
+    layout_bytes = sum(t.numel() * t.element_size() for t in layouts(di))
+    need = layout_bytes + bm.host.nbytes + bm.scale.nbytes \
+        + 2 * (idx.indptr.nbytes + idx.nonoccurrence.nbytes
+               + idx.doc_lens.nbytes)
+    tmp = tempfile.mkdtemp(prefix="bm25s-snapshot-")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"[snapshot] store under {tmp}: {free} bytes free, the store "
+              f"takes about {need}", flush=True)
+        check(free > need + (1 << 30), f"{free} bytes free for a store of "
+              f"about {need}")
+        t0 = time.perf_counter()
+        manifest = dr.save(tmp)
+        save_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "CURRENT"), encoding="utf-8") as fh:
+            gen = os.path.join(tmp, json.load(fh)["generation"])
+        on_disk = sum(os.path.getsize(os.path.join(gen, f))
+                      for f in os.listdir(gen))
+        read_s = []
+        real_read = snapshot._read_snapshot
+
+        def timed_read(*a, **k):
+            t = time.perf_counter()
+            out = real_read(*a, **k)
+            read_s.append(time.perf_counter() - t)
+            return out
+
+        snapshot._read_snapshot = timed_read
+        try:
+            reset_transfer_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cold_di = DeviceIndex.load(tmp, mmap=True, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            snapshot._read_snapshot = real_read
+        loaded_bytes = sum(t.numel() * t.element_size()
+                           for t in layouts(cold_di))
+        print(f"[snapshot] save {save_s:.2f} s, {on_disk} bytes on disk "
+              f"(checksums {manifest['algo']}); cold start "
+              f"DeviceIndex.load(mmap=True): read + verify {read_s[0]:.2f} "
+              f"s, upload {load_s - read_s[0]:.2f} s, {load_s:.2f} s in "
+              f"all; posting bytes uploaded {TRANSFERS.posting_bytes} "
+              f"(layouts {loaded_bytes}), descriptor bytes "
+              f"{TRANSFERS.descriptor_bytes}", flush=True)
+        check(loaded_bytes == layout_bytes, "the loaded layouts' size")
+        check(TRANSFERS.posting_bytes == loaded_bytes,
+              "one posting upload per layout at the cold start")
+        check(not cold_di.snapshot_report["hops"], "a clean store loads "
+              "without a recovery hop")
+        cold = DeviceRetriever(None, device_index=cold_di, q_max=Q_MAX)
+        check(cold.regime == "auto" and cold.plan_mode == "device",
+              "the cold-started retriever serves auto on the device plan")
+        for regime in REGIMES:
+            qs0, want = phase3[regime]
+            res, ms = serve(cold, qs0, TOP_K, regime)
+            same = boards_equal(res, want)
+            print(f"[snapshot] cold start, regime={regime} "
+                  f"chose={res.plan.regime} ms={ms:.1f}: board bitwise "
+                  f"equal to phase 3's {same}", flush=True)
+            check(same, f"cold-started {regime} board == phase 3's")
+        reset_transfer_stats()
+        serve(cold, zipf_queries(rng, QUERY_BATCH, N_VOCAB), TOP_K)
+        print(f"[snapshot] second cold batch: posting bytes "
+              f"{TRANSFERS.posting_bytes}, descriptor bytes "
+              f"{TRANSFERS.descriptor_bytes}", flush=True)
+        check(TRANSFERS.posting_bytes == 0 and TRANSFERS.descriptor_bytes == 0,
+              "no posting or descriptor byte after the cold start")
+        del cold, cold_di
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9c: the snapshot fault lanes, at the small run's depth ---------------
+    srng = np.random.default_rng(seed + 90)
+    sidx = build_index(zipf_corpus(srng, SNAP_FAULT_DOCS, N_VOCAB, AVG_LEN),
+                       N_VOCAB, params=idx.params)
+    sdr = DeviceRetriever(sidx, block_size=DOC_BLOCK, q_max=Q_MAX,
+                          device="cuda")
+    sqs = zipf_queries(srng, QUERY_BATCH, N_VOCAB)
+    want, _ = serve(sdr, sqs, TOP_K)
+    sampled_exact(ScipyBM25(sidx), sqs, want, srng, 5)
+    for site, kind in SNAP_FAULTS:
+        path = tempfile.mkdtemp(prefix="bm25s-fault-")
+        try:
+            sdr.save(path)
+            spec = {"site": site, "kind": kind, "times": 1, "seed": 7}
+            raised = loaded = None
+            if kind == "torn_write":
+                with inject_faults(dict(spec, guarded=False)) as sp:
+                    try:
+                        sdr.save(path)
+                    except OSError as e:
+                        raised = e
+                loaded = DeviceIndex.load(path, device="cuda")
+            else:
+                with inject_faults(spec) as sp:
+                    try:
+                        loaded = DeviceIndex.load(path, device="cuda")
+                    except SnapshotVersionError as e:
+                        raised = e
+            check(sp[0].fired == 1, f"{kind} fired")
+            check((raised is not None)
+                  == (kind in ("torn_write", "stale_version")),
+                  f"{kind}: only the torn save and the future version "
+                  f"raise, typed")
+            check((loaded is None) == (kind == "stale_version"),
+                  f"{kind}: every other fault loads")
+            if loaded is not None:
+                res, _ = serve(DeviceRetriever(None, device_index=loaded,
+                                               q_max=Q_MAX), sqs, TOP_K)
+                same = boards_equal(res, want)
+                check(same, f"{kind}: the recovered board is exact")
+                hops = loaded.snapshot_report["hops"]
+                check(not hops if kind == "torn_write" else bool(hops),
+                      f"{kind}: the previous generation, or a recovery hop")
+                check(kind != "manifest_corrupt" or "manifest<-dup" in hops,
+                      "a corrupt manifest heals from its replica")
+            print(f"[snapshot] fault {site}/{kind} at {SNAP_FAULT_DOCS} "
+                  f"docs: raised {type(raised).__name__ if raised else None}"
+                  + ("" if loaded is None else
+                     f"; loaded with hops {loaded.snapshot_report['hops']},"
+                     f" board bitwise equal to the saving retriever's "
+                     f"{same}"), flush=True)
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+    del sdr, sidx, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9d: reordering at full width -------------------------------------------
+    host_s = {}
+    real = {n: getattr(reorder, n) for n in ("signature_permutation",
+                                             "permute_index")}
+
+    def timed(name):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = real[name](*a, **k)
+            host_s[name] = host_s.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    for name in real:
+        setattr(reorder, name, timed(name))
+    try:
+        reset_transfer_stats()
+        t0 = time.perf_counter()
+        rdr = DeviceRetriever(idx, regime="auto", reorder="signature",
+                              block_size=DOC_BLOCK, q_max=Q_MAX,
+                              device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(reorder, name, fn)
+    print(f"[reorder] DeviceRetriever(reorder='signature') at full width: "
+          f"signature_permutation {host_s['signature_permutation']:.1f} s, "
+          f"permute_index {host_s['permute_index']:.1f} s (host), build "
+          f"{build_s:.1f} s in all; posting bytes uploaded "
+          f"{TRANSFERS.posting_bytes}", flush=True)
+    check(rdr.dindex.perm is not None, "the full-width index was reordered")
+    for b in REORDER_WIDTHS:
+        qsb = zipf_queries(rng, b, N_VOCAB)
+        for name, r in (("unordered", dr), ("reordered", rdr)):
+            serve(r, qsb, TOP_K, "pruned")       # the bucket grows once
+            reset_transfer_stats()
+            res, ms = serve(r, qsb, TOP_K, "pruned")
+            p = res.plan
+            worst = sampled_exact(oracle, qsb, res, rng, min(F3_SAMPLES, b))
+            print(f"[reorder] {name} pruned B={b}: frags_planned="
+                  f"{p.frags_planned} frags_pruned={p.frags_pruned} "
+                  f"frags_skipped={p.frags_skipped} (K3) ms={ms:.1f} "
+                  f"posting bytes {TRANSFERS.posting_bytes} descriptor "
+                  f"bytes {TRANSFERS.descriptor_bytes}; "
+                  f"{min(F3_SAMPLES, b)} sampled queries exact in client "
+                  f"ids, max |score - oracle| {worst:.3g}", flush=True)
+            check(TRANSFERS.posting_bytes == 0, f"{name} ships no postings")
+            check(TRANSFERS.descriptor_bytes == 0,
+                  f"{name} ships no descriptors")
+    del rdr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[snapshot] phase 9 launches {served}", flush=True)
+    check(served[k1.LAUNCHES.name] > 0 and served[k1.LAUNCHES_PRUNED.name] > 0,
+          "K1 and K3 launched in phase 9")
+    return {"k1_rows_ms": k1_ms, "k3_rows_ms": k3_ms, "rows": rows,
+            "launches": served}
+
+
 def phase_bm25(args) -> list:
     """Phases 3-6: the BM25 query paths at full width (retriever,
     ladder, kernels, dense path). Returns the ``kernels`` entries of
@@ -1766,6 +2099,15 @@ def phase_bm25(args) -> list:
         dr, oracle, np.random.default_rng(args.seed + 8),
         [(i, qs, res) for regime, i, qs, res in served if regime == "auto"])
     print(f"[frontend] done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- phase 9: K1/K3 past 512 rows, cold start, reordering --------------
+    t0 = time.perf_counter()
+    p9 = phase_snapshot(
+        dr, idx, oracle, np.random.default_rng(args.seed + 9),
+        {regime: (qs, res) for regime, i, qs, res in served if i == 0},
+        args.seed)
+    print(f"[snapshot] phase 9 done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     # -- phase 4: the ladder through the engine ---------------------------
     t0 = time.perf_counter()
@@ -2038,6 +2380,10 @@ def phase_bm25(args) -> list:
     print(f"[dense] done in {time.perf_counter() - t0:.1f}s", flush=True)
     for kd in kernels:
         kd["launches_frontend"] = fe_launches[kd["name"]]
+        kd["launches_phase9"] = p9["launches"][kd["name"]]
+    rows_key = f"ms_rows{p9['rows']}_k{F3_K}"
+    kernels[0][rows_key] = p9["k1_rows_ms"]          # K1
+    kernels[2][rows_key] = p9["k3_rows_ms"]          # K3
     return kernels
 
 

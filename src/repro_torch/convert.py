@@ -6,8 +6,12 @@ A system whose state is an index carries its "weights" as index arrays:
 arrays, and returns the port's :class:`~repro_torch.core.index.BM25Index`
 holding equal arrays — so both packages serve the same state.
 :func:`block_max_from_reference` does the same for the pruned regime's
-block-max table, and :func:`scoring_index_from_reference` for the eager
-scorer's device index. It imports nothing of ``repro``.
+block-max table, :func:`device_index_from_reference` for a whole resident
+index (a reordered one keeps its permutation: its ``host`` is in the
+permuted id space, and ``perm`` / ``reorder`` come across with it), and
+:func:`scoring_index_from_reference` for the eager scorer's device index.
+A snapshot (``sparse.snapshot``) is the other carrier of state between
+the packages. It imports nothing of ``repro``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 from .core.index import BM25Index
 from .core.variants import BM25Params
 from .core.scoring import DeviceIndex
+from .sparse import block_csr
 from .sparse.block_csr import BlockMaxTable, put_descriptor_array
 
 
@@ -65,6 +70,30 @@ def block_max_from_reference(bmax, *, device=None) -> BlockMaxTable:
         bm.device = put_descriptor_array(host, device=device)
         bm.scale_dev = put_descriptor_array(scale, device=device)
     return bm
+
+
+def device_index_from_reference(dindex, *, device=None
+                                ) -> block_csr.DeviceIndex:
+    """The port's resident ``DeviceIndex`` on ``device`` (default
+    ``cuda``) holding the state of ``dindex``, shaped like
+    ``repro.sparse.block_csr.DeviceIndex``: its host index (in the
+    permuted id space when it was built with ``reorder=``), geometry,
+    layouts, block-max table, ``perm`` and ``reorder``. The layouts are
+    rebuilt from the host index, which gives the reference's bytes; the
+    uploads are counted as a build's."""
+    host = index_from_reference(dindex)
+    di = block_csr.DeviceIndex.build(
+        host, device=device if device is not None else "cuda",
+        block_size=int(dindex.block_size), tile=int(dindex.tile_p),
+        frag=int(dindex.frag), with_blocked=dindex.blk_tok is not None,
+        with_csc=dindex.csc_doc_ids is not None, with_bmax=False)
+    if dindex.bmax is not None:
+        di.bmax = block_max_from_reference(dindex.bmax, device=di.device)
+    perm = getattr(dindex, "perm", None)
+    if perm is not None:
+        di.perm = np.array(perm, dtype=np.int32)
+        di.reorder = str(dindex.reorder)
+    return di
 
 
 def scoring_index_from_reference(dindex, *, device=None) -> DeviceIndex:

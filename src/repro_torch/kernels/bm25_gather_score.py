@@ -152,9 +152,6 @@ def _fns(lib):
         g.argtypes = [p, i, p, i, p, i, p, p, p, i, i, ctypes.c_longlong, p,
                       p, p, p, p, p]
         g.restype = ctypes.c_int
-        s = lib.bm25_resident_topk_smem
-        s.argtypes = [i]
-        s.restype = ctypes.c_longlong
     return f, lib.bm25_resident_pruned_launch
 
 
@@ -194,9 +191,6 @@ def _launch_resident(lib, desc, weights, bounds, doc_ids_res, scores_res,
     ``n_ctas`` scoring CTAs across the column groups of 64. Returns
     ``(values [k, B], ids [k, B], skips per CTA or None)``."""
     launch, launch_pruned = _fns(lib)
-    if lib.bm25_resident_topk_smem(block_size) == 0:
-        raise ValueError(f"block_size={block_size}: the kernel takes blocks "
-                         "of at most 512 rows")
     dev = weights.device
     nf = desc.shape[1]
     b = weights.shape[1]

@@ -43,7 +43,7 @@
 // table was cut into slices by fragment count, padding included.
 //
 // Design, one CTA of 16 warps a (column group of 64, range of spans), two
-// columns a lane, the [block_size, 64] f32 accumulator in shared memory
+// columns a lane, a [512, 64] f32 accumulator in shared memory
 // (128 KB at block 512, one CTA an SM), K6's schedule on the fragment
 // table:
 // * The grid is persistent: G ranges a column group, about one CTA an SM.
@@ -74,6 +74,18 @@
 //   pass over its rows and a few merges, not k rounds a column. The fold
 //   is threshold_fold.cuh, shared with K2 and K4. The boards of the G
 //   CTAs are merged by board_merge.cuh, as before.
+// * A block of more than kFoldRows (512) rows is taken in windows of 512
+//   rows, as K2 takes its blocks (block_topk.cuh): the accumulator holds
+//   one window ([512, 64]), the span is walked once a window with rows
+//   shifted by the window's base, and each window is folded into the
+//   running board before the next. A fragment is one CSC run of one token,
+//   whose doc ids ascend, so two searches of its postings cut out the
+//   window's part and a window reads no posting of another (blocks of at
+//   most 512 rows take the one window and no search). Rows past n_docs
+//   are never marked, in every window. A document's postings all fall in
+//   one window and are added in the same order as in one pass, and the
+//   board is a sorted set under a total order, so the windows change no
+//   bit of it.
 // * K3's skip is decided once per span, at its first fragment, against
 //   the CTA's OWN running board: skip iff bound[block(f), c] < board[k-1,
 //   c] for every column c of the group. That board holds k real documents
@@ -100,10 +112,22 @@ constexpr int kRuns = bm25::kRoundRuns;
 constexpr int kCounts = bm25::kRoundCounts;
 constexpr int kWindow = 2048;                // fragments a window
 constexpr int kWinPer = kWindow / kThreads;  // a thread's share
-constexpr int kMaxBlock = bm25::kFoldRows;   // a warp's rows in one mask
+constexpr int kRowWindow = bm25::kFoldRows;  // rows a window (one mask)
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(bm25::kFoldMaskBytes <= kStage * 16,
               "the fold's row masks fit the stage");
+
+// The first j in [0, n) with doc[lo + j] >= key, or n; doc[lo ..
+// lo + n) ascends.
+__device__ __forceinline__ int first_at_least(const int* __restrict__ doc,
+                                              int lo, int n, long long key) {
+  int a = 0, b = n;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (doc[lo + mid] < key) a = mid + 1; else b = mid;
+  }
+  return a;
+}
 
 // kPruned = false: K1. kPruned = true: K3 (reads `bounds` [nb, n_cols],
 // writes its skipped-fragment count to skips[blockIdx.y * gridDim.x +
@@ -119,9 +143,11 @@ __global__ void __launch_bounds__(kThreads, 1) resident_topk_kernel(
     const float* __restrict__ bounds, float* __restrict__ board_v,
     int* __restrict__ board_g, int* __restrict__ skips) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* acc = reinterpret_cast<float*>(smem_raw);  // [block_size][64]
+  const int acc_rows = min(block_size, kRowWindow);
+  const int n_row_windows = (block_size + kRowWindow - 1) / kRowWindow;
+  float* acc = reinterpret_cast<float*>(smem_raw);  // [acc_rows][64]
   int4* stage = reinterpret_cast<int4*>(
-      acc + static_cast<size_t>(block_size) * kCols);  // [kStage]
+      acc + static_cast<size_t>(acc_rows) * kCols);  // [kStage]
   float* wst = reinterpret_cast<float*>(stage + kStage);  // [kRuns][64]
   int* counts = reinterpret_cast<int*>(wst + kRuns * kCols);
   int* run_u = counts + kCounts;                    // [kWindow]
@@ -153,7 +179,7 @@ __global__ void __launch_bounds__(kThreads, 1) resident_topk_kernel(
   const int n_mine = min(kCols, n_cols - col0);     // columns of the group
 
   float4* acc4 = reinterpret_cast<float4*>(acc);
-  for (int i = tid; i < block_size * (kCols / 4); i += kThreads)
+  for (int i = tid; i < acc_rows * (kCols / 4); i += kThreads)
     acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i = tid; i < kCounts; i += kThreads) counts[i] = 0;
   for (int i = tid; i < n_mine * k; i += kThreads) {
@@ -180,134 +206,154 @@ __global__ void __launch_bounds__(kThreads, 1) resident_topk_kernel(
       dead = !__syncthreads_or(alive);
     }
     int last = f;                                   // the span's last
-    for (int fw = f;; fw += kWindow) {    // windows of the span's fragments
-      const int g0 = fw + kWinPer * tid;            // mine: g0 + j
-      int val[kWinPer], st[kWinPer], un[kWinPer];
-      unsigned my_e = INT_MAX;
-#pragma unroll
-      for (int j = 0; j < kWinPer; ++j) {
-        const int g = g0 + j;
-        const bool in = g < f_end;
-        val[j] = in ? d_valid[g] : 0;
-        st[j] = in ? d_start[g] : 0;
-        un[j] = in ? d_uniq[g] : 0;
-        if ((!in || d_last[g] || g + 1 == f_end)
-            && static_cast<unsigned>(g) < my_e)
-          my_e = g;
-      }
-      my_e = __reduce_min_sync(kFull, my_e);
-      if (lane == 0) s_min[warp] = my_e;
-      __syncthreads();
-      unsigned e = s_min[0];
-#pragma unroll
-      for (int i = 1; i < kWarps; ++i) e = min(e, s_min[i]);
-      const int w_end = static_cast<int>(
-          min(e, static_cast<unsigned>(fw + kWindow - 1)));
-      unsigned long long mine = 0;                  // runs << 32 | postings
-#pragma unroll
-      for (int j = 0; j < kWinPer; ++j)
-        if (g0 + j <= w_end && val[j] > 0) mine += (1ull << 32) + val[j];
-      if (dead) {
-        n_skipped += static_cast<int>(mine >> 32);
-        __syncthreads();                            // s_min is read
-      } else {
-        // the window's real fragments as runs, in table order
-        unsigned long long total;
-        const unsigned long long at = bm25::cta_scan(mine, s_scan, total);
-        const int n_runs = static_cast<int>(total >> 32);
-        const int n_matched = static_cast<int>(total & 0xffffffffu);
-        int r = static_cast<int>(at >> 32), m = static_cast<int>(at);
+    // a dead span is walked once, to find its end and count its fragments
+    const int n_rw = dead ? 1 : n_row_windows;
+    for (int rw = 0; rw < n_rw; ++rw) {   // windows of the block's rows
+      const long long wbase = base + static_cast<long long>(rw) * kRowWindow;
+      const int w_rows = min(kRowWindow, block_size - rw * kRowWindow);
+      const bool split = n_rw > 1;          // cut each fragment to the window
+      for (int fw = f;; fw += kWindow) {    // windows of the span's fragments
+        const int g0 = fw + kWinPer * tid;            // mine: g0 + j
+        int val[kWinPer], st[kWinPer], un[kWinPer];
+        unsigned my_e = INT_MAX;
 #pragma unroll
         for (int j = 0; j < kWinPer; ++j) {
-          if (g0 + j > w_end || val[j] <= 0) continue;
-          run_u[r] = un[j];
-          run_lo[r] = st[j];
-          run_off[r] = m;
-          m += val[j];
-          ++r;
+          const int g = g0 + j;
+          const bool in = g < f_end;
+          val[j] = in ? d_valid[g] : 0;
+          st[j] = in ? d_start[g] : 0;
+          un[j] = in ? d_uniq[g] : 0;
+          if ((!in || d_last[g] || g + 1 == f_end)
+              && static_cast<unsigned>(g) < my_e)
+            my_e = g;
         }
-        if (tid == 0) run_off[n_runs] = n_matched;
+        my_e = __reduce_min_sync(kFull, my_e);
+        if (lane == 0) s_min[warp] = my_e;
         __syncthreads();
-
-        // rounds of at most kStage postings and kRuns runs
-        int r0 = 0;                                 // run holding m0
-        for (int m0 = 0; m0 < n_matched;) {
-          const int r_end = min(r0 + kRuns, n_runs);
-          const int m1 = min(m0 + kStage, run_off[r_end]);
-          // this thread's postings m0 + tid + j * 512 and weights: every
-          // load of the round issued before the first one is used
-          constexpr int kW = kRuns * kCols / kThreads;
-          int pos[kPer], slot[kPer];
-          float wreg[kW];
+        unsigned e = s_min[0];
 #pragma unroll
-          for (int j = 0; j < kW; ++j) {            // the runs' weight rows
-            const int i = tid + j * kThreads;
-            const int c = col0 + (i % kCols);
-            wreg[j] = r0 + i / kCols < r_end && c < n_cols
-                          ? w[static_cast<size_t>(run_u[r0 + i / kCols])
-                                  * n_cols + c]
-                          : 0.f;
-          }
+        for (int i = 1; i < kWarps; ++i) e = min(e, s_min[i]);
+        const int w_end = static_cast<int>(
+            min(e, static_cast<unsigned>(fw + kWindow - 1)));
+        if (split) {
+          // a fragment's doc ids ascend: its postings in [wbase, wbase +
+          // w_rows) are one contiguous part of it
 #pragma unroll
-          for (int j = 0; j < kPer; ++j) {
-            const int mm = m0 + tid + j * kThreads;
-            int lo = r0;          // the last run starting <= mm, in a
-#pragma unroll                          // fixed number of steps
-            for (int step = kRuns / 2; step > 0; step >>= 1)
-              if (lo + step < r_end && run_off[lo + step] <= mm) lo += step;
-            pos[j] = mm < m1 ? run_lo[lo] + (mm - run_off[lo]) : -1;
-            slot[j] = lo - r0;
-          }
-          int4 ent[kPer];
-#pragma unroll
-          for (int j = 0; j < kPer; ++j) {
-            if (pos[j] >= 0) {
-              const long long row = doc_res[pos[j]] - base;
-              ent[j] = make_int4(
-                  row >= 0 && row < block_size ? static_cast<int>(row) : -1,
-                  __float_as_int(sc_res[pos[j]]), slot[j], 0);
-            } else {
-              ent[j] = make_int4(-1, 0, slot[j], 0);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < kW; ++j) wst[tid + j * kThreads] = wreg[j];
-          bm25::owner_round(ent, block_size, true, wst, w, n_cols, col, acc,
-                            stage, counts, s_scan, s_seg);
-          m0 = m1;
-          if (m0 < n_matched) {                     // the run holding m0
-            int lo = r0, hi = n_runs - 1;
-            while (lo < hi) {
-              const int mid = (lo + hi + 1) >> 1;
-              if (run_off[mid] <= m0) lo = mid; else hi = mid - 1;
-            }
-            r0 = lo;
+          for (int j = 0; j < kWinPer; ++j) {
+            if (g0 + j > w_end || val[j] <= 0) continue;
+            const int lo = first_at_least(doc_res, st[j], val[j], wbase);
+            const int hi = first_at_least(doc_res, st[j], val[j],
+                                          wbase + w_rows);
+            st[j] += lo;
+            val[j] = hi - lo;
           }
         }
-      }
-      if (static_cast<int>(e) <= fw + kWindow - 1) {
-        last = static_cast<int>(e);
-        break;
-      }
-    }
+        unsigned long long mine = 0;                  // runs << 32 | postings
+#pragma unroll
+        for (int j = 0; j < kWinPer; ++j)
+          if (g0 + j <= w_end && val[j] > 0) mine += (1ull << 32) + val[j];
+        if (dead) {
+          n_skipped += static_cast<int>(mine >> 32);
+          __syncthreads();                            // s_min is read
+        } else {
+          // the window's real fragments as runs, in table order
+          unsigned long long total;
+          const unsigned long long at = bm25::cta_scan(mine, s_scan, total);
+          const int n_runs = static_cast<int>(total >> 32);
+          const int n_matched = static_cast<int>(total & 0xffffffffu);
+          int r = static_cast<int>(at >> 32), m = static_cast<int>(at);
+#pragma unroll
+          for (int j = 0; j < kWinPer; ++j) {
+            if (g0 + j > w_end || val[j] <= 0) continue;
+            run_u[r] = un[j];
+            run_lo[r] = st[j];
+            run_off[r] = m;
+            m += val[j];
+            ++r;
+          }
+          if (tid == 0) run_off[n_runs] = n_matched;
+          __syncthreads();
 
-    if (!dead) {
-      // the fold (threshold_fold.cuh): rows past n_docs are padding, which
-      // never ranks before the board's row k - 1
-      unsigned* masks = reinterpret_cast<unsigned*>(stage);  // [16][64]
-      const int n_rows = static_cast<int>(
-          max(0LL, min(static_cast<long long>(block_size), n_docs - base)));
-      const auto raw = [](int, float v) { return v; };
-      const auto gid = [base](int row) {
-        return static_cast<int>(base + row);
-      };
-      bm25::fold_mark(acc, n_rows, n_mine, thr_v, thr_g, raw, gid, masks);
-      __syncthreads();
-      bm25::fold_merge(acc, masks, n_mine, k, my_v, my_g, thr_v, thr_g, raw,
-                       gid);
-      __syncthreads();                              // acc is read
-      for (int i = tid; i < block_size * (kCols / 4); i += kThreads)
-        acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+          // rounds of at most kStage postings and kRuns runs
+          int r0 = 0;                                 // run holding m0
+          for (int m0 = 0; m0 < n_matched;) {
+            const int r_end = min(r0 + kRuns, n_runs);
+            const int m1 = min(m0 + kStage, run_off[r_end]);
+            // this thread's postings m0 + tid + j * 512 and weights: every
+            // load of the round issued before the first one is used
+            constexpr int kW = kRuns * kCols / kThreads;
+            int pos[kPer], slot[kPer];
+            float wreg[kW];
+#pragma unroll
+            for (int j = 0; j < kW; ++j) {            // the runs' weight rows
+              const int i = tid + j * kThreads;
+              const int c = col0 + (i % kCols);
+              wreg[j] = r0 + i / kCols < r_end && c < n_cols
+                            ? w[static_cast<size_t>(run_u[r0 + i / kCols])
+                                    * n_cols + c]
+                            : 0.f;
+            }
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) {
+              const int mm = m0 + tid + j * kThreads;
+              int lo = r0;          // the last run starting <= mm, in a
+#pragma unroll                          // fixed number of steps
+              for (int step = kRuns / 2; step > 0; step >>= 1)
+                if (lo + step < r_end && run_off[lo + step] <= mm) lo += step;
+              pos[j] = mm < m1 ? run_lo[lo] + (mm - run_off[lo]) : -1;
+              slot[j] = lo - r0;
+            }
+            int4 ent[kPer];
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) {
+              if (pos[j] >= 0) {
+                const long long row = doc_res[pos[j]] - wbase;
+                ent[j] = make_int4(
+                    row >= 0 && row < w_rows ? static_cast<int>(row) : -1,
+                    __float_as_int(sc_res[pos[j]]), slot[j], 0);
+              } else {
+                ent[j] = make_int4(-1, 0, slot[j], 0);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kW; ++j) wst[tid + j * kThreads] = wreg[j];
+            bm25::owner_round(ent, w_rows, true, wst, w, n_cols, col, acc,
+                              stage, counts, s_scan, s_seg);
+            m0 = m1;
+            if (m0 < n_matched) {                     // the run holding m0
+              int lo = r0, hi = n_runs - 1;
+              while (lo < hi) {
+                const int mid = (lo + hi + 1) >> 1;
+                if (run_off[mid] <= m0) lo = mid; else hi = mid - 1;
+              }
+              r0 = lo;
+            }
+          }
+        }
+        if (static_cast<int>(e) <= fw + kWindow - 1) {
+          last = static_cast<int>(e);
+          break;
+        }
+      }
+
+      if (!dead) {
+        // the fold (threshold_fold.cuh): rows past n_docs are padding, which
+        // never ranks before the board's row k - 1
+        unsigned* masks = reinterpret_cast<unsigned*>(stage);  // [16][64]
+        const int n_rows = static_cast<int>(
+            max(0LL, min(static_cast<long long>(w_rows), n_docs - wbase)));
+        const auto raw = [](int, float v) { return v; };
+        const auto gid = [wbase](int row) {
+          return static_cast<int>(wbase + row);
+        };
+        bm25::fold_mark(acc, n_rows, n_mine, thr_v, thr_g, raw, gid, masks);
+        __syncthreads();
+        bm25::fold_merge(acc, masks, n_mine, k, my_v, my_g, thr_v, thr_g, raw,
+                         gid);
+        __syncthreads();                              // acc is read
+        for (int i = tid; i < w_rows * (kCols / 4); i += kThreads)
+          acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
     f = last + 1;
     if (f >= f_end || !d_first[f]) break;           // padding follows
@@ -332,21 +378,17 @@ __global__ void __launch_bounds__(kThreads, 1) resident_topk_kernel(
 }  // namespace
 
 // Dynamic shared memory of the scoring kernel, in bytes (any k): the
-// accumulator, the staged postings, weights and owner counts, the
-// window's run table and the thresholds. 0 when block_size exceeds what
-// the fold's row masks cover.
+// accumulator of one row window, the staged postings, weights and owner
+// counts, the window's run table and the thresholds.
 constexpr long long smem_bytes(int block_size) {
-  return static_cast<long long>(block_size) * kCols * 4 + kStage * 16LL
+  return static_cast<long long>(
+             block_size < kRowWindow ? block_size : kRowWindow) * kCols * 4
+         + kStage * 16LL
          + kRuns * kCols * 4LL + kCounts * 4LL + (3LL * kWindow + 1) * 4
          + 2LL * kCols * 4;
 }
-static_assert(smem_bytes(kMaxBlock) + 1024 <= 232448,
-              "the largest block fits a CTA beside the static shared memory");
-
-extern "C" long long bm25_resident_topk_smem(int block_size) {
-  return block_size < 1 || block_size > kMaxBlock ? 0
-                                                  : smem_bytes(block_size);
-}
+static_assert(smem_bytes(kRowWindow) + 1024 <= 232448,
+              "a row window fits a CTA beside the static shared memory");
 
 namespace {
 
@@ -360,9 +402,9 @@ int launch_resident(const void* desc, int nf_pad, const void* ranges,
                     long long n_docs, void* board_v, void* board_g,
                     void* skips, void* out_v, void* out_g, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long smem = bm25_resident_topk_smem(block_size);
-  if (smem == 0 || k < 1 || k > block_size || n_ranges < 1)
+  if (block_size < 1 || k < 1 || k > block_size || n_ranges < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = smem_bytes(block_size);
   cudaError_t err = cudaFuncSetAttribute(
       resident_topk_kernel<kPruned>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

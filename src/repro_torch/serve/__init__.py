@@ -26,8 +26,9 @@ The overload knobs are the reference's: ``watchdog_s`` (None),
 ``breaker_threshold`` (3; None disables), ``breaker_window_s`` (30.0) and
 ``breaker_cooldown_s`` (5.0) on ``DeviceRetriever``, and the front-end's
 admission gate (:class:`AdmissionController`) and ``max_stage_restarts``
-(3) on :class:`ServingFrontend`. Snapshots come with a later slice of the
-port.
+(3) on :class:`ServingFrontend`. ``DeviceRetriever.save`` /
+``device_index=`` and ``RetrievalEngine.save`` / ``load`` persist and
+cold-start the resident layouts (``repro_torch.sparse.snapshot``).
 """
 
 from .errors import (AdmissionRejectedError, DeadlineExceededError,

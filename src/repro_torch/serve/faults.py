@@ -39,7 +39,8 @@ Fault sites and their call sites in the port
 * ``snapshot.write`` (``torn_write``), ``snapshot.manifest``
   (``manifest_corrupt`` / ``stale_version``) and ``snapshot.array``
   (``truncate`` / ``bit_flip``) mutate the real files on disk, as in the
-  reference; their call sites come with the port's snapshot slice.
+  reference: ``sparse.snapshot`` fires the first before its commit point
+  and the other two while it verifies a load (inside :func:`guard`).
 * ``frontend.former`` (``thread_death``), at the top of a
   ``ServingFrontend`` former iteration inside :func:`guard` — the former
   thread dies with a ``RuntimeError`` that only the stage supervisor
@@ -274,8 +275,6 @@ def _corrupt_snapshot_file(path, kind: str, rng: np.random.Generator):
     if kind == "stale_version":
         import json
 
-        # the snapshot slice of the port brings this module (and the
-        # call sites of the snapshot.* faults)
         from ..sparse import snapshot as _snap
         with open(path, encoding="utf-8") as fh:
             manifest = json.load(fh)

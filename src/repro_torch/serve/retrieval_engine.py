@@ -37,10 +37,11 @@ and donor reuse. Unlike the reference, whose engine defaults to
 ``scorer="scipy"``, the port's defaults to ``"auto"``: an entry point of
 the port runs on the card unless asked otherwise.
 
-Not ported yet (later slices, see ROADMAP): doc-id reordering and
-snapshots (``save``/``load``/``device_index=``/``device_indexes=``).
-Asking for one raises
-:class:`~repro_torch.serve.errors.RetrievalConfigError`.
+``DeviceRetriever(reorder=)`` serves a doc-id reordered index
+(``sparse.reorder``) and maps each board back to client ids;
+``DeviceRetriever.save`` / ``device_index=`` and ``RetrievalEngine.save``
+/ ``load`` / ``device_indexes=`` persist and cold-start the resident
+layouts (``sparse.snapshot``).
 """
 
 from __future__ import annotations
@@ -85,10 +86,6 @@ def _host(x) -> np.ndarray:
     """A rung's output (a torch tensor, or numpy from the oracle) on the
     host."""
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-
-
-def _not_ported(what: str) -> RetrievalConfigError:
-    return RetrievalConfigError(f"{what} is not yet ported to repro_torch")
 
 
 class DeviceRetriever:
@@ -173,10 +170,38 @@ class DeviceRetriever:
         if breaker_threshold is not None and breaker_threshold < 1:
             raise RetrievalConfigError("breaker_threshold must be >= 1 "
                                        "(or None to disable breakers)")
-        if reorder != "none":
-            raise _not_ported(f"reorder={reorder!r}")
+        from ..sparse.reorder import REORDER_MODES
+        if reorder not in REORDER_MODES:
+            raise RetrievalConfigError(
+                f"unknown reorder mode {reorder!r}; expected one of "
+                f"{REORDER_MODES}")
         if device_index is not None:
-            raise _not_ported("device_index= adoption (snapshots)")
+            # ADOPT a pre-built DeviceIndex (snapshot cold start:
+            # ``DeviceIndex.load`` already uploaded the resident arrays —
+            # no rebuild, no re-upload). Geometry and device come from the
+            # adopted index; regime / gather / plan resolve to the layouts
+            # the snapshot actually holds.
+            if index is None:
+                index = device_index.host
+            if index is None:
+                raise RetrievalConfigError(
+                    "device_index= adoption needs a host BM25Index (the "
+                    "adopted DeviceIndex was built with host=None)")
+            block_size = device_index.block_size
+            frag = device_index.frag
+            if device is None:
+                device = device_index.device
+            if regime == "auto" and device_index.blk_tok is None:
+                regime = ("pruned" if device_index.bmax is not None
+                          else "gathered")
+            if regime == "auto" and device_index.csc_doc_ids is None:
+                regime = "blocked"
+            host_intact = (int(index.doc_ids.size) == int(index.indptr[-1]))
+            if not host_intact:
+                # the snapshot was loaded host_arrays="drop": every
+                # host-side path (host gather / host planner / oracle) is
+                # gone, so force the resident device plan
+                gather, plan, host_arrays = "resident", "device", "keep"
         gather = "resident" if gather is None else gather
         if gather not in ("resident", "host"):
             raise RetrievalConfigError(f"unknown gather mode {gather!r}")
@@ -185,6 +210,10 @@ class DeviceRetriever:
                 'regime="pruned" gates resident fragment reads against the '
                 'block-max table — it requires gather="resident"')
         self.device = resolve_device(device)
+        if device_index is not None and device_index.device != self.device:
+            raise RetrievalConfigError(
+                f"the adopted DeviceIndex lives on {device_index.device}, "
+                f"not on {self.device}")
         if plan is None:
             plan = ("device" if gather == "resident"
                     and self.device.type == "cuda" else "host")
@@ -214,15 +243,27 @@ class DeviceRetriever:
         self.n_docs = int(index.doc_lens.size)
         self.run_cache = (PostingRunCache(run_cache)
                           if gather == "host" and run_cache > 0 else None)
-        with_csc = (regime in ("auto", "gathered", "pruned")
-                    and gather == "resident")
-        self.dindex = DeviceIndex.build(
-            index, device=self.device, block_size=block_size, tile=tile,
-            frag=frag, with_blocked=regime in ("auto", "blocked"),
-            with_csc=with_csc,
-            with_bmax=with_csc and regime in ("auto", "pruned"),
-            bmax_dtype=bmax_dtype, host_arrays=host_arrays,
-            reuse_from=reuse_from)
+        if device_index is not None:
+            self.dindex = device_index
+        else:
+            with_csc = (regime in ("auto", "gathered", "pruned")
+                        and gather == "resident")
+            self.dindex = DeviceIndex.build(
+                index, device=self.device, block_size=block_size, tile=tile,
+                frag=frag, with_blocked=regime in ("auto", "blocked"),
+                with_csc=with_csc,
+                with_bmax=with_csc and regime in ("auto", "pruned"),
+                bmax_dtype=bmax_dtype, reorder=reorder,
+                host_arrays=host_arrays, reuse_from=reuse_from)
+        if self.dindex.perm is not None and self.dindex.host is not None:
+            # doc-id reordering: serve in the PERMUTED id space end to
+            # end — host fragment planning, the host-gather rung and the
+            # oracle rung all read the permuted host copy, so EVERY
+            # ladder hop yields permuted local ids and one host-side
+            # gather at the merge maps winners back to client ids (the
+            # survivor estimate reads the permuted block-max table and
+            # matching fragment plans)
+            self.index = self.dindex.host
         self._nf_state = {}                      # steady-state nf bucket
         self.on_fault = on_fault
         # overload protection: watchdog-guarded execution, seeded bounded
@@ -250,9 +291,12 @@ class DeviceRetriever:
         self.retry_count = 0
         self.last_queries: list[np.ndarray] = []
         self._oracle = None                      # lazy ScipyBM25 (last rung)
-        if host_arrays == "drop":
+        if host_arrays == "drop" and self.dindex.perm is None:
             # serving now reads only metadata: a private stripped view (the
-            # caller's index object is untouched)
+            # caller's index object is untouched). Under reordering
+            # ``self.index`` is already DeviceIndex.build's stripped PERMUTED
+            # metadata copy — re-stripping from the client-order index
+            # would hand the merge the wrong doc_lens order.
             self.index = replace(index, doc_ids=np.zeros(0, np.int32),
                                  scores=np.zeros(0, np.float32))
         self.last_plan = None
@@ -305,11 +349,13 @@ class DeviceRetriever:
                 watchdog=({"timeout_s": self._watchdog.timeout_s,
                            "stalls": self._watchdog.stalls}
                           if self._watchdog is not None else {}),
+                snapshot=dict(self.dindex.snapshot_report or {}),
             )
 
     def save(self, path, *, algo: str | None = None) -> dict:
-        """Persisting the resident index waits for the snapshot slice."""
-        raise _not_ported("DeviceRetriever.save (snapshots)")
+        """Persist this retriever's resident index (see
+        ``sparse.snapshot``)."""
+        return self.dindex.save(path, index=self.index, algo=algo)
 
     # -- the graceful-degradation ladder ---------------------------------
     #
@@ -654,6 +700,13 @@ class DeviceRetriever:
                         self.degradation_counts[key] = \
                             self.degradation_counts.get(key, 0) + 1
             ids = _host(ids)[:b].astype(np.int64)
+            if self.dindex.perm is not None:
+                # doc-id reordering: every hop scored in the permuted id
+                # space — ONE host-side gather on the [B, k] board maps
+                # winners back to client ids (zero extra device bytes),
+                # each tie run re-sorted by client id
+                from ..sparse.reorder import remap_board
+                ids = remap_board(ids, board, self.dindex.perm)
             exec_s = time.perf_counter() - t_start
             return RetrievalResult(
                 ids=ids + self.index.doc_offset, scores=board, plan=plan,
@@ -977,6 +1030,10 @@ class ShardRuntime:
             batches_served=getattr(sc, "batches_served", 0),
             batches_degraded=getattr(sc, "batches_degraded", 0),
             degradations=dict(getattr(sc, "degradation_counts", {})),
+            snapshot=dict(
+                getattr(getattr(sc, "dindex", None), "snapshot_report",
+                        None)
+                or getattr(self.index, "snapshot_report", None) or {}),
         )
 
     def warmup(self, k: int) -> None:
@@ -1049,8 +1106,6 @@ class RetrievalEngine:
                  scorer: str = "auto", warmup: bool = True,
                  scorer_opts: dict | None = None,
                  device_indexes: Sequence | None = None):
-        if device_indexes is not None:
-            raise _not_ported("device_indexes= adoption (snapshots)")
         self.k = k
         self.deadline_s = deadline_s
         self.quorum = quorum
@@ -1062,6 +1117,14 @@ class RetrievalEngine:
         self.query_counters: dict[str, int] = {}
         self._responses = 0
         self._degraded_responses = 0
+        # pre-built per-shard DeviceIndexes (snapshot cold start through
+        # ``RetrievalEngine.load``) — adopted by the FIRST build only;
+        # rescale re-buckets postings, so loaded runtimes can't outlive it
+        self._adopt = list(device_indexes or [])
+        if self._adopt and len(self._adopt) != len(shards):
+            raise RetrievalConfigError(
+                f"device_indexes has {len(self._adopt)} entries for "
+                f"{len(shards)} shards")
         self._build_runtimes(list(shards))
 
     def _build_runtimes(self, shards: list[BM25Index]) -> None:
@@ -1105,6 +1168,8 @@ class RetrievalEngine:
                     None)
                 if donor is not None:
                     opts = {**opts, "reuse_from": donor._scorer.dindex}
+                if i < len(self._adopt) and self._adopt[i] is not None:
+                    opts = {**opts, "device_index": self._adopt[i]}
             rt = ShardRuntime(s, delay=delay, scorer=self.scorer,
                               scorer_opts=opts)
             di = getattr(rt._scorer, "dindex", None)
@@ -1118,6 +1183,7 @@ class RetrievalEngine:
             runtimes.append(rt)
         self.shards = shards
         self.runtimes = runtimes
+        self._adopt = []                  # adoption is first-build-only
         self.last_build_stats = {"reused": reused,
                                  "built": len(shards) - reused,
                                  "blockmax_reused": blockmax_reused}
@@ -1127,14 +1193,115 @@ class RetrievalEngine:
         """Elastic re-shard (device pool grew or shrank)."""
         self._build_runtimes(reshard_index(self.shards, n_shards))
 
+    ENGINE_FORMAT = "repro-bm25s-engine"
+    ENGINE_VERSION = 1
+
     def save(self, path: str, *, algo: str | None = None) -> dict:
-        """Engine snapshots wait for the snapshot slice of the port."""
-        raise _not_ported("RetrievalEngine.save (snapshots)")
+        """Snapshot every shard runtime + the engine config under ``path``.
+
+        Layout: ``engine.json`` (config, written last — tmp + fsync +
+        ``os.replace``) next to one ``shard-NNNN/`` snapshot root per
+        runtime, each an atomic generation store (see ``sparse.snapshot``).
+        Device runtimes persist their resident layouts
+        (``save_device_index``: padded CSC + blocked + block-max, every
+        file memmap-able); scipy runtimes persist the bare index
+        (``save_index``). Re-saving into the same path adds a generation
+        per shard and rewrites ``engine.json`` — a crash mid-save leaves
+        every shard's previous generation committed.
+        """
+        import json
+        import os
+
+        from ..sparse import snapshot
+        os.makedirs(path, exist_ok=True)
+        for i, rt in enumerate(self.runtimes):
+            sdir = os.path.join(path, f"shard-{i:04d}")
+            di = getattr(rt._scorer, "dindex", None)
+            if di is not None:
+                snapshot.save_device_index(di, sdir,
+                                           index=rt._scorer.index,
+                                           algo=algo)
+            else:
+                snapshot.save_index(rt.index, sdir, algo=algo)
+        body = {"format": self.ENGINE_FORMAT,
+                "version": self.ENGINE_VERSION,
+                "n_shards": len(self.runtimes), "k": self.k,
+                "deadline_s": self.deadline_s, "quorum": self.quorum,
+                "scorer": self.scorer}
+        data = json.dumps(body, indent=1, sort_keys=True).encode("utf-8")
+        tmp = os.path.join(path, "engine.json.tmp")
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, os.path.join(path, "engine.json"))
+        return body
 
     @classmethod
-    def load(cls, path: str, **kwargs) -> "RetrievalEngine":
-        """Engine snapshots wait for the snapshot slice of the port."""
-        raise _not_ported("RetrievalEngine.load (snapshots)")
+    def load(cls, path: str, *, mmap: bool = False,
+             host_arrays: str = "keep", verify: bool = True, corpus=None,
+             **kwargs) -> "RetrievalEngine":
+        """Cold-start an engine from :meth:`save` — no shard rebuilds.
+
+        Device shards come back through ``sparse.snapshot
+        .load_device_index`` (checksummed read, memmap when ``mmap=True``,
+        resident tensors uploaded straight from the files, onto
+        ``scorer_opts["device"]``, default ``cuda``) and are ADOPTED by
+        their runtimes via ``device_index=`` — ``DeviceIndex.build`` never
+        runs. Scipy shards come back through ``load_index``. ``corpus``
+        (the full tokenized corpus) arms the last recovery rung: each
+        shard slices its own document range out of it. ``kwargs``
+        override the saved engine config (``RetrievalEngine.__init__``
+        keywords).
+        """
+        import json
+        import os
+
+        from ..sparse import snapshot
+        from .errors import SnapshotVersionError
+        with open(os.path.join(path, "engine.json"),
+                  encoding="utf-8") as fh:
+            cfg = json.load(fh)
+        if cfg.get("format") != cls.ENGINE_FORMAT:
+            raise SnapshotVersionError(
+                f"{path}: not a {cls.ENGINE_FORMAT} store "
+                f"(format={cfg.get('format')!r})")
+        v = cfg.get("version")
+        if not isinstance(v, int) or not 1 <= v <= cls.ENGINE_VERSION:
+            raise SnapshotVersionError(
+                f"{path}: engine store version {v!r} not supported")
+        scorer = kwargs.pop("scorer", cfg["scorer"])
+        opts = dict(k=cfg["k"], deadline_s=cfg["deadline_s"],
+                    quorum=cfg["quorum"])
+        opts.update(kwargs)
+        device = (opts.get("scorer_opts") or {}).get("device")
+        shards, dis = [], []
+        for i in range(int(cfg["n_shards"])):
+            sdir = os.path.join(path, f"shard-{i:04d}")
+            # corpus is the FULL corpus — each shard's loader slices its
+            # own manifest-recorded doc range with global stats
+            if scorer == "scipy":
+                shards.append(snapshot.load_index(sdir, mmap=mmap,
+                                                  verify=verify,
+                                                  corpus=corpus))
+            else:
+                di = snapshot.load_device_index(sdir, mmap=mmap,
+                                                host_arrays=host_arrays,
+                                                verify=verify,
+                                                corpus=corpus,
+                                                device=device)
+                host = di.host
+                if di.perm is not None and host is not None:
+                    # engine shards stay in CLIENT doc order — rescale's
+                    # reshard_index and the shard-reuse keys operate on
+                    # global client ids; the adopted DeviceIndex keeps
+                    # its permuted host for the retriever
+                    from ..sparse.reorder import unpermute_index
+                    host = unpermute_index(host, di.perm)
+                shards.append(host)
+                dis.append(di)
+        return cls(shards, scorer=scorer,
+                   device_indexes=dis if dis else None, **opts)
 
     def health(self) -> dict:
         """One operational snapshot of the engine's fault surface.

@@ -18,7 +18,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -80,8 +80,17 @@ def put_posting_arrays(*arrays, device):
         a = np.ascontiguousarray(a)
         TRANSFERS.posting_uploads += 1
         TRANSFERS.posting_bytes += a.nbytes
-        out.append(torch.as_tensor(a, device=device))
+        out.append(_to_device(a, device))
     return out[0] if len(out) == 1 else tuple(out)
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` on ``device``. A read-only array (a snapshot's memmap) is
+    copied into the upload: torch would otherwise view its bytes as a
+    non-writable tensor on the CPU."""
+    if a.flags.writeable:
+        return torch.as_tensor(a, device=device)
+    return torch.tensor(a, device=device)
 
 
 def put_descriptor_array(arr, *, device):
@@ -89,7 +98,7 @@ def put_descriptor_array(arr, *, device):
     arr = np.ascontiguousarray(arr)
     TRANSFERS.descriptor_uploads += 1
     TRANSFERS.descriptor_bytes += arr.nbytes
-    return torch.as_tensor(arr, device=device)
+    return _to_device(arr, device)
 
 
 @dataclass
@@ -114,6 +123,17 @@ class BlockedPostings:
     @property
     def nnz_pad(self) -> int:
         return int(self.token_ids.shape[1])
+
+    def padding_stats(self) -> dict:
+        real = int((self.token_ids >= 0).sum())
+        total = self.token_ids.size
+        return {
+            "nnz": real,
+            "padded_nnz": total,
+            "pad_fraction": 1.0 - real / max(total, 1),
+            "n_blocks": self.n_blocks,
+            "nnz_pad_per_block": self.nnz_pad,
+        }
 
 
 def _round_up(x: int, tile: int) -> int:
@@ -183,6 +203,21 @@ def block_postings_from_index(index, *, block_size: int = 512,
         tok, index.doc_ids.astype(np.int64), index.scores,
         n_docs=int(index.doc_lens.size), n_vocab=index.n_vocab,
         block_size=block_size, tile=tile)
+
+
+def block_edges(src: np.ndarray, dst: np.ndarray, weight: np.ndarray | None,
+                *, n_nodes: int, block_size: int = 512,
+                tile: int = 512) -> BlockedPostings:
+    """GNN edge list -> destination-blocked layout (same container).
+
+    ``token_ids`` carries the *source node id*, ``local_doc`` the destination
+    offset within its block, ``scores`` the edge weight (1.0 if None).
+    """
+    w = np.ones(src.shape[0], np.float32) if weight is None else weight
+    return block_postings_from_coo(
+        src.astype(np.int32), dst.astype(np.int64), w.astype(np.float32),
+        n_docs=n_nodes, n_vocab=n_nodes, block_size=block_size, tile=tile,
+        sort_tokens=False)
 
 
 def _flatten_run_positions(starts: np.ndarray, lens: np.ndarray
@@ -793,8 +828,9 @@ class DeviceIndex:
     CSC copy, so ``host_arrays="drop"`` releases it (``host`` becomes None;
     the O(V) ``indptr``/``df`` metadata stays). ``build(reuse_from=)``
     adopts a donor's resident tensors when the postings did not change
-    (``reused`` says which layouts it recycled). Doc-id reordering and
-    snapshots are later slices of the port.
+    (``reused`` says which layouts it recycled). ``build(reorder=)``
+    re-numbers the documents first (``sparse.reorder``); ``save`` /
+    ``load`` persist and cold-start the layouts (``sparse.snapshot``).
     """
 
     host: object            # BM25Index — descriptor metadata
@@ -816,6 +852,13 @@ class DeviceIndex:
     blk_sc: torch.Tensor = None
     bmax: BlockMaxTable = None         # pruned regime's bounds (or None)
     reused: dict = None                # which layouts a build recycled
+    snapshot_report: dict = None       # set by sparse.snapshot loads
+    # build-time doc-id reordering (sparse.reorder): ``perm[new] = old``
+    # client id, or None when the layouts keep the client order. ``host``
+    # and every resident layout live in the PERMUTED id space; retrievers
+    # gather ``perm`` over the winner board at the merge.
+    perm: np.ndarray = None            # [n_docs] int32 new -> old, or None
+    reorder: str = "none"              # the scheme that produced ``perm``
 
     @staticmethod
     def _postings_identical(a, b) -> bool:
@@ -831,9 +874,19 @@ class DeviceIndex:
               frag: int = 512, with_blocked: bool = True,
               with_csc: bool = True, with_bmax: bool | None = None,
               bmax_dtype: str = "auto", host_arrays: str = "keep",
+              reorder: str = "none",
               reuse_from: "DeviceIndex | None" = None) -> "DeviceIndex":
         """Upload a shard's resident layouts to ``device``, recycling
         ``reuse_from``'s.
+
+        ``reorder`` (``"none"`` | ``"signature"`` | ``"minhash"``) runs the
+        build-time doc-id clustering pass (``sparse.reorder``): documents
+        are re-numbered so similar posting signatures share doc blocks,
+        which tightens the block-max bounds. Every layout below — CSC,
+        blocked, block-max — is then built on the PERMUTED order;
+        ``di.perm`` carries the ``new -> old`` map retrievers gather over
+        the winner board at the merge. Scores travel with their postings
+        bit for bit.
 
         ``reuse_from`` is the incremental re-blocking path of elastic
         rescales: when the new shard's posting bytes equal the donor's
@@ -842,12 +895,19 @@ class DeviceIndex:
         resident CSC tensors are adopted as they are, and its blocked
         layout and block-max table too whenever the block grid still
         matches (same block count) — no re-blocking, no upload.
-        ``reused`` records which layouts were recycled.
+        ``reused`` records which layouts were recycled. A donor whose
+        PERMUTATION differs (reordered vs. unordered, or a different
+        clustering) is never adopted: its layouts index another doc space.
         """
+        from .reorder import (permutations_equal, permute_index,
+                              signature_permutation)
         if host_arrays not in ("keep", "drop"):
             raise ValueError(f"unknown host_arrays mode {host_arrays!r}")
         if with_bmax is None:
             with_bmax = with_csc
+        perm = signature_permutation(index, mode=reorder)
+        if perm is not None:
+            index = permute_index(index, perm)
         nnz = int(index.doc_ids.size)
         n_docs = int(index.doc_lens.size)
         di = DeviceIndex(
@@ -856,12 +916,14 @@ class DeviceIndex:
             n_vocab=int(index.n_vocab), doc_offset=int(index.doc_offset),
             block_size=block_size, tile_p=tile, frag=frag,
             device=torch.device(device),
-            reused={"csc": False, "blocked": False, "bmax": False})
+            reused={"csc": False, "blocked": False, "bmax": False},
+            perm=perm, reorder=reorder)
         old = reuse_from
         same_postings = (
             old is not None and old.host is not None
             and old.device == di.device
             and old.block_size == block_size and old.frag == frag
+            and permutations_equal(perm, old.perm)
             and DeviceIndex._postings_identical(index, old.host))
         # the blocked layout and the block-max table also depend on the
         # block GRID: a doc-count change through trailing empty docs only
@@ -913,13 +975,43 @@ class DeviceIndex:
             di.bmax = build_block_max(index, block_size=block_size,
                                       dtype=bmax_dtype, device=di.device)
         if host_arrays == "drop":
-            di.host = None               # serving must never read it again
+            if perm is not None:
+                # keep a posting-free PERMUTED metadata copy: retrievers
+                # and snapshot saves need doc_lens in the layouts' id
+                # space (the O(nnz) arrays are still released)
+                di.host = replace(index, doc_ids=np.zeros(0, np.int32),
+                                  scores=np.zeros(0, np.float32))
+            else:
+                di.host = None           # serving must never read it again
         return di
 
     def sum_df(self, uniq_tokens: np.ndarray) -> int:
         """Batch posting work Σ df — free, from the host descriptor table."""
         u = np.asarray(uniq_tokens)
         return int(self.df[u].sum()) if u.size else 0
+
+    # -- crash-safe persistence (sparse.snapshot) ---------------------------
+    def save(self, path: str, *, index=None, algo: str | None = None) -> dict:
+        """Atomic checksummed snapshot of the resident layouts (see
+        ``sparse.snapshot``). ``index=`` supplies host metadata when this
+        DeviceIndex was built with ``host_arrays='drop'``."""
+        from . import snapshot
+        return snapshot.save_device_index(self, path, index=index, algo=algo)
+
+    @staticmethod
+    def load(path: str, *, mmap: bool = False, host_arrays: str = "keep",
+             verify: bool = True, corpus=None,
+             device=None) -> "DeviceIndex":
+        """Cold-start from a snapshot: verified (checksummed) read, then
+        upload straight from the (mem)mapped padded layouts through
+        ``put_posting_arrays`` — no host re-blocking, and the
+        zero-steady-state-bytes invariant holds for every batch after.
+        ``device`` defaults to ``"cuda"``."""
+        from . import snapshot
+        return snapshot.load_device_index(path, mmap=mmap,
+                                          host_arrays=host_arrays,
+                                          verify=verify, corpus=corpus,
+                                          device=device)
 
 
 def query_nonoccurrence_shift(nonoccurrence: np.ndarray,

@@ -32,9 +32,11 @@ from repro_torch.kernels import bm25_gather_score as k1
 from repro_torch.core.retrieval import default_doc_ids
 from repro_torch.serve import DeviceRetriever, RetrievalEngine
 from repro_torch.serve.faults import inject_faults
-from repro_torch.sparse.block_csr import (DeviceIndex, block_upper_bounds,
-                                          fragment_plan, gather_posting_runs,
-                                          pack_query_batch)
+from repro_torch.sparse.block_csr import (TRANSFERS, DeviceIndex,
+                                          block_upper_bounds, fragment_plan,
+                                          gather_posting_runs,
+                                          pack_query_batch,
+                                          reset_transfer_stats)
 from repro_torch.sparse.fragment_device import plan_fragments_device
 
 pytestmark = pytest.mark.cuda
@@ -132,25 +134,26 @@ def test_k3_bitwise_equal_twin_and_k1(cuda_device, method, k):
         assert torch.equal(_bits(got[1])[:, :40], _bits(a[1])[:, :40])
 
 
-def _late_saturating_index(rng):
+def _late_saturating_index(rng, bs=16):
     """Loose decoy blocks 0-1, the tight winner in block 2, and twenty
-    victim blocks the board beats once block 2 has folded."""
+    victim blocks the board beats once block 2 has folded (blocks of
+    ``bs`` documents)."""
     def filler():
         return rng.integers(5, 40, size=8).astype(np.int32)
 
-    docs = [filler() for _ in range(23 * 16)]
+    docs = [filler() for _ in range(23 * bs)]
 
     def setdoc(i, tf0=0, tf1=0):
         docs[i] = np.concatenate([np.zeros(tf0, np.int32),
                                   np.ones(tf1, np.int32), filler()])
 
     for b in (0, 1):
-        setdoc(b * 16, tf0=25)
-        setdoc(b * 16 + 1, tf1=25)
-    setdoc(2 * 16, tf0=15, tf1=15)
+        setdoc(b * bs, tf0=25)
+        setdoc(b * bs + 1, tf1=25)
+    setdoc(2 * bs, tf0=15, tf1=15)
     for b in range(3, 23):
-        setdoc(b * 16, tf0=4)
-        setdoc(b * 16 + 1, tf1=4)
+        setdoc(b * bs, tf0=4)
+        setdoc(b * bs + 1, tf1=4)
     return build_index(docs, 40, params=BM25Params())
 
 
@@ -268,16 +271,184 @@ def test_k1_k3_all_padding_table(cuda_device):
     assert int(got3[2]) == 0
 
 
-def test_k1_refuses_blocks_past_512_rows(cuda_device):
-    """The fold marks a warp's rows in one 32-bit mask: blocks of more
-    than 512 rows raise instead of launching."""
-    desc = torch.zeros((6, 8), dtype=torch.int32, device=cuda_device)
-    w = torch.zeros((8, 4), device=cuda_device)
-    doc = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
-    sc = torch.zeros((1, 8), device=cuda_device)
-    with pytest.raises(ValueError, match="512"):
-        k1.bm25_resident_score_topk(desc, w, doc, sc, block_size=1024,
-                                    frag=8, k=5, n_docs=100)
+# Blocks past 512 rows: K1/K3 take them in windows of 512 rows, each
+# fragment cut to the window by two searches, every window folded into
+# the running board (k past 512 lives only in the device-memory board)
+_PAST_512 = [(1024, 1), (1024, 100), (1024, 600), (1024, 1024),
+             (2048, 1), (2048, 100), (2048, 600), (2048, 1024)]
+
+
+@pytest.mark.parametrize("block_size,k", _PAST_512)
+def test_k1_k3_bitwise_past_512_rows(cuda_device, monkeypatch, block_size,
+                                     k):
+    """K1 on the card equals its CPU twin bit for bit at blocks of 1,024
+    and 2,048 rows, k up to the block, with robertson's negative scores,
+    a partly padded last block and eight padding columns; K3 equals K1 in
+    the live columns, and with one CTA it skips what its twin skips."""
+    rng = np.random.default_rng(block_size + k)
+    n_docs = 3 * block_size + 333                    # a partly padded block
+    corpus = make_corpus(rng, n_docs=n_docs, n_vocab=40, max_len=40)
+    # token 0 in nine docs of ten: its robertson IDF is negative, so the
+    # query [0] ranks the docs without it (0.0) above all the others
+    corpus = [np.concatenate([[0], d[d != 0]]).astype(np.int32)
+              if rng.random() < 0.9 else d for d in corpus]
+    idx = build_index(corpus, 40, params=BM25Params(method="robertson"))
+    di = DeviceIndex.build(idx, device="cpu", block_size=block_size,
+                           tile=block_size, frag=64, with_blocked=False)
+    qs = [rng.integers(0, 40, size=rng.integers(1, 6)).astype(np.int32)
+          for _ in range(44)] + [np.array([0], np.int32)] * 4
+    toks, wts, uniq = pad_queries(qs, 8, return_uniq=True)
+    tab, w = pack_query_batch(toks, wts, 64, uniq=uniq)
+    w = np.concatenate([w, np.zeros((64, 8), np.float32)], axis=1)
+    fp = fragment_plan(idx, uniq, block_size=block_size, frag=64)
+    ub = block_upper_bounds(di.bmax, tab, w)
+    ub[:, 48:] = -np.inf
+    ops = (torch.as_tensor(fp.desc), torch.as_tensor(w), di.csc_doc_ids,
+           di.csc_scores)
+    ops3 = ops[:2] + (torch.as_tensor(ub),) + ops[2:]
+    kw = dict(block_size=block_size, frag=64, k=k, n_docs=idx.n_docs)
+    ref = k1.bm25_resident_score_topk(*ops, **kw)
+    # past the zeros, negative scores rank, above the padding rows
+    assert bool((ref[0][:, 44:48] < 0).any()) == (k >= 600)
+    n0 = (k1.LAUNCHES.n, k1.LAUNCHES_PRUNED.n)
+    got = k1.bm25_resident_score_topk(*(t.to(cuda_device) for t in ops),
+                                      **kw)
+    got3 = k1.bm25_resident_score_topk_pruned(
+        *(t.to(cuda_device) for t in ops3), **kw)
+    assert (k1.LAUNCHES.n, k1.LAUNCHES_PRUNED.n) == (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(_bits(got[0]), _bits(ref[0]))
+    assert torch.equal(_bits(got[1]), _bits(ref[1]))
+    assert torch.equal(_bits(got3[0])[:, :48], _bits(ref[0])[:, :48])
+    assert torch.equal(_bits(got3[1])[:, :48], _bits(ref[1])[:, :48])
+    monkeypatch.setattr(k1, "_CTAS", 1)
+    one = k1.bm25_resident_score_topk_pruned(
+        *(t.to(cuda_device) for t in ops3), **kw)
+    ref3 = k1.bm25_resident_score_topk_pruned(*ops3, **kw)
+    assert torch.equal(_bits(one[0])[:, :48], _bits(ref3[0])[:, :48])
+    assert int(one[2]) == int(ref3[2])
+
+
+def test_k3_skips_past_512_rows_as_twin(cuda_device, monkeypatch):
+    """The late-saturating index at blocks of 1,024 rows: with one CTA, K3
+    skips above half the table, the same count as its twin, and its board
+    is the twin's."""
+    idx = _late_saturating_index(np.random.default_rng(0), bs=1024)
+    di = DeviceIndex.build(idx, device="cpu", block_size=1024, tile=1024,
+                           frag=8, with_blocked=False)
+    toks, wts, uniq = pad_queries([np.array([0, 1], np.int32)], 8,
+                                  return_uniq=True)
+    tab, w = pack_query_batch(toks, wts, 8, uniq=uniq)
+    fp = fragment_plan(idx, uniq, block_size=1024, frag=8)
+    ub = block_upper_bounds(di.bmax, tab, w)
+    ops = (torch.as_tensor(fp.desc), torch.as_tensor(w),
+           torch.as_tensor(ub), di.csc_doc_ids, di.csc_scores)
+    kw = dict(block_size=1024, frag=8, k=1, n_docs=idx.n_docs)
+    ref = k1.bm25_resident_score_topk_pruned(*ops, **kw)
+    monkeypatch.setattr(k1, "_CTAS", 1)
+    got = k1.bm25_resident_score_topk_pruned(
+        *(t.to(cuda_device) for t in ops), **kw)
+    assert torch.equal(_bits(got[0]), _bits(ref[0]))
+    assert torch.equal(_bits(got[1]), _bits(ref[1]))
+    assert int(got[2]) == int(ref[2]) > fp.n_frags // 2
+
+
+_ALL_VARIANTS = ["robertson", "atire", "lucene", "bm25l", "bm25+"]
+
+
+@pytest.mark.parametrize("method", _ALL_VARIANTS)
+@pytest.mark.parametrize("block_size,k", [(512, 600), (1024, 100)])
+def test_retriever_past_512_rows_exact(cuda_device, method, block_size, k):
+    """DeviceRetriever on the card under gathered, auto and pruned at
+    k = 600 (a resident block of 1,024 rows) and at block_size 1,024: every
+    board exact against ScipyBM25 (tie-aware) and bitwise the CPU path's."""
+    rng = np.random.default_rng(block_size + k)
+    corpus = make_corpus(rng, n_docs=2900, n_vocab=120, max_len=30)
+    idx = build_index(corpus, 120, params=BM25Params(method=method))
+    oracle = ScipyBM25(idx)
+    queries = [rng.integers(0, 120, size=rng.integers(1, 6)
+                            ).astype(np.int32) for _ in range(12)]
+    n0 = k1.LAUNCHES.n
+    for regime in ("gathered", "auto", "pruned"):
+        dr = DeviceRetriever(idx, regime=regime, block_size=block_size,
+                             device=cuda_device)
+        cpu = DeviceRetriever(idx, regime=regime, block_size=block_size,
+                              plan="device", device="cpu")
+        r = dr.retrieve_batch(queries, k)
+        c = cpu.retrieve_batch(queries, k)
+        np.testing.assert_array_equal(r.ids, c.ids)
+        np.testing.assert_array_equal(r.scores.view(np.int32),
+                                      c.scores.view(np.int32))
+        for i, q in enumerate(queries):
+            o = oracle.score(q)
+            _, ref_v = topk_numpy(o[None], k)
+            np.testing.assert_allclose(r.scores[i], ref_v[0], atol=1e-4)
+            np.testing.assert_allclose(o[r.ids[i]], r.scores[i], atol=1e-4)
+            assert len(set(r.ids[i].tolist())) == r.ids.shape[1]
+    assert k1.LAUNCHES.n > n0
+
+
+def test_cold_start_on_the_card(cuda_device, tmp_path):
+    """Save a retriever on the card, load the snapshot memmapped onto the
+    card and adopt it: one posting upload per layout, boards bitwise the
+    saving retriever's under every regime, and a second batch ships zero
+    posting and zero descriptor bytes."""
+    rng = np.random.default_rng(21)
+    corpus = make_corpus(rng, n_docs=3000, n_vocab=90, max_len=30)
+    idx = build_index(corpus, 90, params=BM25Params(method="bm25l"))
+    warm = DeviceRetriever(idx, regime="auto", block_size=64,
+                           device=cuda_device)
+    path = str(tmp_path / "snap")
+    warm.save(path)
+    reset_transfer_stats()
+    di = DeviceIndex.load(path, mmap=True, device=cuda_device)
+    assert di.csc_doc_ids.device.type == "cuda"
+    assert TRANSFERS.posting_uploads == 5
+    assert TRANSFERS.posting_bytes == sum(
+        t.numel() * 4 for t in (di.csc_doc_ids, di.csc_scores, di.blk_tok,
+                                di.blk_loc, di.blk_sc))
+    cold = DeviceRetriever(None, device_index=di)
+    assert cold.device.type == "cuda" and cold.plan_mode == "device"
+    queries = [rng.integers(0, 90, size=5).astype(np.int32)
+               for _ in range(20)]
+    for regime in ("auto", "gathered", "blocked", "pruned"):
+        a = cold.retrieve_batch(queries, 9, regime=regime)
+        b = warm.retrieve_batch(queries, 9, regime=regime)
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.scores.view(np.int32),
+                                      b.scores.view(np.int32))
+    reset_transfer_stats()
+    cold.retrieve_batch(queries, 9)
+    assert TRANSFERS.posting_bytes == TRANSFERS.descriptor_bytes == 0
+
+
+@pytest.mark.parametrize("regime", ["auto", "gathered", "pruned"])
+def test_reordered_retriever_on_the_card_exact(cuda_device, regime):
+    """A reordered retriever on the card answers in client ids, exact
+    against ScipyBM25 and bitwise the CPU path's boards, shipping no
+    posting or descriptor byte per batch."""
+    rng = np.random.default_rng(22)
+    corpus = make_corpus(rng, n_docs=2000, n_vocab=90, max_len=30)
+    idx = build_index(corpus, 90, params=BM25Params(method="robertson"))
+    kw = dict(regime=regime, block_size=64, reorder="signature")
+    gpu = DeviceRetriever(idx, device=cuda_device, **kw)
+    cpu = DeviceRetriever(idx, plan="device", device="cpu", **kw)
+    assert gpu.dindex.perm is not None
+    queries = [rng.integers(0, 90, size=5).astype(np.int32)
+               for _ in range(12)]
+    gpu.retrieve_batch(queries, 11)
+    reset_transfer_stats()
+    a = gpu.retrieve_batch(queries, 11)
+    assert TRANSFERS.posting_bytes == TRANSFERS.descriptor_bytes == 0
+    b = cpu.retrieve_batch(queries, 11)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.scores.view(np.int32),
+                                  b.scores.view(np.int32))
+    oracle = ScipyBM25(idx)
+    for i, q in enumerate(queries):
+        o = oracle.score(q)
+        _, ref_v = topk_numpy(o[None], 11)
+        np.testing.assert_allclose(a.scores[i], ref_v[0], atol=1e-4)
+        np.testing.assert_allclose(o[a.ids[i]], a.scores[i], atol=1e-4)
 
 
 @pytest.mark.parametrize("profile", ["head", "dense"])

@@ -82,7 +82,11 @@ def test_engine_exact_vs_oracle(corpus_and_shards, scorer):
 
 
 def test_engine_defaults_to_the_card_and_snapshots_wait(corpus_and_shards,
-                                                        monkeypatch):
+                                                        monkeypatch,
+                                                        tmp_path):
+    """The engine defaults to the card; its snapshots (once a later slice,
+    now ported) round-trip on the CPU, and a wrong count of adopted
+    device indexes is a typed error."""
     import torch
     _, shards = corpus_and_shards
     assert ShardRuntime(shards[0], scorer_opts=SMALL).scorer == "auto"
@@ -91,12 +95,14 @@ def test_engine_defaults_to_the_card_and_snapshots_wait(corpus_and_shards,
     with pytest.raises(ResidencyError, match="device='cpu'"):
         RetrievalEngine(shards, k=5)           # auto → cuda, none here
     eng = RetrievalEngine(shards, k=5, scorer_opts=SMALL)
-    with pytest.raises(RetrievalConfigError, match="not yet ported"):
-        eng.save("unused")
-    with pytest.raises(RetrievalConfigError, match="not yet ported"):
-        RetrievalEngine.load("unused")
-    with pytest.raises(RetrievalConfigError, match="not yet ported"):
-        RetrievalEngine(shards, scorer_opts=SMALL, device_indexes=[None] * 4)
+    assert eng.save(tmp_path / "eng")["n_shards"] == len(shards)
+    back = RetrievalEngine.load(tmp_path / "eng", scorer_opts=SMALL)
+    qs = _queries(4, n=3)
+    a, b = eng.retrieve_batch(qs), back.retrieve_batch(qs)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.scores, b.scores)
+    with pytest.raises(RetrievalConfigError, match="device_indexes has"):
+        RetrievalEngine(shards, scorer_opts=SMALL, device_indexes=[None] * 3)
     with pytest.raises(RetrievalConfigError, match="unknown scorer"):
         RetrievalEngine(shards, scorer="bm42", scorer_opts=SMALL)
 

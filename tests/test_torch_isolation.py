@@ -50,6 +50,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.kernels.blockwise_topk, "
             "repro_torch.kernels.bm25_block_score, repro_torch.device, "
             "repro_torch.data, repro_torch.data.graphs, "
+            "repro_torch.data.corpus, repro_torch.data.clicklogs, "
+            "repro_torch.data.lm, repro_torch.sparse.reorder, "
+            "repro_torch.sparse.snapshot, "
             "repro_torch.sparse.segment_ops, "
             "repro_torch.sparse.embedding_bag, "
             "repro_torch.kernels.block_segment_sum, "

@@ -124,6 +124,39 @@ def test_k1_path_matches_device_gathered_topk(method, k):
                             axis=1)
 
 
+@pytest.mark.parametrize("method", ALL_VARIANTS)
+def test_k1_path_past_512_rows_matches_device_gathered_topk(method):
+    """K1's twin at a resident block of 1,024 rows (k = 600, as the
+    retriever sizes it: ``bucket_pow2(600, floor=512)``) against the
+    reference's all-jnp gathered step."""
+    idx, di, qs, toks, wts, uniq, tab, w = _setup(method, seed=3,
+                                                  n_docs=2500, n_vocab=80)
+    rblock, kk = 1024, 600
+    fp = fragment_plan(idx, uniq, block_size=rblock, frag=8)
+    ids, vals = ops.bm25_retrieve_resident(
+        torch.as_tensor(fp.desc), torch.as_tensor(w), di.csc_doc_ids,
+        di.csc_scores,
+        torch.as_tensor(default_doc_ids(fp.vis_blocks, kk, idx.n_docs,
+                                        rblock)),
+        torch.as_tensor(query_nonoccurrence_shift(idx.nonoccurrence, toks,
+                                                  wts)),
+        block_size=rblock, frag=8, k=kk, n_docs=idx.n_docs)
+    rids, rvals, over = _device_gathered_topk(
+        jnp.asarray(idx.indptr.astype(np.int32)), jnp.asarray(idx.doc_ids),
+        jnp.asarray(idx.scores), jnp.asarray(idx.nonoccurrence),
+        jnp.asarray(toks), jnp.asarray(wts), idx.n_docs,
+        p_max=max(idx.nnz, 1), k=kk, n_docs=idx.n_docs)
+    assert not bool(over)
+    vals, ids = vals.numpy(), ids.numpy()
+    np.testing.assert_allclose(vals, np.asarray(rvals), rtol=1e-6,
+                               atol=1e-5)
+    oracle = ScipyBM25(idx)
+    dense = np.stack([oracle.score(q) for q in qs])
+    _ids_carry_their_scores(vals[:len(qs)], ids[:len(qs)],
+                            np.take_along_axis(dense, ids[:len(qs)], axis=1),
+                            axis=1)
+
+
 def test_rank_order_is_score_desc_then_id_asc():
     v = torch.tensor([[1.0, 3.0, 3.0, -0.0, 0.0, -2.5,
                        torch.finfo(torch.float32).min]])

@@ -111,12 +111,13 @@ def test_config_errors_are_typed(rng):
         DeviceRetriever(idx, on_fault="panic", **SMALL)
     with pytest.raises(RetrievalConfigError):
         DeviceRetriever(idx, regime="pruned", gather="host", **SMALL)
-    with pytest.raises(RetrievalConfigError, match="not yet ported"):
-        DeviceRetriever(idx, reorder="signature", **SMALL)
-    with pytest.raises(RetrievalConfigError, match="not yet ported"):
-        DeviceRetriever(idx, device_index=object(), **SMALL)
-    with pytest.raises(RetrievalConfigError, match="not yet ported"):
-        DeviceRetriever(idx, **SMALL).save("unused")
+    with pytest.raises(RetrievalConfigError, match="unknown reorder"):
+        DeviceRetriever(idx, reorder="signatures", **SMALL)
+    from repro_torch.sparse.block_csr import DeviceIndex
+    bare = DeviceIndex.build(idx, device="cpu", block_size=16, tile=16,
+                             frag=8, host_arrays="drop")
+    with pytest.raises(RetrievalConfigError, match="host BM25Index"):
+        DeviceRetriever(None, device_index=bare, **SMALL)
 
 
 def test_fault_spec_rejects_unknown_site_and_sites_equal_reference():

@@ -132,7 +132,7 @@ def test_no_gpu_without_device_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [dict(regime="pruned", gather="host"),
-                                    dict(reorder="signature"),
+                                    dict(reorder="zorder"),
                                     dict(plan="device", gather="host"),
                                     dict(host_arrays="drop", plan="host"),
                                     dict(regime="nope"),
