@@ -125,7 +125,8 @@ Phases (any failure exits non-zero; nothing is caught):
    within 1e-4 (relative to the largest sum) of ``index_add_`` on the
    card, K8 bitwise against its CPU twin on both bag sets and within
    1e-5 of ``F.embedding_bag``; each kernel, its twin on the card and the
-   library call are timed with CUDA events.
+   library call are timed with CUDA events. K7 runs its TMA ring here
+   (the stages are printed), K8 its 8-byte loads (the width is printed).
 
 8. after phase 3, on its retriever: ``auto``'s survivor estimate on the
    card (``estimate_survivors_device``) against the host numpy one on
@@ -151,7 +152,8 @@ Phases (any failure exits non-zero; nothing is caught):
    device fragment table (K3 with each block's bound the larger of its
    two 512-row halves'), bitwise equal to their CPU twins on 10 sampled
    query columns (both lanes' columns at the edges of each CTA column
-   group), K3's board bitwise equal to K1's, both timed with CUDA events;
+   group), K3's board bitwise equal to K1's, both timed with CUDA events,
+   and their bound at 1,024 rows by phase 5's rule (``[f3] bound``);
    (b) a cold start at full width — ``dr.save`` into a fresh
    ``tempfile.mkdtemp`` (the free disk space printed first; a short disk
    fails the phase), ``DeviceIndex.load(mmap=True)`` onto the card and a
@@ -185,7 +187,8 @@ kernels line lists K1-K8; ``launches`` counts each kernel on its own
 path: phase 3 for K1-K3, phase 4 for K4, phase 6 for K5 and K6, phase 7
 for K7 (once) and K8 (twice); ``launches_frontend`` counts K1-K6 in phase
 8's front-end pass and ``launches_phase9`` in phase 9's serving calls; K1
-and K3 carry ``ms_rows1024_k600``, their times at 1,024 rows.
+and K3 carry ``ms_rows1024_k600`` and ``bound_ms_rows1024_k600``, their
+times and bound at 1,024 rows.
 """
 
 from __future__ import annotations
@@ -325,6 +328,17 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls back to
+    back, queued behind a sleep on the device so that the host's enqueue
+    (tens of microseconds a wrapper call, as long as K8's calls) is not in
+    the time."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)         # ~25 ms: the host queues ahead
+    return cuda_ms(fn, reps)
 
 
 def bits_equal(a, b) -> bool:
@@ -1327,7 +1341,8 @@ def phase_sparse(seed: int) -> list:
     from repro_torch.kernels import block_segment_sum as k7
     from repro_torch.kernels.embedding_bag import LAUNCHES as K8_LAUNCHES
     from repro_torch.kernels.embedding_bag import embedding_bag as k8
-    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+    from repro_torch.kernels.embedding_bag import (embedding_bag_plain,
+                                                   load_width)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed + 7)
@@ -1427,7 +1442,10 @@ def phase_sparse(seed: int) -> list:
     plain7_ms = cuda_ms(lambda: k7.block_segment_sum_plain(
         values, ids, num_segments=SEG_BLOCK, tile_p=SEG_TILE_P))
     lib7_ms = cuda_ms(lambda: lib.index_add_(0, gid, flat), reps=3)
-    print(f"[sparse] K7 {ms7:.3f} ms; twin on the card {plain7_ms:.3f} ms "
+    stages = k7.ring_stages(values.data_ptr(), p, D_HIDDEN, SEG_BLOCK,
+                            values.element_size())
+    print(f"[sparse] K7 {ms7:.3f} ms ({stages} ring stages); twin on the "
+          f"card {plain7_ms:.3f} ms "
           f"(max |K7 - twin| {err7:.3g}, atomics there); "
           f"out.view(-1, {D_HIDDEN}).index_add_(0, global_ids, "
           f"values.view(-1, {D_HIDDEN})) {lib7_ms:.3f} ms (max |K7 - lib| / "
@@ -1441,7 +1459,8 @@ def phase_sparse(seed: int) -> list:
                    f"{K7_RTOL} relative vs index_add_ on the card"),
         twin_bitwise=bitwise7,
         twin_bitwise_at=(f"ogb_products, blocks {sel.tolist()}, CPU twin"),
-        blocks=nb, p=p, edges=n_edges, ms=ms7, plain_ms=plain7_ms,
+        blocks=nb, p=p, edges=n_edges, ring_stages=stages, ms=ms7,
+        plain_ms=plain7_ms,
         library_ms=lib7_ms,
         library=f"out.view(-1, {D_HIDDEN}).index_add_(0, global_ids, "
                 f"values.view(-1, {D_HIDDEN}))",
@@ -1464,30 +1483,45 @@ def phase_sparse(seed: int) -> list:
         lerr = rel_err(got, ref)
         plain = embedding_bag_plain(table, b_dev, w_dev)
         err = float((got - plain).abs().max())
-        ms = cuda_ms(lambda: k8(table, b_dev, w_dev), reps=10)
+        w_lib = w_dev * valid
+
+        def k8_call():
+            return k8(table, b_dev, w_dev)
+
+        def lib_call():
+            return F.embedding_bag(safe, table, per_sample_weights=w_lib,
+                                   mode="sum")
+
+        ms = device_ms(k8_call, reps=10)
         pms = cuda_ms(lambda: embedding_bag_plain(table, b_dev, w_dev),
                       reps=3)
-        lms = cuda_ms(lambda: F.embedding_bag(
-            safe, table, per_sample_weights=w_dev * valid, mode="sum"),
-            reps=10)
+        lms = device_ms(lib_call, reps=10)
+        # back to back as a caller's loop runs them: the host's enqueue
+        # of each call is in these
+        b2b = cuda_ms(k8_call, reps=10)
+        lib_b2b = cuda_ms(lib_call, reps=10)
         n_valid = int(valid.sum())
         # each distinct row is read once, however many slots name it
         n_rows = int(torch.unique(b_dev[valid]).numel())
         bsz, fan = b_cpu.shape
-        calls.append(dict(bags=bsz, fanout=fan, valid=n_valid,
+        width = load_width(table.data_ptr(), got.data_ptr(), table.shape[1])
+        calls.append(dict(bags=bsz, fanout=fan, valid=n_valid, width=width,
                           distinct_rows=n_rows, ms=ms, plain_ms=pms,
-                          library_ms=lms, max_abs_err=err,
+                          library_ms=lms, ms_back_to_back=b2b,
+                          library_ms_back_to_back=lib_b2b, max_abs_err=err,
                           twin_bitwise=bitwise, library_rel_err=lerr,
                           bytes=bsz * fan * 8 + (n_rows + bsz)
                           * table.shape[1] * 4,
                           ops=2.0 * n_valid * table.shape[1]))
         print(f"[sparse] K8 [{bsz}, {fan}] bags ({n_valid} valid slots, "
-              f"{n_rows} distinct rows): "
+              f"{n_rows} distinct rows; {width}-float loads): "
               f"bitwise equal to its CPU twin {bitwise} "
-              f"({time.perf_counter() - t0:.1f}s); {ms:.4f} ms, twin on the "
-              f"card {pms:.4f} ms (max |K8 - twin| {err:.3g}), "
-              f"F.embedding_bag(mode='sum', per_sample_weights) {lms:.4f} ms "
-              f"(max |K8 - lib| / max |lib| = {lerr:.3g})", flush=True)
+              f"({time.perf_counter() - t0:.1f}s); {ms:.4f} ms on the device "
+              f"({b2b:.4f} back to back), twin on the card {pms:.4f} ms (max "
+              f"|K8 - twin| {err:.3g}), F.embedding_bag(mode='sum', "
+              f"per_sample_weights) {lms:.4f} ms on the device ({lib_b2b:.4f} "
+              f"back to back; max |K8 - lib| / max |lib| = {lerr:.3g})",
+              flush=True)
         check(bitwise, "K8 bitwise equal to its CPU twin at full width")
         check(lerr <= K8_RTOL, f"K8 within {K8_RTOL} of F.embedding_bag "
                                f"(relative {lerr:.3g})")
@@ -1753,6 +1787,8 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
               f"|score - oracle| {worst:.3g}", flush=True)
         if p.regime != "blocked":
             check(k1.LAUNCHES.n > n0, f"K1 served {regime} at k={F3_K}")
+        if regime == "gathered":
+            n_frags = p.frags_planned
     pk = dr.pack_batch(qs)
     w = torch.as_tensor(pk.weights, device=dev)
     desc, _, _ = plan_fragments_device(di, pk.uniq_tab,
@@ -1788,6 +1824,18 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
           f"over column groups; board bitwise equal to K1 {same}); "
           f"{desc.shape[1]} fragment slots", flush=True)
     check(same, "K3 board == K1 board at 1,024 rows")
+    # the bound by phase 5's rule: each fragment descriptor, the weights,
+    # each matched posting (doc id, score) and the board once; two FP32
+    # operations a matched posting and query
+    sum_df, b = di.sum_df(pk.uniq_batch), w.shape[1]
+    t_bytes = (n_frags * 24 + w.numel() * 4 + sum_df * 8 + F3_K * b * 8) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * sum_df * b / FP32_OPS_PER_S * 1e3
+    rows_bound_ms = max(t_bytes, t_ops)
+    print(f"[f3] bound at {rows} rows, k={F3_K}: {rows_bound_ms:.4f} ms by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'} ({t_bytes:.4f} "
+          f"ms of bytes, {t_ops:.4f} ms of FP32 operations; {n_frags} "
+          f"fragments, sum_df {sum_df}, B = {b})", flush=True)
     del ops1, ops3, got1, got3, desc, ub
 
     # -- 9b: cold start from a snapshot at full width ------------------------
@@ -1983,6 +2031,7 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
     check(served[k1.LAUNCHES.name] > 0 and served[k1.LAUNCHES_PRUNED.name] > 0,
           "K1 and K3 launched in phase 9")
     return {"k1_rows_ms": k1_ms, "k3_rows_ms": k3_ms, "rows": rows,
+            "rows_bound_ms": rows_bound_ms,
             "launches": served}
 
 
@@ -2384,6 +2433,8 @@ def phase_bm25(args) -> list:
     rows_key = f"ms_rows{p9['rows']}_k{F3_K}"
     kernels[0][rows_key] = p9["k1_rows_ms"]          # K1
     kernels[2][rows_key] = p9["k3_rows_ms"]          # K3
+    for kd in (kernels[0], kernels[2]):
+        kd[f"bound_ms_rows{p9['rows']}_k{F3_K}"] = p9["rows_bound_ms"]
     return kernels
 
 

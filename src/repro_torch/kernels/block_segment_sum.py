@@ -16,6 +16,9 @@ the f16 output tile by tile, so the two agree within its test's 2e-2.
 The reference's precondition ``P % tile_p == 0`` is kept as a
 ``ValueError``; the kernel itself takes any ``P`` and any ``S`` (past
 7,056 segments a block's CTAs split ``S`` into ranges, :func:`column_tile`).
+Where one CTA holds a whole block and the bulk copy's alignment holds,
+the postings stream through a TMA ring (:func:`ring_stages`); every other
+plan takes the staged path.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ LAUNCHES = _build.LaunchCounter("block_segment_sum")
 _DTYPES = {torch.float32: 0, torch.float16: 1}
 _CHUNK = 128                # postings staged a step (csrc: kChunk)
 _D_TILES = (64, 32, 16, 8)  # the kernel's instantiated column tiles
+_RING_N = 64                # postings a ring stage holds (csrc: kRingN)
+_RING_MAX_STAGES = 8        # csrc: kRingMaxStages
 
 
 def _check(values, segment_ids, num_segments: int, tile_p: int) -> None:
@@ -87,6 +92,41 @@ def column_tile(num_segments: int, d: int) -> tuple[int, int]:
     return t, -(-num_segments // n_ranges)
 
 
+def ring_smem_bytes(num_segments: int, d_tile: int, d: int, elt: int,
+                    stages: int) -> int:
+    """Shared memory of one ring CTA: the ``[S, d_tile]`` f32 accumulator
+    and, a stage, ``[64, D]`` values, 64 ids, 64 row flags and three
+    mbarriers (csrc: ``block_segment_sum_ring_smem``)."""
+    return (num_segments * d_tile * 4
+            + stages * (_RING_N * d * elt + 2 * _RING_N * 4 + 3 * 8))
+
+
+def ring_stages(values_ptr: int, p: int, d: int, num_segments: int,
+                elt: int) -> int:
+    """Stages of the kernel's TMA ring, or 0 where the plan takes the
+    staged path.
+
+    The ring needs one CTA to hold a block's ``S`` segments and ``D``
+    columns (:func:`column_tile` gives ``d_tile >= D`` and ``s_tile ==
+    S``), so that postings ``[p0, p0 + n)`` are one contiguous run of
+    bytes; and the bulk copy needs every run to start 16-byte aligned and
+    to be a multiple of 16 bytes long: a 16-byte aligned ``values`` and
+    ``P * D * elt % 16 == 0`` (a stage of 64 postings is always a multiple
+    of 16 bytes). It takes as many 64-posting stages as fit beside the
+    accumulator, at most 8, and at least 2.
+    """
+    d_tile, s_tile = column_tile(num_segments, d)
+    if d_tile < d or s_tile < num_segments:
+        return 0
+    if values_ptr % 16 or (p * d * elt) % 16:
+        return 0
+    room = _build.SMEM_LIMIT - 1024 - ring_smem_bytes(num_segments, d_tile,
+                                                      d, elt, 0)
+    stages = min(_RING_MAX_STAGES, room // ring_smem_bytes(0, d_tile, d,
+                                                           elt, 1))
+    return stages if stages >= 2 else 0
+
+
 def block_segment_sum_plain(values, segment_ids, *, num_segments: int,
                             tile_p: int = 512) -> torch.Tensor:
     """The kernel's plain torch twin (same operands, same result).
@@ -109,16 +149,20 @@ def block_segment_sum_plain(values, segment_ids, *, num_segments: int,
     return acc.view(nb, s + 1, d)[:, :s].to(values.dtype).contiguous()
 
 
-def _fn(lib):
-    f = lib.block_segment_sum_launch
-    if f.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, i, i, p]
-        f.restype = ctypes.c_int
-        s = lib.block_segment_sum_smem
-        s.argtypes = [i, i]
-        s.restype = ctypes.c_longlong
-    return f
+def _fns(lib):
+    staged = lib.block_segment_sum_launch
+    ring = lib.block_segment_sum_ring_launch
+    if staged.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        staged.argtypes = [p, p, p, ll, i, i, i, i, i, i, p]
+        staged.restype = ctypes.c_int
+        ring.argtypes = [p, p, p, ll, i, i, i, i, i, i, p]
+        ring.restype = ctypes.c_int
+        lib.block_segment_sum_smem.argtypes = [i, i]
+        lib.block_segment_sum_smem.restype = ll
+        lib.block_segment_sum_ring_smem.argtypes = [i, i, i, i, i]
+        lib.block_segment_sum_ring_smem.restype = ll
+    return staged, ring
 
 
 def block_segment_sum(values, segment_ids, *, num_segments: int,
@@ -146,17 +190,28 @@ def block_segment_sum(values, segment_ids, *, num_segments: int,
     if ctas >= 2 ** 31 or p >= 2 ** 31:
         raise ValueError(f"{nb} blocks of {p} postings exceed the grid")
     lib = _build.load("block_segment_sum")
-    launch = _fn(lib)
-    if lib.block_segment_sum_smem(s_tile, d_tile) != smem_bytes(s_tile,
-                                                                d_tile):
+    staged, ring = _fns(lib)
+    vc, ic = values.contiguous(), segment_ids.contiguous()
+    elt = vc.element_size()
+    stages = ring_stages(vc.data_ptr(), p, d, num_segments, elt)
+    want = (ring_smem_bytes(num_segments, d_tile, d, elt, stages) if stages
+            else smem_bytes(s_tile, d_tile))
+    got = (lib.block_segment_sum_ring_smem(num_segments, d_tile, d, elt,
+                                           stages) if stages
+           else lib.block_segment_sum_smem(s_tile, d_tile))
+    if got != want:
         raise RuntimeError("block_segment_sum: the library's shared memory "
                            "layout differs from the wrapper's")
-    vc, ic = values.contiguous(), segment_ids.contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(vc.data_ptr(), ic.data_ptr(), out.data_ptr(), nb, p, d,
-                     num_segments, d_tile, s_tile, _DTYPES[values.dtype],
-                     stream)
+        if stages:
+            err = ring(vc.data_ptr(), ic.data_ptr(), out.data_ptr(), nb, p, d,
+                       num_segments, d_tile, stages, _DTYPES[values.dtype],
+                       stream)
+        else:
+            err = staged(vc.data_ptr(), ic.data_ptr(), out.data_ptr(), nb, p,
+                         d, num_segments, d_tile, s_tile,
+                         _DTYPES[values.dtype], stream)
     _build.check(err, "block_segment_sum")
     LAUNCHES.add()
     return out

@@ -61,11 +61,30 @@ def embedding_bag_plain(table, indices, weights) -> torch.Tensor:
     return out
 
 
+def load_width(table_ptr: int, out_ptr: int, d: int) -> int:
+    """Floats a lane of the kernel loads at once (its template ``W``): 4
+    (16-byte loads) where the table and the output both start 16-byte
+    aligned and ``D % 4 == 0``, 2 where both start 8-byte aligned and
+    ``D`` is even, else 1. Every row then starts as aligned as its base,
+    so the kernel assumes nothing the wrapper did not check."""
+    if table_ptr % 16 == 0 and out_ptr % 16 == 0 and d % 4 == 0:
+        return 4
+    if table_ptr % 8 == 0 and out_ptr % 8 == 0 and d % 2 == 0:
+        return 2
+    return 1
+
+
+def column_slices(d: int, width: int) -> int:
+    """Warps a bag takes: one a slice of ``32 * width`` columns (a float
+    or a vector of ``width`` a lane), the last one partial."""
+    return -(-d // (32 * width))
+
+
 def _fn(lib):
     f = lib.embedding_bag_launch
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
+        f.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, p]
         f.restype = ctypes.c_int
     return f
 
@@ -88,14 +107,15 @@ def embedding_bag(table, indices, weights) -> torch.Tensor:
     out = torch.empty((b, d), dtype=torch.float32, device=dev)
     if b == 0 or d == 0:
         return out
-    if -(-b // 8) >= 2 ** 31:
-        raise ValueError(f"{b} bags exceed the grid")
-    launch = _fn(_build.load("embedding_bag"))
     tc, ic, wc = table.contiguous(), indices.contiguous(), weights.contiguous()
+    width = load_width(tc.data_ptr(), out.data_ptr(), d)
+    if -(-b * column_slices(d, width) // 8) >= 2 ** 31:
+        raise ValueError(f"{b} bags of {d} columns exceed the grid")
+    launch = _fn(_build.load("embedding_bag"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(tc.data_ptr(), ic.data_ptr(), wc.data_ptr(),
-                     out.data_ptr(), b, f, d, stream)
+                     out.data_ptr(), b, f, d, width, stream)
     _build.check(err, "embedding_bag")
     LAUNCHES.add()
     return out

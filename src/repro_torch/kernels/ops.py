@@ -232,8 +232,8 @@ def embedding_bag(table, indices, weights=None, *, tile_b: int = 128
     D]``.
 
     The reference pads ``B`` up to a multiple of ``tile_b``, its kernel's
-    bag tile; K8 takes any ``B`` (a warp a bag), so ``tile_b`` is only
-    checked, and nothing is padded.
+    bag tile; K8 takes any ``B`` (a warp a slice of a bag's columns), so
+    ``tile_b`` is only checked, and nothing is padded.
     """
     if tile_b < 1:
         raise ValueError(f"tile_b must be >= 1, got {tile_b}")

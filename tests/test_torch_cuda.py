@@ -1063,3 +1063,170 @@ def test_k8_table_past_2_31_elements(cuda_device):
     assert torch.equal(_bits(got), _bits(ref))
     del table
     torch.cuda.empty_cache()
+
+
+def _k7_bitwise(cuda_device, vals, ids, s, ring, on_card=None):
+    """K7 on the card (on ``on_card``, default a copy of ``vals``) against
+    its CPU twin, bit for bit, through the route the plan gives
+    (``ring``: the TMA ring, else the staged path)."""
+    from repro_torch.kernels import block_segment_sum as k7
+    if on_card is None:
+        on_card = vals.to(cuda_device)
+    nb, p, d = vals.shape
+    stages = k7.ring_stages(on_card.data_ptr(), p, d, s, vals.element_size())
+    assert (stages > 0) == ring
+    n0 = k7.LAUNCHES.n
+    got = k7.block_segment_sum(on_card, ids.to(cuda_device), num_segments=s,
+                               tile_p=1)
+    assert k7.LAUNCHES.n == n0 + 1
+    ref = k7.block_segment_sum(vals, ids, num_segments=s, tile_p=1)
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got.cpu()), nan)
+    bits = torch.int16 if vals.dtype == torch.float16 else torch.int32
+    assert torch.equal(got.cpu().view(bits)[~nan], ref.view(bits)[~nan])
+
+
+# the ring's stage edges at the ogb_products tile (64 postings a stage,
+# 5 stages): a P of one posting, a stage +- 1, two, three and the whole
+# ring +- 1, and past two laps; 5 blocks on the card's persistent CTAs
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("p", [1, 63, 64, 65, 127, 128, 129, 191, 192, 193,
+                               "ring-1", "ring+1", "2ring+1"])
+def test_k7_ring_bitwise_at_stage_edges(cuda_device, p, sort):
+    from repro_torch.kernels import block_segment_sum as k7
+    st = k7.ring_stages(0, 64, 64, 512, 4)
+    p = {"ring-1": 64 * st - 1, "ring+1": 64 * st + 1,
+         "2ring+1": 128 * st + 1}.get(p, p)
+    vals, ids = _k7_inputs(np.random.default_rng(p), 5, p + 64, 64, 512,
+                           np.float32, sort)
+    vals, ids = vals[:, :p].contiguous(), ids[:, :p].contiguous()  # no pad
+    _k7_bitwise(cuda_device, vals, ids, 512, ring=True)
+
+
+def test_k7_ring_all_padding_and_more_blocks_than_ctas(cuda_device):
+    """A block that is all padding, and ogb_products' layout (edges sorted
+    by destination, each block's tail padded with id 0, value 0) over 2 x
+    132 + 7 blocks, so each persistent CTA changes blocks at least twice
+    with its ring running on into the next block."""
+    rng = np.random.default_rng(271)
+    vals, ids = _k7_inputs(rng, 3, 200, 64, 512, np.float32, True)
+    vals[1] = 0.0
+    ids[1] = 0
+    _k7_bitwise(cuda_device, vals, ids, 512, ring=True)
+    nb, p = 2 * 132 + 7, 320
+    counts = rng.integers(0, p + 1, size=nb)
+    counts[[0, 5]] = (0, p)
+    vals = np.zeros((nb, p, 64), np.float32)
+    ids = np.zeros((nb, p), np.int32)
+    for b, c in enumerate(counts):
+        vals[b, :c] = rng.normal(size=(c, 64))
+        ids[b, :c] = np.sort(rng.integers(0, 512, size=c))
+    _k7_bitwise(cuda_device, torch.as_tensor(vals), torch.as_tensor(ids), 512,
+                ring=True)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_k7_signed_zeros_infs_and_nans(cuda_device, dtype):
+    """Rows of -0.0 (skipped), +-inf rows and a segment that sums inf and
+    -inf (NaN), bitwise; NaN rows give NaN in the same places (NaN bits
+    differ between the CPU and the card, so they are not compared)."""
+    rng = np.random.default_rng(7)
+    vals, ids = _k7_inputs(rng, 3, 200, 64, 512, dtype, True)
+    vals[0, 10] = -0.0
+    vals[0, 20] = np.inf
+    vals[0, 21, ::3] = -np.inf
+    vals[1, 30] = -np.inf
+    vals[2, 40, 3] = np.nan
+    vals[2, 41] = np.nan
+    ids[0, 10] = ids[0, 20] = ids[0, 21] = 5
+    ids[1, 30] = 7
+    _k7_bitwise(cuda_device, vals, ids, 512, ring=True)
+
+
+def test_k7_odd_f16_and_unaligned_views_take_the_staged_path(cuda_device):
+    """f16 with P * D odd and a view whose first value is not 16-byte
+    aligned fail the bulk copy's alignment: the plan sends them to the
+    staged path, which runs them bit for bit."""
+    rng = np.random.default_rng(33)
+    _k7_bitwise(cuda_device, *_k7_inputs(rng, 3, 33, 3, 16, np.float16,
+                                         False), 16, ring=False)
+    vals, ids = _k7_inputs(rng, 3, 128, 64, 512, np.float32, True)
+    for off in (1, 2):
+        buf = torch.zeros(vals.numel() + off, device=cuda_device)
+        buf[off:] = vals.reshape(-1).to(cuda_device)
+        view = buf[off:].view(vals.shape)
+        assert view.data_ptr() % 16 == 4 * off
+        _k7_bitwise(cuda_device, vals, ids, 512, ring=False, on_card=view)
+
+
+# one case of every column_tile plan and route: the ring at d_tile 64,
+# 32, 16 and 8 (2 stages beside the widest accumulator), D = 1; the staged
+# path at d_tile 16 < D, D > 64 and S cut into ranges
+@pytest.mark.parametrize("nb,p,d,s,ring", [
+    (3, 256, 64, 512, True), (3, 96, 20, 40, True), (3, 128, 16, 2048, True),
+    (3, 64, 8, 7056, True), (3, 64, 1, 16, True),
+    (2, 512, 64, 3000, False), (2, 256, 200, 64, False),
+    (2, 512, 64, 10_000, False), (2, 256, 20, 50_000, False)])
+def test_k7_every_column_tile_plan(cuda_device, nb, p, d, s, ring):
+    vals, ids = _k7_inputs(np.random.default_rng(s + d), nb, p, d, s,
+                           np.float32, True)
+    _k7_bitwise(cuda_device, vals, ids, s, ring=ring)
+
+
+def _k8_bitwise(cuda_device, table, idx, w, width=None):
+    from repro_torch.kernels.embedding_bag import (LAUNCHES, embedding_bag,
+                                                   load_width)
+    n0 = LAUNCHES.n
+    got = embedding_bag(table, idx.to(cuda_device), w.to(cuda_device))
+    assert LAUNCHES.n == n0 + 1
+    if width is not None:
+        assert load_width(table.data_ptr(), got.data_ptr(),
+                          table.shape[1]) == width
+    ref = embedding_bag(table.cpu(), idx, w)
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("f", [0, 1, 15, 32, 33, 100])
+@pytest.mark.parametrize("d,width", [(1, 1), (2, 2), (3, 1), (601, 1),
+                                     (602, 2), (1024, 4)])
+def test_k8_bitwise_any_width_and_fanout(cuda_device, d, width, f):
+    """Each load width (4-, 8- and 16-byte) and fanouts below, at and past
+    one ballot of 32 slots; bags that repeat an index and an all-pad bag."""
+    rng = np.random.default_rng(d * 101 + f)
+    table = torch.as_tensor(rng.normal(size=(300, d)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(-1, 300, size=(37, f)).astype(
+        np.int32))
+    if f:
+        idx[0] = -1                             # an all-pad bag
+        idx[1] = 17                             # one row, every slot
+        idx[2, ::2] = 5                         # a row repeated
+    w = torch.as_tensor(rng.normal(size=(37, f)).astype(np.float32))
+    _k8_bitwise(cuda_device, table.to(cuda_device), idx, w, width)
+
+
+def test_k8_table_view_only_4_byte_aligned(cuda_device):
+    """A table view whose first row starts 4 bytes past an aligned base:
+    the wrapper takes 4-byte loads (at D = 602 and D = 1,024); an 8-byte
+    offset allows 8-byte loads at 1,024."""
+    rng = np.random.default_rng(4)
+    idx = torch.as_tensor(rng.integers(-1, 200, size=(50, 15)).astype(
+        np.int32))
+    w = torch.as_tensor(rng.normal(size=(50, 15)).astype(np.float32))
+    for d, off, width in ((602, 1, 1), (1024, 1, 1), (1024, 2, 2)):
+        buf = torch.as_tensor(rng.normal(size=(200 * d + off,)).astype(
+            np.float32)).to(cuda_device)
+        table = buf[off:].view(200, d)
+        assert table.data_ptr() % 16 == 4 * off
+        _k8_bitwise(cuda_device, table, idx, w, width)
+
+
+@pytest.mark.parametrize("b", [1, 7, 1024, 15_360])
+def test_k8_bitwise_any_batch(cuda_device, b):
+    """Reddit's width (602) and hop-1's fanout at B from one bag to
+    hop-2's 15,360."""
+    rng = np.random.default_rng(b)
+    table = torch.as_tensor(rng.normal(size=(5000, 602)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(-1, 5000, size=(b, 15)).astype(
+        np.int32))
+    w = torch.as_tensor(rng.normal(size=(b, 15)).astype(np.float32))
+    _k8_bitwise(cuda_device, table.to(cuda_device), idx, w, 2)

@@ -26,7 +26,7 @@ from repro.sparse import embedding_bag as ref_eb  # noqa: E402
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
-    embedding_bag as k8, embedding_bag_plain)
+    column_slices, embedding_bag as k8, embedding_bag_plain, load_width)
 from repro_torch.sparse import embedding_bag as eb  # noqa: E402
 
 TOL = 1e-4
@@ -144,6 +144,40 @@ def test_k8_rejects_other_dtypes_and_shapes():
         k8(table, idx.long(), w)
     with pytest.raises(ValueError):
         k8(table, idx, torch.ones((2, 3)))
+
+
+# (table address, output address, D) -> floats a lane loads at once
+@pytest.mark.parametrize("table_ptr,out_ptr,d,want", [
+    (0, 0, 1024, 4), (0, 0, 4, 4),
+    (0, 0, 602, 2),                   # Reddit: rows 8-byte aligned
+    (8, 0, 1024, 2),                  # an 8-byte aligned view
+    (0, 8, 1024, 2),
+    (4, 0, 602, 1),                   # first row only 4-byte aligned
+    (0, 4, 602, 1),
+    (0, 0, 601, 1), (0, 0, 3, 1), (0, 0, 1, 1),
+    (0, 0, 2, 2), (16, 32, 6, 2),
+])
+def test_k8_load_width(table_ptr, out_ptr, d, want):
+    """16-byte loads only where both bases are 16-byte aligned and ``D %
+    4 == 0``; 8-byte where both are 8-byte aligned and ``D`` is even;
+    4-byte otherwise. The width then divides ``D`` and keeps every row as
+    aligned as its base."""
+    w = load_width(table_ptr, out_ptr, d)
+    assert w == want
+    assert d % w == 0
+    assert (table_ptr + 4 * d) % (4 * w) == 0 and out_ptr % (4 * w) == 0
+
+
+@pytest.mark.parametrize("d,width,want", [
+    (602, 2, 10), (1024, 4, 8), (1, 1, 1), (32, 1, 1), (33, 1, 2),
+    (601, 1, 19), (64, 2, 1), (65, 1, 3), (128, 4, 1), (132, 4, 2)])
+def test_k8_column_slices(d, width, want):
+    """A warp takes a bag's slice of ``32 * width`` columns; the slices
+    cover ``D`` and only the last is partial. At hop-1 (1,024 bags, D =
+    602) that is 10,240 warps, ten times a warp a bag."""
+    n = column_slices(d, width)
+    assert n == want
+    assert (n - 1) * 32 * width < d <= n * 32 * width
 
 
 # -- sparse/embedding_bag.py against repro.sparse.embedding_bag ------------

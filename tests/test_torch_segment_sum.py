@@ -162,6 +162,52 @@ def test_k7_column_tile_fits_shared_memory(s):
         k7.column_tile(2 ** 31, 64)
 
 
+# (values address, P, D, S, element bytes) -> the kernel's route: stages of
+# the TMA ring, or 0 for the staged path
+@pytest.mark.parametrize("ptr,p,d,s,elt,want", [
+    (0, 38_912, 64, 512, 4, 5),       # ogb_products: 5 stages of 16 KB
+    (256, 1, 64, 512, 4, 5),          # any P while P * D * elt % 16 == 0
+    (0, 63, 64, 512, 4, 5), (0, 65, 64, 512, 4, 5),
+    (0, 96, 20, 40, 4, 8),            # D = 20: rows of 80 bytes, d_tile 32
+    (0, 64, 1, 16, 4, 8),             # D = 1: P % 4 == 0
+    (0, 63, 1, 16, 4, 0),             # D = 1, P * 4 not a multiple of 16
+    (0, 96, 64, 512, 2, 8),           # f16: 8 KB stages, 8 of them
+    (0, 33, 3, 16, 2, 0),             # f16, P * D odd
+    (4, 128, 64, 512, 4, 0),          # an odd storage offset: not 16-aligned
+    (8, 128, 64, 512, 4, 0),
+    (0, 64, 16, 2_048, 4, 8),
+    (0, 64, 8, 7_056, 4, 2),          # the widest S at 8 columns: 2 stages
+    (0, 512, 64, 3_000, 4, 0),        # d_tile 16 < D: rows strided
+    (0, 768, 200, 64, 4, 0),          # D > 64: four D-tiles
+    (0, 512, 64, 10_000, 4, 0),       # S split into ranges
+    (0, 256, 20, 50_000, 4, 0),
+])
+def test_k7_ring_route_and_stages(ptr, p, d, s, elt, want):
+    """The ring takes a block a CTA (``column_tile`` gives ``d_tile >= D``
+    and ``s_tile == S``) whose postings are 16-byte aligned runs (a
+    16-byte aligned base and ``P * D * elt % 16 == 0``); every stage that
+    fits beside the accumulator, 2 to 8. Every other plan is staged."""
+    stages = k7.ring_stages(ptr, p, d, s, elt)
+    assert stages == want
+    if stages:
+        d_tile, s_tile = k7.column_tile(s, d)
+        assert d_tile >= d and s_tile == s
+        room = _build.SMEM_LIMIT - 1024
+        assert k7.ring_smem_bytes(s, d_tile, d, elt, stages) <= room
+        if stages < 8:              # one more stage would not fit
+            assert k7.ring_smem_bytes(s, d_tile, d, elt, stages + 1) > room
+
+
+def test_k7_ring_smem_layout():
+    """The ring CTA's shared memory: the ``[S, d_tile]`` f32 accumulator,
+    then a stage of ``[64, D]`` values, 64 ids, 64 flags and three 8-byte
+    mbarriers each (``csrc: block_segment_sum_ring_smem``)."""
+    assert k7.ring_smem_bytes(512, 64, 64, 4, 5) == (
+        131_072 + 5 * (16_384 + 256 + 256 + 24))
+    assert k7.ring_smem_bytes(512, 64, 64, 4, 0) == 131_072
+    assert k7.ring_smem_bytes(40, 32, 20, 2, 1) == 40 * 32 * 4 + 64 * 40 + 536
+
+
 # -- sparse/segment_ops.py against repro.sparse.segment_ops ----------------
 
 def _seg_inputs(rng, n=200, s=17, tail=(5,)):
