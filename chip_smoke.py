@@ -172,6 +172,28 @@ Phases (any failure exits non-zero; nothing is caught):
    and build seconds), then pruned batches at B = 32 and 256 on it and on
    phase 3's retriever: ``frags_planned/pruned/skipped``, batch ms, zero
    posting and descriptor bytes, sampled queries exact in client ids.
+10. after phase 6, on phase 3's index (its retriever freed): the sharded
+   step on ``torch.distributed`` at world size 1 — one card runs one
+   NCCL rank, so this checks the step and times its local steps; it is
+   not a multi-card figure. An NCCL group of one rank in this process
+   (``file://`` rendezvous in a temporary directory, destroyed at the
+   end), ``launch.mesh.make_mesh_from(device_type="cuda")`` (a (1, 1)
+   mesh), ``stack_shard_arrays`` of the full-width index (one upload,
+   the bytes printed); the classic step (``score_batch`` + ``ops.topk``,
+   K5) on phase 3's first two batches at each batch's exact largest
+   ``query_posting_budget``, and at the median budget, where it must flag
+   exactly the queries whose host budget exceeds it;
+   ``sharded_retrieve_adaptive(gathered=True)`` from p_max 1,024 on the
+   same batches (the bucket trail, ``p_used`` the first bucket covering
+   the batch's Σdf, the device memory above the inputs at its peak below
+   a ``[p_used, B]`` f32 buffer); every board exact against
+   ``ScipyBM25`` on 10 sampled queries and tie-aware equal to phase 3's
+   gathered board of its batch, the gathered board to the classic one;
+   CUDA-event times of both steps and of the all-gather + merge; K5 must
+   launch. Then ``python -m repro_torch.launch.serve`` on the card at the
+   reference's defaults (20,000 docs, 4 shards, 100 queries, k = 10; it
+   must print ``degraded 0/100``) and with ``--rescale 2``, each exiting
+   0.
 
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
@@ -188,7 +210,9 @@ path: phase 3 for K1-K3, phase 4 for K4, phase 6 for K5 and K6, phase 7
 for K7 (once) and K8 (twice); ``launches_frontend`` counts K1-K6 in phase
 8's front-end pass and ``launches_phase9`` in phase 9's serving calls; K1
 and K3 carry ``ms_rows1024_k600`` and ``bound_ms_rows1024_k600``, their
-times and bound at 1,024 rows.
+times and bound at 1,024 rows; ``launches_phase10`` counts every kernel in
+phase 10's steps, and K5 carries ``phase10_ms`` (the steps' and the
+merge's times).
 """
 
 from __future__ import annotations
@@ -286,6 +310,13 @@ SNAP_FAULTS = (("snapshot.write", "torn_write"),
                ("snapshot.array", "truncate"),
                ("snapshot.array", "bit_flip"))
 REORDER_WIDTHS = (32, 256)     # 9d's pruned batches: phase 8's and phase 3's
+# phase 10: the sharded step at world size 1 on the card, and the launcher
+SHARD_AXES = ("data", "model")  # every mesh axis holds shards
+SHARD_BATCHES = 2              # phase 3's first batches, served again
+SHARD_SAMPLES = 10             # sampled queries held exact a board
+SHARD_P_FLOOR = 1024           # sharded_retrieve_adaptive's first bucket
+SERVE_RUNS = ((), ("--rescale", "2"))   # launcher flags past its defaults
+SERVE_TIMEOUT_S = 240          # each launcher run
 
 
 def check(ok, what: str) -> None:
@@ -2035,10 +2066,204 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
             "launches": served}
 
 
-def phase_bm25(args) -> list:
-    """Phases 3-6: the BM25 query paths at full width (retriever,
-    ladder, kernels, dense path). Returns the ``kernels`` entries of
-    K1-K6; every tensor of these phases is freed on return."""
+def boards_tie_equal(a_ids, a_vals, b_ids, b_vals) -> bool:
+    """Two ``[B, k]`` boards equal up to ties: the scores within
+    ``EXACT_ATOL`` position by position, and in every row the ids scoring
+    more than ``EXACT_ATOL`` above the row's k-th score the same set (a
+    document tied at the cut may be either)."""
+    if not np.allclose(a_vals, b_vals, rtol=0, atol=EXACT_ATOL):
+        return False
+    for ia, va, ib, vb in zip(a_ids, a_vals, b_ids, b_vals):
+        cut = min(va[-1], vb[-1]) + EXACT_ATOL
+        if set(ia[va > cut].tolist()) != set(ib[vb > cut].tolist()):
+            return False
+    return True
+
+
+def phase_sharded(idx, oracle, rng, phase3) -> dict:
+    """Phase 10: the sharded step on ``torch.distributed`` at world size 1.
+
+    One card can run one NCCL rank, so this is the step's plumbing and its
+    local steps at full width, not a multi-card figure. (a) an NCCL group
+    of one rank in this process (``file://`` rendezvous in a temporary
+    directory) and ``make_mesh_from(device_type="cuda")``; (b)
+    ``stack_shard_arrays([idx], ...)`` uploads phase 3's index; (c) the
+    classic step (``score_batch`` + ``ops.topk``, K5) on phase 3's first
+    batches at their exact largest ``query_posting_budget``, then at a
+    small budget that must flag exactly the queries whose budget exceeds
+    it; (d) ``sharded_retrieve_adaptive(gathered=True)`` from
+    ``SHARD_P_FLOOR`` on the same batches, its bucket trail, ``p_used``
+    and the device memory it took beside a ``[p_used, B]`` f32 buffer;
+    (e) CUDA-event times of both steps and of the all-gather + merge;
+    (f) ``python -m repro_torch.launch.serve`` on the card at its defaults
+    (then with ``--rescale 2``). Every board is exact against
+    ``ScipyBM25`` on sampled queries and tie-aware equal to phase 3's
+    gathered board of its batch. Returns the launch counts of (c)-(d)."""
+    import os
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.core import pad_queries, query_posting_budget
+    from repro_torch.core import retrieval as rmod
+    from repro_torch.core.scoring import batch_posting_budget, bucket_pow2
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.kernels import blockwise_topk as k5
+    from repro_torch.launch.mesh import make_mesh_from
+    from repro_torch.sparse.block_csr import TRANSFERS, reset_transfer_stats
+
+    def exact(qs, ids, vals, res3, what):
+        worst = sampled_exact(oracle, qs, SimpleNamespace(
+            ids=ids.cpu().numpy(), scores=vals.cpu().numpy()), rng,
+            SHARD_SAMPLES)
+        same = boards_tie_equal(ids.cpu().numpy(), vals.cpu().numpy(),
+                                res3.ids, res3.scores)
+        check(same, f"{what}: tie-aware equal to phase 3's gathered board")
+        return (f"{SHARD_SAMPLES} sampled queries exact against ScipyBM25, "
+                f"max |score - oracle| {worst:.3g}; tie-aware equal to "
+                f"phase 3's gathered board {same}")
+
+    torch.cuda.set_device(0)
+    rdv = tempfile.mkdtemp(prefix="smoke-dist-")
+    tdist.init_process_group("nccl", init_method=f"file://{rdv}/rdv",
+                             rank=0, world_size=1)
+    try:
+        mesh = make_mesh_from(device_type="cuda")
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        print(f"[sharded] world size {tdist.get_world_size()} "
+              f"({tdist.get_backend()}); make_mesh_from: {shape}",
+              flush=True)
+        check(shape == {"data": 1, "model": 1}, "a (1, 1) mesh")
+        reset_transfer_stats()
+        t0 = time.perf_counter()
+        arrs, ndoc = rmod.stack_shard_arrays([idx], mesh, SHARD_AXES)
+        torch.cuda.synchronize()
+        print(f"[sharded] stack_shard_arrays: {time.perf_counter() - t0:.2f}"
+              f" s, posting bytes uploaded {TRANSFERS.posting_bytes}, "
+              f"ndoc_pad {ndoc}, local {tuple(arrs[1].to_local().shape)}, "
+              f"placements {arrs[1].placements}", flush=True)
+        check(ndoc == idx.doc_lens.size, "ndoc_pad = the shard's doc count")
+        df = np.diff(idx.indptr)
+        batches = []
+        for qs, res3 in phase3[:SHARD_BATCHES]:
+            toks, wts = pad_queries(qs, Q_MAX)
+            need = np.where(toks >= 0, df[np.maximum(toks, 0)], 0).sum(1)
+            check(int(need.max()) == query_posting_budget(idx, toks),
+                  "per-query budgets")
+            batches.append((qs, res3, toks, wts, need))
+
+        for c in COUNTERS:
+            c.reset()
+        steps, times = {}, {}
+        for i, (qs, res3, toks, wts, need) in enumerate(batches):
+            p_max = int(need.max())
+            fn = steps["classic", i] = rmod.make_sharded_retrieve(
+                mesh, SHARD_AXES, p_max=p_max, k=TOP_K,
+                n_docs_per_shard=ndoc, return_overflow=True)
+            ids, vals, over = fn(arrs, toks, wts)
+            check(ids.shape == (QUERY_BATCH, TOP_K), "board shape")
+            check(bool(torch.isfinite(vals).all()), "finite board")
+            check(not bool(over.any()), "no overflow at the exact budget")
+            print(f"[sharded] classic batch={i} p_max={p_max}: "
+                  f"{exact(qs, ids, vals, res3, 'classic')}", flush=True)
+            steps["board", i] = (ids, vals, over)
+            p_small = int(np.median(need))
+            small = rmod.make_sharded_retrieve(
+                mesh, SHARD_AXES, p_max=p_small, k=TOP_K,
+                n_docs_per_shard=ndoc, return_overflow=True)
+            over_small = small(arrs, toks, wts)[2].cpu().numpy()
+            flagged = int(over_small.sum())
+            print(f"[sharded] classic batch={i} at p_max={p_small}: "
+                  f"{flagged} of {QUERY_BATCH} queries flagged, the host "
+                  f"budget says {int((need > p_small).sum())}", flush=True)
+            check(np.array_equal(over_small, need > p_small),
+                  "the flags are exactly the queries over the budget")
+
+        adaptive = rmod.sharded_retrieve_adaptive(
+            mesh, SHARD_AXES, k=TOP_K, n_docs_per_shard=ndoc,
+            p_floor=SHARD_P_FLOOR, gathered=True)
+        for i, (qs, res3, toks, wts, need) in enumerate(batches):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            ids, vals, p_used = adaptive(arrs, toks, wts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            sum_df = batch_posting_budget(idx, toks)
+            buffer = p_used * QUERY_BATCH * 4
+            print(f"[sharded] gathered batch={i}: bucket trail "
+                  f"{adaptive.trail}, p_used={p_used} (sum_df {sum_df}), "
+                  f"{wall:.2f} s; device memory above the step's inputs "
+                  f"{peak} bytes (peak), a [p_used, B] f32 buffer would be "
+                  f"{buffer} bytes; "
+                  f"{exact(qs, ids, vals, res3, 'gathered')}", flush=True)
+            check(p_used == bucket_pow2(sum_df, floor=SHARD_P_FLOOR),
+                  "p_used is the first bucket covering the batch's sum_df")
+            check(peak < buffer, "no [p_max, B] buffer")
+            cids, cvals, _ = steps["board", i]
+            check(boards_tie_equal(ids.cpu().numpy(), vals.cpu().numpy(),
+                                   cids.cpu().numpy(), cvals.cpu().numpy()),
+                  "gathered board == classic board (tie-aware)")
+            steps["p_used", i] = p_used
+
+        # (e) the steps and the merge, timed with CUDA events
+        last = len(batches) - 1
+        qs, res3, toks, wts, need = batches[last]
+        times["classic"] = cuda_ms(lambda: steps["classic", last](
+            arrs, toks, wts), reps=3)
+        times["gathered"] = cuda_ms(lambda: adaptive(arrs, toks, wts),
+                                    reps=3)
+        check(adaptive.trail == [steps["p_used", last]],
+              "steady traffic runs one bucket a call")
+        ids, vals, over = steps["board", last]
+        group = rmod._shard_group(mesh, SHARD_AXES)
+        times["merge"] = cuda_ms(lambda: rmod._all_gather_merge(
+            ids, vals, over, group, 1, TOP_K), reps=10)
+        launches = {c.name: c.n for c in COUNTERS}
+        print(f"[sharded] B={QUERY_BATCH} k={TOP_K}: classic step "
+              f"{times['classic']:.1f} ms, gathered step (p_max "
+              f"{steps['p_used', last]}) {times['gathered']:.1f} ms, "
+              f"all-gather"
+              f" + merge {times['merge']:.3f} ms (CUDA events, world size "
+              f"1); launches {launches}", flush=True)
+        check(launches[k5.LAUNCHES.name] > 0, "K5 launched in phase 10")
+        del arrs, steps, adaptive, ids, vals, over
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the serving launcher on the card, at the reference's defaults
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for extra in SERVE_RUNS:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                            *extra], cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=SERVE_TIMEOUT_S)
+        for line in r.stdout.strip().splitlines():
+            print(f"[launch] {' '.join(extra) or 'defaults'}: {line}")
+        print(f"[launch] exit {r.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if r.returncode != 0:
+            print(r.stderr[-3000:], file=sys.stderr)
+        check(r.returncode == 0, "the launcher exits 0")
+        if "--rescale" not in extra:
+            check(r.stdout.rstrip().endswith("degraded 0/100"),
+                  "the launcher serves 100 queries, none degraded")
+    return dict(launches=launches, times=times)
+
+
+def phase_bm25(args) -> tuple[list, dict]:
+    """Phases 3-6, 8-10: the BM25 query paths at full width (retriever,
+    front-end, snapshots, ladder, kernels, dense path, sharded step).
+    Returns the ``kernels`` entries of K1-K6 and phase 10's launch counts;
+    every tensor of these phases is freed on return."""
     import torch
 
     from repro_torch.core import BM25Params, ScipyBM25, build_index
@@ -2427,6 +2652,17 @@ def phase_bm25(args) -> list:
     t0 = time.perf_counter()
     kernels += phase_dense(dr, idx, oracle, rng)
     print(f"[dense] done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- phase 10: the sharded step at world size 1, the launcher ----------
+    del dr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p10 = phase_sharded(
+        idx, oracle, np.random.default_rng(args.seed + 10),
+        [(qs, res) for regime, i, qs, res in served if regime == "gathered"])
+    print(f"[sharded] phase 10 done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
     for kd in kernels:
         kd["launches_frontend"] = fe_launches[kd["name"]]
         kd["launches_phase9"] = p9["launches"][kd["name"]]
@@ -2435,7 +2671,8 @@ def phase_bm25(args) -> list:
     kernels[2][rows_key] = p9["k3_rows_ms"]          # K3
     for kd in (kernels[0], kernels[2]):
         kd[f"bound_ms_rows{p9['rows']}_k{F3_K}"] = p9["rows_bound_ms"]
-    return kernels
+    kernels[4]["phase10_ms"] = p10["times"]                 # K5's path
+    return kernels, p10["launches"]
 
 
 def main(argv=None) -> int:
@@ -2481,7 +2718,7 @@ def main(argv=None) -> int:
     print(f"[kernel-vs-twin] done in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
-    kernels = phase_bm25(args)
+    kernels, p10_launches = phase_bm25(args)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2490,6 +2727,7 @@ def main(argv=None) -> int:
     kernels += phase_sparse(args.seed)
     print(f"[sparse] done in {time.perf_counter() - t0:.1f}s", flush=True)
     for kd in kernels:
+        kd["launches_phase10"] = p10_launches[kd["name"]]
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = kd.pop("ops") / FP32_OPS_PER_S * 1e3
         kd["bound_ms"] = max(t_bytes, t_ops)

@@ -1,11 +1,13 @@
 """BM25S core for the PyTorch port: eager index (numpy), references,
-planner, the eager torch scorer and the text-in :class:`BM25Retriever`."""
+planner, the eager torch scorer, the sharded step over a device mesh and
+the text-in :class:`BM25Retriever`."""
 
 from .index import BM25Index, CorpusStats, build_index, build_sharded_indexes, reshard_index
 from .reference import RankBM25Baseline, ScipyBM25, dense_oracle_scores
 from .retrieval import (RetrievalPlan, blockwise_topk, default_doc_ids,
                         merge_topk, merge_topk_batch, missing_doc_ids,
-                        plan_retrieval, rank_order, splice_default_docs,
+                        plan_retrieval, rank_order,
+                        sharded_retrieve_adaptive, splice_default_docs,
                         topk_numpy, topk_torch, validate_query_batch)
 from .scoring import (DeviceIndex, batch_posting_budget, bucket_pow2,
                       pad_queries, query_posting_budget, score_batch,
@@ -21,8 +23,8 @@ __all__ = [
     "default_doc_ids", "dense_oracle_scores", "get_variant", "merge_topk",
     "merge_topk_batch", "missing_doc_ids", "pad_queries", "plan_retrieval",
     "query_posting_budget", "rank_order", "reshard_index", "score_batch",
-    "score_query", "splice_default_docs", "suggest_p_max", "topk_numpy",
-    "topk_torch", "validate_query_batch",
+    "score_query", "sharded_retrieve_adaptive", "splice_default_docs",
+    "suggest_p_max", "topk_numpy", "topk_torch", "validate_query_batch",
 ]
 
 

@@ -2,8 +2,11 @@
 
 The port's counterpart of ``repro.core.retrieval``: the numpy half
 (planner, sanitizer, default-document ids, host top-k and merges) is
-copied; :func:`splice_default_docs` is torch. The sharded ``shard_map``
-step belongs to the multi-device slice.
+copied; :func:`splice_default_docs` is torch. The sharded step
+(:func:`make_sharded_retrieve`, :func:`sharded_retrieve_adaptive`,
+:func:`stack_shard_arrays`) runs the reference's ``shard_map`` step on a
+``torch.distributed`` device mesh: a local score and top-k on each rank's
+shard, an all-gather of the candidates, a global merge.
 
 **The tie rule.** Every board the port returns is ordered by score
 descending, then document id ascending (:func:`rank_order`). The
@@ -14,6 +17,8 @@ every kernel, twin and merge follows it.
 
 from __future__ import annotations
 
+import math
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -394,3 +399,430 @@ def splice_default_docs(cand_vals: torch.Tensor, cand_ids: torch.Tensor,
     all_i = torch.cat([cand_ids, miss[None].expand(b, k)], dim=1)
     sel = rank_order(all_v, all_i)[:, :k]
     return torch.gather(all_i, 1, sel), torch.gather(all_v, 1, sel)
+
+
+# -- the sharded step: a document-sharded corpus on a device mesh ------------
+#
+# Every rank holds one shard of the corpus (``stack_shard_arrays``) and the
+# same replicated query batch. A step scores and selects on the rank's own
+# shard, all-gathers the ``[B, kk]`` winners of every shard over the shard
+# axes' process group and ranks the ``shards × kk`` candidates — the
+# reference's ``shard_map`` step, one process a shard.
+
+# the gathered step adds at most this many postings an ``index_add_``
+_SLOTS_PER_STEP = 1 << 26
+
+
+def _spans(lengths: list[int], cap: int) -> list[tuple[int, int]]:
+    """Consecutive ``[lo, hi)`` groups of ``lengths`` summing to at most
+    ``cap`` each (a group holds at least one entry)."""
+    out, lo, acc = [], 0, 0
+    for i, n in enumerate(lengths):
+        if i > lo and acc + n > cap:
+            out.append((lo, i))
+            lo, acc = i, 0
+        acc += n
+    if lo < len(lengths):
+        out.append((lo, len(lengths)))
+    return out
+
+
+def _device_gathered_topk(indptr, doc_ids, scores, nonocc, q_tokens,
+                          q_weights, n_docs_true, *, p_max: int, k: int,
+                          n_docs: int):
+    """Shard-local query-driven gather → candidate top-k, all on device.
+
+    The port of the reference's device half of the inverted-index regime:
+
+    1. the batch's unique tokens and their posting runs ``(start, len)``
+       from the CSC ``indptr``;
+    2. one gather of the runs, in ascending token order, cut at the
+       ``p_max`` budget — work O(Σ df over the batch's unique tokens),
+       shared by the B queries;
+    3. candidate compaction (the distinct gathered documents, ascending)
+       and exact sums into a ``[B, C]`` accumulator, C the number of
+       candidates ≤ min(p_max, n_docs) — never O(n_docs) and never
+       ``[p_max, B]``: the reference materialises every slot's ``[B]``
+       contribution, 137 GB at 2^27 slots and B = 256;
+    4. per-query top-k over the candidates (``kernels.ops.topk``: K5 for
+       more than 4,096 candidates) + the default-document splice (a doc
+       outside the candidate set scores exactly the §2.1 shift; ids at or
+       past the shard's real count ``n_docs_true`` are padding, masked to
+       the float minimum), then the shift, summed in position order.
+
+    **Fixed order.** A document receives its postings in ascending token
+    order: pass ``r`` adds, for every query, the run of its ``r``-th
+    distinct token (its weight summed over duplicate positions, in
+    position order, as the reference's weight table sums them). One
+    token's run holds distinct documents and each query has one ``r``-th
+    token, so every destination is written once a pass and no two adds
+    meet, whatever the device does with them: the bits are the same on
+    the CPU and the card. Skipping the (token, query) pairs the query
+    lacks changes no bit (they add ``+0.0`` to sums that are never
+    ``-0.0``).
+
+    ``n_docs`` is the PADDED per-shard doc count. Returns ``(ids [B, kk]
+    int32, scores [B, kk] f32, overflow [] bool)`` with ``kk = min(k,
+    n_docs)``, in the port's tie order; overflow is True iff the batch's
+    posting demand exceeded ``p_max`` (the scores are then lower bounds —
+    callers retry at a larger bucket).
+    """
+    from ..kernels import ops
+
+    dev = scores.device
+    toks = torch.as_tensor(q_tokens).to(dev, torch.int64)
+    wts = torch.as_tensor(q_weights).to(dev, torch.float32)
+    b, q = toks.shape
+    kk = min(k, n_docs)
+    valid = toks >= 0
+    safe = torch.where(valid, toks, 0)
+
+    uniq = torch.unique(toks[valid])                            # sorted
+    starts = indptr[uniq].to(torch.int64)
+    lens = indptr[uniq + 1].to(torch.int64) - starts
+    cum = torch.cumsum(lens, 0)
+    total = int(cum[-1]) if uniq.numel() else 0
+    ends = cum.clamp(max=p_max)               # the budget keeps a prefix
+    kept = (ends - (cum - lens)).clamp_(min=0)
+    first = ends - kept                       # a run's first kept slot
+    slot = torch.arange(min(total, p_max), device=dev)
+    owner = torch.searchsorted(ends, slot, right=True)
+    pos = starts[owner] + (slot - first[owner])
+    g_sc = scores[pos]
+    cand, cslot = torch.unique(doc_ids[pos], return_inverse=True)
+    del slot, owner, pos
+    c = cand.numel()
+
+    # each query's (unique token, weight) pairs, weights summed in position
+    # order: a position pass writes each (token, query) at most once
+    u_of = torch.searchsorted(uniq, safe)
+    table = torch.zeros((uniq.numel(), b), dtype=torch.float32, device=dev)
+    present = torch.zeros((uniq.numel(), b), dtype=torch.bool, device=dev)
+    rows = torch.arange(b, device=dev)
+    for i in range(q):
+        v = valid[:, i]
+        table[u_of[v, i], rows[v]] += wts[v, i]
+        present[u_of[v, i], rows[v]] = True
+    pu, pb = present.nonzero(as_tuple=True)           # by token, then query
+    rank = (present.cumsum(0) - 1)[pu, pb]            # r-th token of its query
+    order = torch.argsort(rank, stable=True)
+    pu, pb = pu[order], pb[order]
+    p_len, p_first, p_w = kept[pu], first[pu], table[pu, pb]
+    n_pass = torch.bincount(rank, minlength=1).tolist()
+    lengths = p_len.tolist()
+
+    acc = torch.zeros((b, c), dtype=torch.float32, device=dev)
+    lo = 0
+    for n in n_pass:                                  # pass r, r ascending
+        for s0, s1 in _spans(lengths[lo:lo + n], _SLOTS_PER_STEP):
+            s0, s1 = lo + s0, lo + s1
+            pend = torch.cumsum(p_len[s0:s1], 0)
+            j = torch.arange(int(pend[-1]), device=dev)
+            p = torch.searchsorted(pend, j, right=True)
+            g = p_first[s0:s1][p] + (j - (pend - p_len[s0:s1])[p])
+            acc.view(-1).index_add_(0, pb[s0:s1][p] * c + cslot[g],
+                                    g_sc[g] * p_w[s0:s1][p])
+        lo += n
+    del g_sc, cslot
+
+    m = min(kk, c)
+    if m:
+        vals, ci = ops.topk(acc, m)       # ties: candidate order = doc id
+        ids = cand[ci.long()].to(torch.int32)
+    else:
+        vals = torch.empty((b, 0), dtype=torch.float32, device=dev)
+        ids = torch.empty((b, 0), dtype=torch.int32, device=dev)
+    del acc
+    ids, mvals = splice_default_docs(
+        vals, ids, kk, n_docs, default_ids=missing_doc_ids(cand, kk, n_docs),
+        doc_limit=int(n_docs_true))
+    term = torch.where(valid, nonocc[safe], 0.0) * wts
+    shift = torch.zeros(b, dtype=torch.float32, device=dev)
+    for i in range(q):                    # position order on every device
+        shift += term[:, i]
+    return (ids, mvals + shift[:, None],
+            torch.tensor(total > p_max, device=dev))
+
+
+# the flattened groups of several shard axes, created once a mesh
+_SHARD_GROUPS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _mesh_sizes(mesh, shard_axes: tuple[str, ...]) -> list[int]:
+    names = tuple(mesh.mesh_dim_names or ())
+    missing = [a for a in shard_axes if a not in names]
+    if missing or not shard_axes:
+        raise ValueError(f"shard axes {shard_axes} must name axes of the "
+                         f"mesh {names}")
+    if list(shard_axes) != sorted(shard_axes, key=names.index):
+        raise ValueError(f"list the shard axes {shard_axes} in the mesh's "
+                         f"order {names}")
+    return [int(mesh.shape[names.index(a)]) for a in shard_axes]
+
+
+def _shard_group(mesh, shard_axes: tuple[str, ...]):
+    """The flattened group of several ``shard_axes`` that holds this rank.
+
+    Created here the first time for a mesh: every rank of the default
+    group creates every such group, in the same order (a collective), and
+    keeps the one it belongs to (None on a rank outside the mesh). One
+    axis needs no new group: None, and the step takes the mesh's own
+    group for that axis.
+    """
+    import torch.distributed as tdist
+
+    if len(shard_axes) == 1:
+        return None                   # resolved on a member at call time
+    groups = _SHARD_GROUPS.setdefault(mesh, {})
+    if shard_axes not in groups:
+        names = tuple(mesh.mesh_dim_names)
+        grid = mesh.mesh
+        dims = [names.index(a) for a in shard_axes]
+        rest = [d for d in range(grid.dim()) if d not in dims]
+        n = math.prod(int(grid.shape[d]) for d in dims)
+        me, mine = tdist.get_rank(), None
+        for row in grid.permute(*rest, *dims).reshape(-1, n).tolist():
+            g = tdist.new_group(sorted(row))
+            if me in row:
+                mine = g
+        groups[shard_axes] = mine
+    return groups[shard_axes]
+
+
+def _local(x) -> torch.Tensor:
+    """The rank's leading-dim-1 block of a stacked index array."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def make_sharded_retrieve(mesh, shard_axes: tuple[str, ...], *, p_max: int,
+                          k: int, n_docs_per_shard: int,
+                          return_overflow: bool = False,
+                          gathered: bool = False):
+    """Build the pod-scale retrieval step: shard-local score + top-k, an
+    all-gather of the candidates, the global merge.
+
+    ``mesh`` is a ``DeviceMesh`` (``launch.mesh.make_mesh_from``); the
+    index arrays are sharded over ``shard_axes`` (:func:`stack_shard_arrays`:
+    one shard a rank, leading dim = shard id) and the queries are
+    replicated: every rank passes the same ``q_tokens [B, Q]`` /
+    ``q_weights [B, Q]`` (numpy or tensors; they go to the rank's device).
+    Returns ``retrieve(idx_arrays, q_tokens, q_weights) -> (global doc
+    ids [B, k] int32, scores [B, k] f32)``, the same on every rank of the
+    mesh. With ``return_overflow=True`` a third ``[B]`` bool output marks
+    queries whose posting demand exceeded ``p_max`` on ANY shard (their
+    scores are lower bounds).
+
+    The local step is the port's fixed-order ``score_batch`` over the
+    shard (docs at or past the shard's real count masked to the float
+    minimum) and ``kernels.ops.topk`` of ``min(k, n_docs_per_shard)``
+    (K5 past 4,096 documents); ``gathered=True`` swaps in
+    :func:`_device_gathered_topk`, whose overflow flag is batch-global.
+    The merge all-gathers each shard's ``[B, kk]`` ids, scores and flags
+    in one tensor over the shard axes' group and ranks the ``shards × kk``
+    candidates by :func:`rank_order`. ``k`` larger than ``shards × kk``
+    raises ``ValueError``.
+
+    A ``cuda`` mesh needs an NCCL group and a ``cpu`` mesh a gloo one
+    (``ValueError`` otherwise): nothing is copied to the host to make a
+    collective work. Every rank of the default group must build the step
+    (several shard axes create their flattened group collectively); only
+    the mesh's ranks call it.
+    """
+    from ..kernels import ops
+    from ..launch.mesh import check_mesh_backend
+    from .scoring import DeviceIndex, score_batch
+
+    shard_axes = tuple(shard_axes)
+    n_shards = math.prod(_mesh_sizes(mesh, shard_axes))
+    check_mesh_backend(mesh.device_type)
+    flat_group = _shard_group(mesh, shard_axes)
+    kk = min(k, n_docs_per_shard)
+    neg = torch.finfo(torch.float32).min
+
+    def local_score_topk(idx_arrays, toks, wts):
+        indptr, doc_ids, scores, nonocc, offsets, counts = (
+            _local(x)[0] for x in idx_arrays)
+        if gathered:
+            gidx, vals, over = _device_gathered_topk(
+                indptr, doc_ids, scores, nonocc, toks, wts, counts[0],
+                p_max=p_max, k=k, n_docs=n_docs_per_shard)
+            return (gidx + offsets.to(torch.int32), vals,
+                    over.expand(toks.shape[0]))
+        dindex = DeviceIndex(indptr, doc_ids, scores, nonocc,
+                             n_docs=n_docs_per_shard)
+        s, over = score_batch(dindex, toks, wts, p_max=p_max,
+                              return_overflow=True)        # [B, n_local]
+        # docs past the shard's REAL count exist only as stacking padding
+        # (uneven shards): a padded doc would score the bare shift and
+        # could displace real winners — mask before selecting
+        s[:, int(counts[0]):] = neg
+        vals, local_idx = ops.topk(s, kk)
+        return local_idx + offsets.to(torch.int32), vals, over
+
+    def retrieve(idx_arrays, q_tokens, q_weights):
+        if k > n_shards * kk:
+            raise ValueError(f"k={k} exceeds the {n_shards} shards × "
+                             f"{kk} candidates the merge receives")
+        dev = _local(idx_arrays[0]).device
+        toks = torch.as_tensor(q_tokens).to(dev, torch.int64)
+        wts = torch.as_tensor(q_weights).to(dev, torch.float32)
+        gidx, vals, over = local_score_topk(idx_arrays, toks, wts)
+        group = (mesh.get_group(shard_axes[0]) if flat_group is None
+                 else flat_group)
+        ids, mvals, over = _all_gather_merge(gidx, vals, over, group,
+                                             n_shards, k)
+        if return_overflow:
+            return ids, mvals, over
+        return ids, mvals
+
+    return retrieve
+
+
+def _all_gather_merge(gidx, vals, over, group, n_shards: int, k: int):
+    """The sharded step's merge: every shard's ``[B, kk]`` ids and scores
+    and ``[B]`` flags, all-gathered in one int32 tensor over ``group``,
+    then the top ``k`` of the ``[B, n_shards · kk]`` candidates by
+    :func:`rank_order` and the flags OR-ed. The same on every rank."""
+    import torch.distributed as tdist
+
+    b, kk = gidx.shape
+    packed = torch.cat([gidx.to(torch.int32),
+                        vals.contiguous().view(torch.int32),
+                        over.to(torch.int32)[:, None]], dim=1)
+    parts = [torch.empty_like(packed) for _ in range(n_shards)]
+    tdist.all_gather(parts, packed, group=group)
+    allp = torch.stack(parts, dim=1)                      # [B, S, 2kk + 1]
+    alli = allp[..., :kk].reshape(b, -1)
+    allv = allp[..., kk:2 * kk].contiguous().view(torch.float32
+                                                  ).reshape(b, -1)
+    sel = rank_order(allv, alli)[:, :k]
+    return (torch.gather(alli, 1, sel), torch.gather(allv, 1, sel),
+            allp[..., -1].any(dim=1))
+
+
+def sharded_retrieve_adaptive(mesh, shard_axes: tuple[str, ...], *, k: int,
+                              n_docs_per_shard: int, p_floor: int = 1024,
+                              gathered: bool = True):
+    """Adaptive-budget wrapper: overflow becomes a larger-bucket RETRY.
+
+    The static ``p_max`` of :func:`make_sharded_retrieve` truncates
+    postings when a batch's Σ df exceeds it. This wrapper sizes the budget
+    as power-of-two buckets starting at ``p_floor`` (one step per bucket,
+    cached here): if the overflow flag fires, the batch re-runs at the
+    next bucket until it fits or the bucket covers the shard's whole
+    posting array (Σ df ≤ nnz, so that bucket cannot overflow on the
+    posting budget). A call starts at the last bucket that fit, so steady
+    traffic runs once a call.
+
+    The retry is CAPPED: if the flag persists at the Σdf-covering bucket
+    (a flag or metadata bug, not demand), the wrapper raises
+    :class:`repro_torch.serve.errors.PlanOverflowError` carrying the
+    attempted bucket trail instead of returning truncated scores.
+
+    Returns ``retrieve(idx_arrays, q_tokens, q_weights) -> (ids [B, k],
+    scores [B, k], p_max_used)``; ``retrieve.trail`` is the last call's
+    bucket trail. The first bucket's step is built here, so every rank of
+    the default group must call this (see :func:`make_sharded_retrieve`).
+    """
+    from .scoring import bucket_pow2
+
+    cache: dict[int, object] = {}
+    state = {"p": p_floor}    # last successful bucket — the steady state
+
+    def step(p: int):
+        fn = cache.get(p)
+        if fn is None:
+            fn = cache[p] = make_sharded_retrieve(
+                mesh, shard_axes, p_max=p, k=k,
+                n_docs_per_shard=n_docs_per_shard, return_overflow=True,
+                gathered=gathered)
+        return fn
+
+    step(p_floor)
+
+    def retrieve(idx_arrays, q_tokens, q_weights):
+        nnz_pad = int(idx_arrays[1].shape[-1])
+        cap = bucket_pow2(nnz_pad, floor=p_floor)
+        p = min(state["p"], cap)
+        attempted = retrieve.trail = []
+        while True:
+            ids, vals, over = step(p)(idx_arrays, q_tokens, q_weights)
+            attempted.append(p)
+            if not bool(torch.as_tensor(over).any()):
+                state["p"] = p
+                return ids, vals, p
+            if p >= cap:
+                from ..serve.errors import PlanOverflowError
+                raise PlanOverflowError(
+                    "posting-budget overflow persists at the Σdf-covering "
+                    f"bucket: attempted p_max buckets {attempted} "
+                    f"(cap {cap}, shard nnz_pad {nnz_pad}) — the overflow "
+                    "flag at the cap indicates corrupt index metadata, "
+                    "not query demand", attempted=attempted, cap=cap)
+            p = min(p * 2, cap)
+
+    retrieve.trail = []
+    return retrieve
+
+
+def _padded(a: np.ndarray, n: int, dtype) -> np.ndarray:
+    """``a`` as ``dtype``, zero-padded to ``n`` entries."""
+    a = np.asarray(a, dtype=dtype)
+    if a.size == n:
+        return a
+    out = np.zeros(n, dtype=dtype)
+    out[:a.size] = a
+    return out
+
+
+def stack_shard_arrays(shards, mesh, shard_axes: tuple[str, ...]):
+    """Host → device: this rank's shard of the stacked index arrays.
+
+    Every rank passes the same host list of ``BM25Index`` shards, one a
+    position of ``shard_axes`` (row-major over them, in the mesh's order);
+    the padded sizes (``nnz_pad``, ``ndoc_pad``) come from all of them,
+    and each rank uploads ONLY its own shard, through the counted
+    ``put_posting_arrays``, to the mesh's device. Returns the 6-tuple
+    ``(indptr, doc_ids, scores, nonocc, offsets, counts)`` consumed by
+    :func:`make_sharded_retrieve` — each a ``DTensor`` of a leading-dim-1
+    local block, ``Shard(0)`` over ``shard_axes`` and ``Replicate()`` on
+    the other mesh dims — plus the padded per-shard doc count. Padding
+    postings point at doc 0 with score 0 (harmless); ``counts`` carries
+    each shard's REAL doc count so the step masks the stacking padding of
+    uneven shards instead of scoring phantom documents.
+    """
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ..sparse.block_csr import put_posting_arrays
+
+    shard_axes = tuple(shard_axes)
+    sizes = _mesh_sizes(mesh, shard_axes)
+    if len(shards) != math.prod(sizes):
+        raise ValueError(f"{len(shards)} shards for the {math.prod(sizes)} "
+                         f"positions of the shard axes {shard_axes}")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh; only the mesh's "
+                         "ranks hold a shard")
+    names = tuple(mesh.mesh_dim_names)
+    sid = 0
+    for a, size in zip(shard_axes, sizes):
+        sid = sid * size + int(coord[names.index(a)])
+    s = shards[sid]
+    nnz_pad = max(x.doc_ids.size for x in shards)
+    ndoc_pad = max(x.doc_lens.size for x in shards)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    arrays = put_posting_arrays(
+        np.asarray(s.indptr, dtype=np.int64),
+        _padded(s.doc_ids, nnz_pad, np.int32),
+        _padded(s.scores, nnz_pad, np.float32),
+        np.asarray(s.nonoccurrence, dtype=np.float32),
+        np.array([s.doc_offset], dtype=np.int32),
+        np.array([s.doc_lens.size], dtype=np.int32), device=dev)
+    placements = [Shard(0) if a in shard_axes else Replicate()
+                  for a in names]
+    return tuple(DTensor.from_local(t[None], mesh, placements,
+                                    run_check=False)
+                 for t in arrays), ndoc_pad

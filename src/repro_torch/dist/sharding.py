@@ -1,0 +1,173 @@
+"""Logical-axis sharding: models annotate, meshes decide.
+
+The port's counterpart of ``repro.dist.sharding``, over a
+``torch.distributed`` :class:`~torch.distributed.device_mesh.DeviceMesh`.
+Model code names *logical* axes — ``"dp"`` (all data-parallel mesh axes:
+``"pod"`` and/or ``"data"``) and ``"model"`` (tensor parallelism) — and
+this module resolves them against whatever mesh is active:
+
+* :func:`activation_sharding` pushes a mesh onto a stack for the duration
+  of a ``with`` block; :func:`constrain` is a NO-OP outside any such
+  block, so the exact same model code runs on one device and on a mesh.
+* Resolution is divisibility-checked per dimension: an axis whose size
+  does not divide the dimension is silently dropped (replicated) instead
+  of failing, which is what makes elastic meshes (6 ranks, 4 heads on an
+  8-way model axis, ...) work.
+
+A placement is a DTensor placement list, one entry per MESH dimension:
+``Shard(d)`` where the reference's ``PartitionSpec`` puts that mesh axis
+on tensor dim ``d``, ``Replicate()`` elsewhere. ``batch_pspec`` /
+``param_pspecs`` are the generic placement rules for cells that have no
+architecture-specific sharding.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+
+# Data-parallel logical axis -> these mesh axes (in mesh-major order).
+_DP_AXES = ("pod", "data")
+
+_MESH_STACK: list = []
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh):
+    """Activate ``mesh`` for :func:`constrain` / :func:`dp_spmd_axes`."""
+    _MESH_STACK.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH_STACK.pop()
+
+
+def _active_mesh():
+    return _MESH_STACK[-1] if _MESH_STACK else None
+
+
+def _sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The mesh's non-trivial data-parallel axes (subset of pod/data)."""
+    sizes = _sizes(mesh)
+    return tuple(a for a in _DP_AXES if sizes.get(a, 1) > 1)
+
+
+def _axes_size(mesh, axes: tuple[str, ...]) -> int:
+    sizes = _sizes(mesh)
+    return int(math.prod(sizes[a] for a in axes)) if axes else 1
+
+
+def _dp_entry(mesh) -> str | tuple[str, ...] | None:
+    axes = data_axes(mesh)
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def dp_spmd_axes() -> str | tuple[str, ...] | None:
+    """The active mesh's data-parallel axis name(s), as the reference
+    passes them to ``vmap(spmd_axis_name=...)``.
+
+    ``None`` when no mesh is active or the active mesh has no data axes.
+    """
+    mesh = _active_mesh()
+    if mesh is None:
+        return None
+    return _dp_entry(mesh)
+
+
+def _resolve(mesh, dim: int, name: str | None) -> tuple[str, ...]:
+    """Logical axis name -> the mesh axes sharding a dim of size ``dim``
+    (empty: replicated), divisibility-checked."""
+    if name is None:
+        return ()
+    if name == "dp":
+        axes = data_axes(mesh)
+        if not axes or dim % _axes_size(mesh, axes) != 0:
+            return ()
+        return axes
+    size = _sizes(mesh).get(name, 1)
+    return (name,) if size > 1 and dim % size == 0 else ()
+
+
+def _placements(mesh, per_dim: list[tuple[str, ...]]) -> list:
+    """Per-tensor-dim mesh axes -> one DTensor placement per mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    where = {a: d for d, axes in enumerate(per_dim) for a in axes}
+    return [Shard(where[a]) if a in where else Replicate()
+            for a in mesh.mesh_dim_names]
+
+
+def constrain(x, *axes: str | None):
+    """Place ``x`` by logical axis names, one per dim.
+
+    No-op outside an :func:`activation_sharding` block. Inside one, a
+    ``DTensor`` is redistributed to the resolved placements (a collective
+    when they change); a plain tensor is local data and comes back as it
+    is. Unresolvable axes (absent from the mesh, size 1, or not dividing
+    the dimension) replicate rather than fail; a rank mismatch raises
+    ``ValueError``.
+    """
+    mesh = _active_mesh()
+    if mesh is None:
+        return x
+    if len(axes) != x.ndim:
+        raise ValueError(
+            f"constrain got {len(axes)} axis names for rank-{x.ndim} array")
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    per_dim = [_resolve(mesh, d, a) for d, a in zip(x.shape, axes)]
+    return x.redistribute(mesh, _placements(mesh, per_dim))
+
+
+def batch_pspec(shape, mesh) -> list:
+    """Batch placement: leading dim over the data axes when divisible."""
+    shape = tuple(shape)
+    axes = data_axes(mesh)
+    if not shape or not axes:
+        return _placements(mesh, [])
+    n = _axes_size(mesh, axes)
+    if shape[0] > 0 and shape[0] % n == 0:
+        return _placements(mesh, [axes])
+    return _placements(mesh, [])
+
+
+def param_pspecs(params_shapes, mesh):
+    """Generic ZeRO-ish parameter placement for architecture-less cells.
+
+    Shards the first dimension divisible by the data-axes size; everything
+    else replicates. ``params_shapes`` is a tree of dicts, lists and
+    tuples (named ones too) whose leaves have a ``shape`` (tensors, or
+    anything else that carries one); the result has the same structure
+    with a placement list at each leaf.
+    """
+    axes = data_axes(mesh)
+    n = _axes_size(mesh, axes)
+
+    def one(leaf) -> list:
+        shape = tuple(getattr(leaf, "shape", ()))
+        if axes:
+            for i, d in enumerate(shape):
+                if d >= n and d % n == 0:
+                    return _placements(mesh, [()] * i + [axes])
+        return _placements(mesh, [])
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {key: walk(v) for key, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, tuple):
+            out = [walk(v) for v in node]
+            return type(node)(*out) if hasattr(node, "_fields") else tuple(
+                out)
+        return one(node)
+
+    return walk(params_shapes)

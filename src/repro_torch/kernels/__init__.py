@@ -20,6 +20,9 @@ Kernels:
   embedding_bag     — K8, weighted gather-and-sum of table rows
                       (``ops.embedding_bag``)
 
+``ref`` holds a plain torch oracle of every kernel (the reference's
+``kernels/ref.py``), independent of the twins.
+
 As in the reference, the package attribute ``embedding_bag`` is the op
 (``ops.embedding_bag``); the kernel module is reached by name, ``from
 repro_torch.kernels.embedding_bag import embedding_bag_plain, ...``.
@@ -32,6 +35,7 @@ from .ops import (bm25_retrieve_blocked, bm25_retrieve_gathered,
                   bm25_retrieve_resident, bm25_retrieve_resident_pruned,
                   bm25_score_blocked, embedding_bag, segment_sum_blocked,
                   topk)
+from . import ref
 
 COUNTERS = (bm25_gather_score.LAUNCHES, bm25_block_score.LAUNCHES,
             bm25_gather_score.LAUNCHES_PRUNED,
@@ -41,5 +45,5 @@ COUNTERS = (bm25_gather_score.LAUNCHES, bm25_block_score.LAUNCHES,
 
 __all__ = ["COUNTERS", "bm25_retrieve_blocked", "bm25_retrieve_gathered",
            "bm25_retrieve_resident", "bm25_retrieve_resident_pruned",
-           "bm25_score_blocked", "embedding_bag", "segment_sum_blocked",
-           "topk"]
+           "bm25_score_blocked", "embedding_bag", "ref",
+           "segment_sum_blocked", "topk"]

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ``repro``, kernels built on demand.
 
-* ``import repro_torch`` (and every subpackage) leaves ``jax`` out of
-  ``sys.modules``;
+* ``import repro_torch`` (and every subpackage, ``dist``, ``launch`` and
+  ``kernels.ref`` among them) leaves ``jax`` out of ``sys.modules``, and
+  importing ``launch.mesh`` starts no process group;
 * an AST scan finds no import of ``jax`` or ``repro`` in any module of
   ``src/repro_torch``, in ``chip_smoke.py`` or in ``tools/``, and no
   ``sys.modules.get`` of a ``repro.`` module (the fault sites peek at
@@ -56,15 +57,33 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.sparse.segment_ops, "
             "repro_torch.sparse.embedding_bag, "
             "repro_torch.kernels.block_segment_sum, "
-            "repro_torch.kernels.embedding_bag\n"
+            "repro_torch.kernels.embedding_bag, repro_torch.dist, "
+            "repro_torch.dist.sharding, repro_torch.launch, "
+            "repro_torch.launch.mesh, repro_torch.launch.serve, "
+            "repro_torch.kernels.ref\n"
             "from repro_torch.core import BM25Retriever, score_batch\n"
             "from repro_torch.serve import ServingFrontend\n"
             "from repro_torch.kernels.ops import topk, bm25_score_blocked\n"
             "from repro_torch.kernels.ops import (embedding_bag, "
             "segment_sum_blocked)\n"
+            "from repro_torch.core import sharded_retrieve_adaptive\n"
+            "from repro_torch.core.retrieval import (make_sharded_retrieve, "
+            "stack_shard_arrays)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\nprint('clean')")
+    r = _run(["-c", code], cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
+def test_importing_the_mesh_module_starts_no_process_group():
+    """The mesh builders are functions: importing ``launch.mesh`` (and the
+    sharding layer) initialises no ``torch.distributed`` group."""
+    code = ("import torch.distributed as d\n"
+            "import repro_torch.launch.mesh, repro_torch.dist\n"
+            "from repro_torch.launch.mesh import make_production_mesh\n"
+            "assert not d.is_initialized()\nprint('clean')")
     r = _run(["-c", code], cwd=ROOT)
     assert r.returncode == 0, r.stderr
     assert "clean" in r.stdout
