@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query paths and sparse substrate on one GPU.
+"""Drive the port's query paths, sparse substrate and recsys cells on a GPU.
 
     python3 chip_smoke.py [--n-docs N] [--seed S] [--batches N]
 
@@ -194,6 +194,30 @@ Phases (any failure exits non-zero; nothing is caught):
    reference's defaults (20,000 docs, 4 shards, 100 queries, k = 10; it
    must print ``degraded 0/100``) and with ``--rescale 2``, each exiting
    0.
+11. after phase 7, every earlier tensor freed: the recsys serving family
+   at its configs' widths (``repro_torch.configs``: DLRM-MLPerf, AutoInt,
+   SASRec, MIND). DLRM is **cut**: its concatenated table is 96.1 GB in
+   f32, more than the card holds, so each field keeps at most 2^22 rows
+   (25,038,848 rows, 12.8 GB; the 26 fields, dim 128, both MLPs and the
+   interaction kept; a ``CUT`` line says so). An NCCL group of one rank
+   and the (1, 1) mesh; for each arch the cells of
+   ``configs.get_cells`` (``serve_p99`` B = 512, ``serve_bulk`` B =
+   262,144, ``retrieval_cand`` one user against 2^20 candidates) built
+   on the mesh, params drawn on the card from a seeded generator, each
+   cell's inputs drawn from its specs (histories with left pads on a
+   quarter of the rows and, in a serving batch, one all-pad row;
+   candidates a permutation of the item ids 1..2^20, or uniform in field
+   0's vocabulary for the CTR models, which gives AutoInt's board a block
+   of ties); every output finite, ``serve_p99``'s logits equal to the same
+   function on the CPU (a CTR model's table copied as the rows the batch
+   reads) within rtol/atol 1e-4, and ``retrieval_cand``'s board (its
+   top-k is ``ops.topk``: K5) bitwise equal to ``ops.topk`` on the scores
+   copied to the CPU (K5's twin) and value-equal to ``torch.topk``, each
+   id carrying its own score. Each cell prints its median ms (CUDA
+   events, 5 runs after a warm-up), samples (candidates) a second, peak
+   device memory and ``model_flops`` over its time as a share of 67
+   TFLOP/s; ``retrieval_cand`` also the scoring's ms, ``ops.topk``'s and
+   K5's launch alone, and K5's launches.
 
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
@@ -212,7 +236,9 @@ for K7 (once) and K8 (twice); ``launches_frontend`` counts K1-K6 in phase
 and K3 carry ``ms_rows1024_k600`` and ``bound_ms_rows1024_k600``, their
 times and bound at 1,024 rows; ``launches_phase10`` counts every kernel in
 phase 10's steps, and K5 carries ``phase10_ms`` (the steps' and the
-merge's times).
+merge's times); ``launches_phase11`` counts every kernel in phase 11's
+cells (K5 alone launches there), and K5 carries ``phase11_ms``
+(``ops.topk``'s ms on each arch's ``[1, 2^20]`` scores).
 """
 
 from __future__ import annotations
@@ -317,6 +343,13 @@ SHARD_SAMPLES = 10             # sampled queries held exact a board
 SHARD_P_FLOOR = 1024           # sharded_retrieve_adaptive's first bucket
 SERVE_RUNS = ((), ("--rescale", "2"))   # launcher flags past its defaults
 SERVE_TIMEOUT_S = 240          # each launcher run
+# phase 11: the recsys serving family at full width (configs/{dlrm_mlperf,
+# autoint,sasrec,mind}.py): serve_p99, serve_bulk and retrieval_cand
+RECSYS_ARCHS = ("dlrm-mlperf", "autoint", "sasrec", "mind")
+DLRM_ROW_CAP = 2 ** 22         # rows a DLRM field keeps (cut: 96.1 GB in f32)
+RECSYS_PAD_SHARE = 0.25        # history rows with a seeded left pad
+RECSYS_REPS = 5                # timed runs a cell, after one warm-up
+RECSYS_RTOL = RECSYS_ATOL = 1e-4   # serve_p99 logits, card vs CPU
 
 
 def check(ok, what: str) -> None:
@@ -2259,6 +2292,266 @@ def phase_sharded(idx, oracle, rng, phase3) -> dict:
     return dict(launches=launches, times=times)
 
 
+def recsys_inputs(cfg, specs, gen, *, serve: bool) -> dict:
+    """A batch shaped like ``specs`` (the cell's ``meta`` tensors), drawn
+    on the card from ``gen``: sparse ids within each field's vocabulary,
+    normal dense features, item ids in [1, v) with left pads 0 on a
+    ``RECSYS_PAD_SHARE`` of the history rows (and, for a serving cell,
+    one all-pad row, the last)."""
+    import torch
+    dev = gen.device
+    out = {}
+    for key, spec in specs.items():
+        shape = tuple(spec.shape)
+        if key == "sparse":
+            x = torch.stack([torch.randint(0, v, shape[:1], generator=gen,
+                                           device=dev, dtype=torch.int32)
+                             for v in cfg.vocab_sizes], dim=1)
+        elif key == "dense":
+            x = torch.randn(shape, generator=gen, device=dev)
+        else:
+            x = torch.randint(1, cfg.vocab_sizes[0], shape, generator=gen,
+                              device=dev, dtype=torch.int32)
+            if key == "history":
+                b, l = shape
+                padded = torch.rand(b, generator=gen, device=dev) \
+                    < RECSYS_PAD_SHARE
+                n_pad = torch.randint(1, l, (b,), generator=gen, device=dev)
+                lead = torch.arange(l, device=dev)[None] < n_pad[:, None]
+                x.masked_fill_(lead & padded[:, None], 0)
+                if serve:
+                    x[-1] = 0
+        check(tuple(x.shape) == shape and x.dtype == spec.dtype,
+              f"{key} made as its spec")
+        out[key] = x
+    return out
+
+
+def recsys_candidates(cfg, n: int, gen):
+    """``retrieval_cand``'s candidates: a seeded permutation of the item
+    ids 1..n (sequence models), or uniform in field 0's vocabulary (CTR
+    models, whose candidate takes field 0: AutoInt's 64 values tie)."""
+    import torch
+    if cfg.model in ("sasrec", "mind"):
+        return (torch.randperm(n, generator=gen, device=gen.device)
+                + 1).to(torch.int32)
+    return torch.randint(0, cfg.vocab_sizes[0], (n,), generator=gen,
+                         device=gen.device, dtype=torch.int32)
+
+
+def recsys_on_cpu(cfg, params, batch):
+    """The CPU's copy of a serving batch and its params. A CTR model's
+    table comes across as the rows the batch reads alone, field by field
+    (its ids re-indexed into them), so DLRM's 12.8 GB table is never
+    copied."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.models.common import tree_map
+    cpu = {k: v.cpu() for k, v in batch.items()}
+    if "table" not in params:
+        return cfg, tree_map(lambda t: t.cpu(), params), cpu
+    offs = cfg.field_offsets()
+    rows, cols, sizes = [], [], []
+    for f in range(cfg.n_sparse):
+        u, inv = torch.unique(batch["sparse"][:, f], return_inverse=True)
+        rows.append(u.long() + int(offs[f]))
+        cols.append(inv.to(torch.int32))
+        sizes.append(int(u.numel()))
+    p = tree_map(lambda t: t.cpu(),
+                 {k: v for k, v in params.items() if k != "table"})
+    p["table"] = params["table"][torch.cat(rows)].cpu()
+    cpu["sparse"] = torch.stack(cols, dim=1).cpu()
+    return replace(cfg, vocab_sizes=tuple(sizes)), p, cpu
+
+
+def median_ms(fn) -> float:
+    """Median CUDA-event milliseconds of ``RECSYS_REPS`` calls of ``fn``,
+    after one untimed call."""
+    fn()
+    return float(np.median([cuda_ms(fn) for _ in range(RECSYS_REPS)]))
+
+
+def phase_recsys(seed: int) -> dict:
+    """Phase 11: the recsys serving family at full width on the card.
+
+    For each of DLRM (its table cut to ``DLRM_ROW_CAP`` rows a field),
+    AutoInt, SASRec and MIND: the cells from ``configs.get_cells`` built
+    on the (1, 1) mesh of ``launch/mesh.py`` (an NCCL group of one rank),
+    params drawn on the card from a seeded generator, each cell's inputs
+    drawn from its specs; ``serve_p99``, ``serve_bulk`` and
+    ``retrieval_cand`` run (the last selects with ``ops.topk``: K5).
+    Checks: every output finite; ``serve_p99``'s logits equal the same
+    function on the CPU within ``RECSYS_RTOL``/``RECSYS_ATOL``;
+    ``retrieval_cand``'s board bitwise equal to ``ops.topk`` on the
+    scores copied to the CPU (K5's twin) and value-equal to
+    ``torch.topk``, each id carrying its own score. Prints each cell's
+    median ms, samples a second, peak device memory and FLOP share, and
+    K5's launches and ms beside the scoring's. Returns the launch counts
+    of the cells' own calls (the side timings excluded), and by arch the
+    ms of K5 alone and of all of ``ops.topk``."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch import configs
+    from repro_torch.configs.common import recsys_cells
+    from repro_torch.kernels import COUNTERS, ops
+    from repro_torch.kernels import blockwise_topk as k5
+    from repro_torch.launch.mesh import make_mesh_from
+    from repro_torch.models import recsys
+    from repro_torch.models.common import tree_leaves
+
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    rdv = tempfile.mkdtemp(prefix="smoke-recsys-")
+    tdist.init_process_group("nccl", init_method=f"file://{rdv}/rdv",
+                             rank=0, world_size=1)
+    k5_ms, topk_ms = {}, {}
+    launches = {c.name: 0 for c in COUNTERS}
+
+    def drive(run):
+        """Run the cell's own calls with every count set to 0 just before
+        and read just after, adding them to the phase's launches; the side
+        timings of K5 and ``ops.topk`` stay outside this window."""
+        for c in COUNTERS:
+            c.reset()
+        out = run()
+        for c in COUNTERS:
+            launches[c.name] += c.n
+        return out, {c.name: c.n for c in COUNTERS}
+
+    try:
+        mesh = make_mesh_from(device_type="cuda")
+        for a, arch in enumerate(RECSYS_ARCHS):
+            t_arch = time.perf_counter()
+            cfg = configs.get_config(arch)
+            cells = configs.get_cells(arch)
+            if arch == "dlrm-mlperf":
+                full = cfg
+                cfg = replace(full, vocab_sizes=tuple(
+                    min(v, DLRM_ROW_CAP) for v in full.vocab_sizes))
+                print(f"[recsys] CUT dlrm-mlperf: table rows "
+                      f"{full.padded_rows:,} -> {cfg.padded_rows:,} "
+                      f"({full.padded_rows * full.embed_dim * 4 / 1e9:.1f}"
+                      f" -> {cfg.padded_rows * cfg.embed_dim * 4 / 1e9:.1f}"
+                      f" GB in f32): the whole table does not fit the "
+                      f"card's 80 GB; each field keeps at most "
+                      f"{DLRM_ROW_CAP:,} rows; the 26 fields, dim 128, "
+                      f"both MLPs and the interaction are kept", flush=True)
+                cut = recsys_cells(arch, cfg)
+                check([c.key for c in cut] == [c.key for c in cells],
+                      "the cut DLRM has the same cells")
+                cells = cut
+            gen = torch.Generator(device=dev).manual_seed(seed * 100 + a)
+            t0 = time.perf_counter()
+            params = recsys.init_params(gen, cfg, device=dev)
+            torch.cuda.synchronize()
+            print(f"[recsys] {arch}: params on the card in "
+                  f"{time.perf_counter() - t0:.2f} s, "
+                  f"{sum(t.numel() for t in tree_leaves(params)) * 4:,} "
+                  f"bytes", flush=True)
+            for cell in cells:
+                fn, args = cell.build(mesh)
+                placed = cell.shardings(mesh, args)
+                retrieval = cell.kind == "retrieval"
+                batch = recsys_inputs(cfg, args[1], gen, serve=not retrieval)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                if retrieval:
+                    n = args[2].shape[0]
+                    cands = recsys_candidates(cfg, n, gen)
+                    (ms, (idx, vals)), n_cell = drive(lambda: (
+                        median_ms(lambda: fn(params, batch, cands)),
+                        fn(params, batch, cands)))
+                    k5_n = n_cell[k5.LAUNCHES.name]
+                    score_ms = median_ms(lambda: recsys.retrieval_scores(
+                        cfg, params, batch, cands))
+                    scores = recsys.retrieval_scores(cfg, params, batch,
+                                                     cands)
+                    topk_ms[arch] = median_ms(lambda: ops.topk(
+                        scores, TOP_K, block=TOPK_BLOCK))
+                    k5_ms[arch] = median_ms(lambda: k5.blockwise_topk(
+                        scores, k=TOP_K, block=TOPK_BLOCK))
+                    peak = torch.cuda.max_memory_allocated()
+                    check(bool(torch.isfinite(vals).all())
+                          and bool(torch.isfinite(scores).all()),
+                          f"{cell.key}: finite scores and board")
+                    tv, ti = ops.topk(scores.cpu(), TOP_K, block=TOPK_BLOCK)
+                    twin = bits_equal(idx, ti) and bits_equal(vals, tv)
+                    lib_v, _ = torch.topk(scores, TOP_K, dim=1)
+                    own = torch.equal(scores.gather(1, idx.long()), vals)
+                    distinct = idx.unique().numel() == TOP_K
+                    ties = int(torch.unique(vals).numel())
+                    share = cell.model_flops / (ms * 1e-3) / FP32_OPS_PER_S
+                    print(f"[recsys] {cell.key}: {ms:.3f} ms for {n:,} "
+                          f"candidates ({n / ms * 1e3:,.0f} candidates/s); "
+                          f"scoring {score_ms:.3f} ms, top-{TOP_K} "
+                          f"(ops.topk) {topk_ms[arch]:.3f} ms, of which "
+                          f"K5's launch alone {k5_ms[arch]:.3f} ms; {k5_n} "
+                          f"K5 launches in the cell's own calls; peak "
+                          f"{peak:,} bytes; FLOP share {share:.4f} of 67 "
+                          f"TFLOP/s FP32; board bitwise K5's twin "
+                          f"{twin}, values torch.topk's "
+                          f"{torch.equal(lib_v, vals)}, each id its own "
+                          f"score {own}, distinct {distinct}, "
+                          f"{ties} distinct values", flush=True)
+                    check(k5_n > 0, f"{cell.key}: K5 launched")
+                    check(twin, f"{cell.key}: board == K5's twin, bitwise")
+                    check(torch.equal(lib_v, vals) and own and distinct,
+                          f"{cell.key}: board tie-aware == torch.topk")
+                    del idx, vals, scores, cands, tv, ti, lib_v
+                else:
+                    b = args[1][next(iter(args[1]))].shape[0]
+                    (ms, logits), _ = drive(lambda: (
+                        median_ms(lambda: fn(params, batch)),
+                        fn(params, batch)))
+                    peak = torch.cuda.max_memory_allocated()
+                    check(bool(torch.isfinite(logits).all()),
+                          f"{cell.key}: finite logits")
+                    share = cell.model_flops / (ms * 1e-3) / FP32_OPS_PER_S
+                    line = (f"[recsys] {cell.key}: {ms:.3f} ms at B = {b:,} "
+                            f"({b / ms * 1e3:,.0f} samples/s); peak "
+                            f"{peak:,} bytes; FLOP share {share:.4f} of 67 "
+                            f"TFLOP/s FP32; logits {tuple(logits.shape)}")
+                    if cell.shape == "serve_p99":
+                        c_cfg, c_params, c_batch = recsys_on_cpu(
+                            cfg, params, batch)
+                        ref = recsys.forward(c_cfg, c_params, c_batch)
+                        err = float((logits.cpu() - ref).abs().max())
+                        close = torch.allclose(logits.cpu(), ref,
+                                               rtol=RECSYS_RTOL,
+                                               atol=RECSYS_ATOL)
+                        line += (f"; against the CPU: max |diff| {err:.3g},"
+                                 f" within rtol/atol 1e-4 {close}")
+                        check(close, f"{cell.key}: card == CPU")
+                    print(line, flush=True)
+                    del logits
+                # the (1, 1) mesh: one placement a mesh dim, every argument
+                check(len(tree_leaves(placed)) == 2 * len(tree_leaves(args)),
+                      f"{cell.key}: placements for every argument")
+                del batch
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[recsys] {arch} done in "
+                  f"{time.perf_counter() - t_arch:.1f} s", flush=True)
+        print(f"[recsys] phase 11 launches (the cells' own calls) "
+              f"{launches}", flush=True)
+        check(launches[k5.LAUNCHES.name] > 0, "K5 launched in phase 11")
+        check(all(n == 0 for name, n in launches.items()
+                  if name != k5.LAUNCHES.name),
+              "no kernel but K5 launched in phase 11")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    return dict(launches=launches, k5_ms=k5_ms, topk_ms=topk_ms)
+
+
 def phase_bm25(args) -> tuple[list, dict]:
     """Phases 3-6, 8-10: the BM25 query paths at full width (retriever,
     front-end, snapshots, ladder, kernels, dense path, sharded step).
@@ -2726,8 +3019,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels += phase_sparse(args.seed)
     print(f"[sparse] done in {time.perf_counter() - t0:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 11: the recsys serving family at full width -----------------
+    t0 = time.perf_counter()
+    p11 = phase_recsys(args.seed)
+    print(f"[recsys] phase 11 done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    kernels[4]["phase11_ms"] = p11["k5_ms"]                 # K5 alone
+    kernels[4]["phase11_topk_ms"] = p11["topk_ms"]          # all of ops.topk
     for kd in kernels:
         kd["launches_phase10"] = p10_launches[kd["name"]]
+        kd["launches_phase11"] = p11["launches"][kd["name"]]
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = kd.pop("ops") / FP32_OPS_PER_S * 1e3
         kd["bound_ms"] = max(t_bytes, t_ops)

@@ -1,0 +1,55 @@
+"""Architecture registry: ``--arch <id>`` resolves here.
+
+The port's counterpart of ``repro.configs``, over the architectures the
+port has: the recsys family. Each module exposes ``CONFIG`` (exact
+published config), ``SMOKE`` (reduced same-family variant for CPU tests),
+``FAMILY`` and ``cells()`` (the cells for its assigned input shapes). The
+reference's LM configs, ``egnn`` and ``bm25s`` come with their slices.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+_ARCH_MODULES = {
+    "autoint": "autoint",
+    "mind": "mind",
+    "dlrm-mlperf": "dlrm_mlperf",
+    "sasrec": "sasrec",
+}
+
+
+
+def _norm(name: str) -> str:
+    return name.replace("_", "-")
+
+
+def get_module(arch: str):
+    key = _norm(arch)
+    if key not in _ARCH_MODULES:
+        raise ValueError(f"unknown arch {arch!r}; available: "
+                         f"{sorted(_ARCH_MODULES)}")
+    return importlib.import_module(f".{_ARCH_MODULES[key]}", __package__)
+
+
+def get_config(arch: str):
+    return get_module(arch).CONFIG
+
+
+def get_smoke(arch: str):
+    return get_module(arch).SMOKE
+
+
+def get_cells(arch: str):
+    return get_module(arch).cells()
+
+
+def all_cells():
+    out = []
+    for a in _ARCH_MODULES:
+        out.extend(get_cells(a))
+    return out
+
+
+def list_archs() -> list[str]:
+    return list(_ARCH_MODULES)

@@ -9,7 +9,8 @@ holding equal arrays — so both packages serve the same state.
 block-max table, :func:`device_index_from_reference` for a whole resident
 index (a reordered one keeps its permutation: its ``host`` is in the
 permuted id space, and ``perm`` / ``reorder`` come across with it), and
-:func:`scoring_index_from_reference` for the eager scorer's device index.
+:func:`scoring_index_from_reference` for the eager scorer's device index,
+and :func:`recsys_params_from_reference` for a recsys model's params.
 A snapshot (``sparse.snapshot``) is the other carrier of state between
 the packages. It imports nothing of ``repro``.
 """
@@ -17,10 +18,13 @@ the packages. It imports nothing of ``repro``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.index import BM25Index
 from .core.variants import BM25Params
 from .core.scoring import DeviceIndex
+from .device import resolve_device
+from .models.common import tree_map
 from .sparse import block_csr
 from .sparse.block_csr import BlockMaxTable, put_descriptor_array
 
@@ -106,3 +110,13 @@ def scoring_index_from_reference(dindex, *, device=None) -> DeviceIndex:
                               n_docs=int(dindex.n_docs),
                               doc_offset=int(dindex.doc_offset),
                               device=device)
+
+
+def recsys_params_from_reference(tree, *, device=None):
+    """The port's params for ``repro.models.recsys``'s ``tree`` (nested
+    dicts and lists of arrays, as ``jax.device_get`` of the reference's
+    ``init_params`` gives them), on ``device`` (default ``cuda``): the
+    same structure, every leaf an f32 tensor."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: torch.as_tensor(np.array(x, dtype=np.float32),
+                                              device=dev), tree)

@@ -26,6 +26,8 @@ from __future__ import annotations
 import contextlib
 import math
 
+from ..models.common import tree_map
+
 # Data-parallel logical axis -> these mesh axes (in mesh-major order).
 _DP_AXES = ("pod", "data")
 
@@ -159,15 +161,4 @@ def param_pspecs(params_shapes, mesh):
                     return _placements(mesh, [()] * i + [axes])
         return _placements(mesh, [])
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {key: walk(v) for key, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v) for v in node]
-        if isinstance(node, tuple):
-            out = [walk(v) for v in node]
-            return type(node)(*out) if hasattr(node, "_fields") else tuple(
-                out)
-        return one(node)
-
-    return walk(params_shapes)
+    return tree_map(one, params_shapes)

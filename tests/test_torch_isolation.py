@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ``repro``, kernels built on demand.
 
-* ``import repro_torch`` (and every subpackage, ``dist``, ``launch`` and
-  ``kernels.ref`` among them) leaves ``jax`` out of ``sys.modules``, and
+* ``import repro_torch`` (and every subpackage, ``dist``, ``launch``,
+  ``kernels.ref``, ``models`` and ``configs`` with each config module
+  among them) leaves ``jax`` out of ``sys.modules``, and
   importing ``launch.mesh`` starts no process group;
 * an AST scan finds no import of ``jax`` or ``repro`` in any module of
   ``src/repro_torch``, in ``chip_smoke.py`` or in ``tools/``, and no
@@ -60,7 +61,14 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.kernels.embedding_bag, repro_torch.dist, "
             "repro_torch.dist.sharding, repro_torch.launch, "
             "repro_torch.launch.mesh, repro_torch.launch.serve, "
-            "repro_torch.kernels.ref\n"
+            "repro_torch.kernels.ref, repro_torch.models, "
+            "repro_torch.models.common, repro_torch.models.recsys, "
+            "repro_torch.configs, repro_torch.configs.common, "
+            "repro_torch.configs.dlrm_mlperf, repro_torch.configs.autoint, "
+            "repro_torch.configs.mind, repro_torch.configs.sasrec\n"
+            "from repro_torch.configs import all_cells, get_cells\n"
+            "for c in all_cells():\n    c.build(None)\n"
+            "from repro_torch.convert import recsys_params_from_reference\n"
             "from repro_torch.core import BM25Retriever, score_batch\n"
             "from repro_torch.serve import ServingFrontend\n"
             "from repro_torch.kernels.ops import topk, bm25_score_blocked\n"

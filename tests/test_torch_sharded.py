@@ -22,7 +22,8 @@ reference's and one under robertson's negative IDF, where an unmasked
 padding document would outrank real ones. ``sharded_retrieve_adaptive`` gives the reference's ``p_used`` and
 bucket trail. ``dist.sharding`` resolves batch and parameter placements as
 the reference's ``PartitionSpec``s over (1, 8), (2, 4) and (3, 2) meshes,
-and ``constrain`` redistributes a ``DTensor`` to them.
+and ``constrain`` redistributes a ``DTensor`` to them; on the same meshes
+the recsys serving cells' placements equal the reference cells'.
 
 In-process: ``_device_gathered_topk`` against the reference's on the CPU
 and bitwise run to run; the adaptive wrapper's trail, cap and
@@ -239,6 +240,16 @@ PORT_SCRIPT = textwrap.dedent("""
         return [("S", p.dim) if p.is_shard() else ("R",)
                 for p in placements]
 
+    # {path: encoded placements} of a tree whose leaves are placement
+    # lists (the recsys cells' shardings)
+    def flat_placements(tree, path=()):
+        if isinstance(tree, (list, tuple)) and tree and all(
+                hasattr(p, "is_shard") for p in tree):
+            return {path: enc(tree)}
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        return {k: v for key, sub in items
+                for k, v in flat_placements(sub, path + (key,)).items()}
+
     def board(fn, arrs, toks, wts):
         return tuple(np.asarray(x) for x in fn(arrs, toks, wts))
 
@@ -335,6 +346,12 @@ PORT_SCRIPT = textwrap.dedent("""
                                                             x))
         res["local"] = (tuple(y.to_local().shape),
                         tuple(z.to_local().shape))
+        from repro_torch import configs as recsys_configs
+        res["recsys"] = {}
+        for cell in recsys_configs.all_cells():
+            _, args = cell.build(mesh)
+            res["recsys"][cell.key] = flat_placements(
+                cell.shardings(mesh, args))
         out["sharding"][name] = res
     out["foreign"] = sorted(m for m in sys.modules
                             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -574,6 +591,47 @@ def test_sharding_resolution_matches_the_reference(runs, mesh_name):
         assert _spec_dims(z_pl, names, 2) == _ref_dims(ref_z, 2)
         assert got["constrain_equal"] and got["outside"] and got["plain"]
         assert got["rank_mismatch"] == "ValueError"
+
+
+@pytest.mark.parametrize("mesh_name", list(SHARDING_MESHES))
+def test_recsys_cell_placements_on_the_gloo_meshes(runs, mesh_name):
+    """The recsys serving cells' placements (``configs.common``'s
+    ``shardings``, at full ``CONFIG``) on the ranks' real ``DeviceMesh``es
+    equal the reference cells' ``NamedSharding``s on an ``AbstractMesh``
+    of the same shape."""
+    import jax
+    from jax.sharding import AbstractMesh
+
+    import repro.configs as ref_configs
+    from repro_torch.launch.mesh import mesh_shape
+    n, max_model = SHARDING_MESHES[mesh_name]
+    shape = mesh_shape(n, max_model=max_model)
+    ref_mesh = AbstractMesh(shape, ("data", "model"))
+    want = {}
+    for arch in ("autoint", "mind", "dlrm-mlperf", "sasrec"):
+        for c in ref_configs.get_cells(arch):
+            if c.shape == "train_batch":
+                continue
+            _, args = c.build(ref_mesh)
+            ndim = {tuple(getattr(k, "key", getattr(k, "idx", None))
+                          for k in kp): len(a.shape)
+                    for kp, a in jax.tree_util.tree_leaves_with_path(args)}
+            want[c.key] = {
+                path: _ref_dims(sh.spec, ndim[path])
+                for path, sh in (
+                    (tuple(getattr(k, "key", getattr(k, "idx", None))
+                           for k in kp), sh)
+                    for kp, sh in jax.tree_util.tree_leaves_with_path(
+                        c.shardings(ref_mesh, args)))}
+            assert len(want[c.key]) == len(ndim)
+    for r in range(n):
+        got = runs.port[r]["sharding"][mesh_name]["recsys"]
+        assert set(got) == set(want)
+        for key, paths in want.items():
+            assert set(got[key]) == set(paths), key
+            for path, dims in paths.items():
+                assert _spec_dims(got[key][path], ("data", "model"),
+                                  len(dims)) == dims, (key, path)
 
 
 # -- in process ---------------------------------------------------------------
