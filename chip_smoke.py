@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's query paths, sparse substrate and recsys cells on a GPU.
+"""Drive the port's query paths, sparse substrate, recsys and LM cells on GPU.
 
     python3 chip_smoke.py [--n-docs N] [--seed S] [--batches N]
 
@@ -218,6 +218,33 @@ Phases (any failure exits non-zero; nothing is caught):
    device memory and ``model_flops`` over its time as a share of 67
    TFLOP/s; ``retrieval_cand`` also the scoring's ms, ``ops.topk``'s and
    K5's launch alone, and K5's launches.
+12. after phase 11, every earlier tensor freed, on the same mesh and
+   group: LM serving at full width. gemma3-1b (``configs.get_cells``,
+   params drawn on the card and cast to bf16 as the specs say):
+   ``decode_32k`` (B = 128, 32,768 positions, 18.7 GB cache) and
+   ``long_500k`` (B = 1, 524,288), each one warm-up step, the median of 5
+   timed steps and 8 more (``pos`` moves; the local rings wrap);
+   ``prefill_32k`` **cut** to B = 1 (a ``CUT`` line says why: f32
+   attention over all 32,768 keys, and 80 GB at B = 32), one warm-up and
+   the median of 3; ``decode_32k`` over the int8 cache (``kv_quant``).
+   Then the card against the CPU in f32 at full width (prefill of 64
+   tokens, 4 teacher-forced decode steps from ``pos = 0``; logits within
+   rtol/atol 1e-3, greedy ids equal where the CPU's top-2 gap is
+   clear), prefill against a 64-step decode in bf16 on the card (logits
+   and every layer's K/V within 2^-4 of the tensor's largest entry),
+   and ``DecodeEngine`` (8 slots, 1,024 positions) over 16 seeded
+   requests (prompts of 8-200 tokens, ``max_new`` 16-64; 4 of them
+   decoded again alone by a lockstep ``decode_step``, teacher-forced with
+   the engine's ids: equal ids except under a top-2 gap of 4 bf16 ulps,
+   counted). Then mixtral-8x7b at full width, depth **cut** from 32 to 2
+   layers: ``prefill_32k`` at B = 1, ``decode_32k`` (window-capped
+   caches of 4,096) and layer 0's ``moe_block`` in f32 on 64 tokens
+   against ``Σ_k w_tk · expert_{e_tk}(x_t)`` over the kept choices
+   (rtol/atol 1e-4), its router's integers equal to the CPU's on the same
+   logits. Each cell prints its ms (CUDA events), tokens a second, peak
+   device memory (params included) and FLOP share of 67 TFLOP/s
+   (``model_flops`` of the cut batch or depth); each decode cell its
+   cache bytes. No kernel launches here: the LM path reaches none.
 
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
@@ -238,7 +265,8 @@ times and bound at 1,024 rows; ``launches_phase10`` counts every kernel in
 phase 10's steps, and K5 carries ``phase10_ms`` (the steps' and the
 merge's times); ``launches_phase11`` counts every kernel in phase 11's
 cells (K5 alone launches there), and K5 carries ``phase11_ms``
-(``ops.topk``'s ms on each arch's ``[1, 2^20]`` scores).
+(``ops.topk``'s ms on each arch's ``[1, 2^20]`` scores);
+``launches_phase12`` counts every kernel in phase 12 (all 0).
 """
 
 from __future__ import annotations
@@ -350,6 +378,28 @@ DLRM_ROW_CAP = 2 ** 22         # rows a DLRM field keeps (cut: 96.1 GB in f32)
 RECSYS_PAD_SHARE = 0.25        # history rows with a seeded left pad
 RECSYS_REPS = 5                # timed runs a cell, after one warm-up
 RECSYS_RTOL = RECSYS_ATOL = 1e-4   # serve_p99 logits, card vs CPU
+# phase 12: LM serving at full width (configs/{gemma3_1b,mixtral_8x7b}.py)
+LM_ARCH = "gemma3-1b"
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 2                 # Mixtral's depth (cut: 32 layers are 94 GB)
+LM_PREFILL_B = 1               # prefill_32k's batch (cut from 32)
+LM_WARM, LM_REPS, LM_MORE = 1, 5, 8   # decode steps: warm, timed, then on
+LM_PREFILL_REPS = 3            # timed prefill calls, after one warm-up
+LM_CHECK_PROMPT = 64           # tokens of the card-vs-CPU and prefill checks
+LM_CHECK_STEPS = 4             # card-vs-CPU decode steps
+LM_RTOL = LM_ATOL = 1e-3       # card vs CPU, f32 (TF32 off)
+# prefill vs decode in bf16 on the card, each within this share of the
+# tensor's largest entry: the last logits read 8.7e-4 there (2^-7: 9x
+# room), the worst layer's K/V 8.7e-3 (2^-5: 3.6x room); PERF.md §6
+LM_BF16_LOGITS_REL = 2.0 ** -7
+LM_BF16_KV_REL = 2.0 ** -5
+LM_GAP_ULPS = 4                # engine vs lockstep: a tie is a top-2 gap
+                               # under 4 bf16 ulps of the top logit
+ENGINE_SLOTS, ENGINE_MAX_SEQ, ENGINE_REQUESTS = 8, 1024, 16
+ENGINE_PROMPT, ENGINE_NEW = (8, 200), (16, 64)   # drawn, ends included
+ENGINE_LOCKSTEP = 4            # requests decoded again alone
+MOE_CHECK_TOKENS = 64
+MOE_RTOL = MOE_ATOL = 1e-4     # moe_block vs the per-token formula, f32
 
 
 def check(ok, what: str) -> None:
@@ -2373,12 +2423,29 @@ def median_ms(fn) -> float:
     return float(np.median([cuda_ms(fn) for _ in range(RECSYS_REPS)]))
 
 
-def phase_recsys(seed: int) -> dict:
+def one_rank_mesh():
+    """The (1, 1) mesh of ``launch/mesh.py`` over an NCCL group of one
+    rank (phases 11 and 12), and the group's rendezvous directory."""
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh_from
+    torch.cuda.set_device(0)
+    rdv = tempfile.mkdtemp(prefix="smoke-mesh-")
+    tdist.init_process_group("nccl", init_method=f"file://{rdv}/rdv",
+                             rank=0, world_size=1)
+    return make_mesh_from(device_type="cuda"), rdv
+
+
+def phase_recsys(seed: int, mesh) -> dict:
     """Phase 11: the recsys serving family at full width on the card.
 
     For each of DLRM (its table cut to ``DLRM_ROW_CAP`` rows a field),
     AutoInt, SASRec and MIND: the cells from ``configs.get_cells`` built
-    on the (1, 1) mesh of ``launch/mesh.py`` (an NCCL group of one rank),
+    on ``mesh``, the (1, 1) mesh of ``launch/mesh.py`` (an NCCL group of
+    one rank, :func:`one_rank_mesh`),
     params drawn on the card from a seeded generator, each cell's inputs
     drawn from its specs; ``serve_p99``, ``serve_bulk`` and
     ``retrieval_cand`` run (the last selects with ``ops.topk``: K5).
@@ -2391,26 +2458,18 @@ def phase_recsys(seed: int) -> dict:
     K5's launches and ms beside the scoring's. Returns the launch counts
     of the cells' own calls (the side timings excluded), and by arch the
     ms of K5 alone and of all of ``ops.topk``."""
-    import shutil
-    import tempfile
     from dataclasses import replace
 
     import torch
-    import torch.distributed as tdist
 
     from repro_torch import configs
     from repro_torch.configs.common import recsys_cells
     from repro_torch.kernels import COUNTERS, ops
     from repro_torch.kernels import blockwise_topk as k5
-    from repro_torch.launch.mesh import make_mesh_from
     from repro_torch.models import recsys
     from repro_torch.models.common import tree_leaves
 
     dev = torch.device("cuda")
-    torch.cuda.set_device(0)
-    rdv = tempfile.mkdtemp(prefix="smoke-recsys-")
-    tdist.init_process_group("nccl", init_method=f"file://{rdv}/rdv",
-                             rank=0, world_size=1)
     k5_ms, topk_ms = {}, {}
     launches = {c.name: 0 for c in COUNTERS}
 
@@ -2425,131 +2484,597 @@ def phase_recsys(seed: int) -> dict:
             launches[c.name] += c.n
         return out, {c.name: c.n for c in COUNTERS}
 
-    try:
-        mesh = make_mesh_from(device_type="cuda")
-        for a, arch in enumerate(RECSYS_ARCHS):
-            t_arch = time.perf_counter()
-            cfg = configs.get_config(arch)
-            cells = configs.get_cells(arch)
-            if arch == "dlrm-mlperf":
-                full = cfg
-                cfg = replace(full, vocab_sizes=tuple(
-                    min(v, DLRM_ROW_CAP) for v in full.vocab_sizes))
-                print(f"[recsys] CUT dlrm-mlperf: table rows "
-                      f"{full.padded_rows:,} -> {cfg.padded_rows:,} "
-                      f"({full.padded_rows * full.embed_dim * 4 / 1e9:.1f}"
-                      f" -> {cfg.padded_rows * cfg.embed_dim * 4 / 1e9:.1f}"
-                      f" GB in f32): the whole table does not fit the "
-                      f"card's 80 GB; each field keeps at most "
-                      f"{DLRM_ROW_CAP:,} rows; the 26 fields, dim 128, "
-                      f"both MLPs and the interaction are kept", flush=True)
-                cut = recsys_cells(arch, cfg)
-                check([c.key for c in cut] == [c.key for c in cells],
-                      "the cut DLRM has the same cells")
-                cells = cut
-            gen = torch.Generator(device=dev).manual_seed(seed * 100 + a)
-            t0 = time.perf_counter()
-            params = recsys.init_params(gen, cfg, device=dev)
+    for a, arch in enumerate(RECSYS_ARCHS):
+        t_arch = time.perf_counter()
+        cfg = configs.get_config(arch)
+        cells = configs.get_cells(arch)
+        if arch == "dlrm-mlperf":
+            full = cfg
+            cfg = replace(full, vocab_sizes=tuple(
+                min(v, DLRM_ROW_CAP) for v in full.vocab_sizes))
+            print(f"[recsys] CUT dlrm-mlperf: table rows "
+                  f"{full.padded_rows:,} -> {cfg.padded_rows:,} "
+                  f"({full.padded_rows * full.embed_dim * 4 / 1e9:.1f}"
+                  f" -> {cfg.padded_rows * cfg.embed_dim * 4 / 1e9:.1f}"
+                  f" GB in f32): the whole table does not fit the "
+                  f"card's 80 GB; each field keeps at most "
+                  f"{DLRM_ROW_CAP:,} rows; the 26 fields, dim 128, "
+                  f"both MLPs and the interaction are kept", flush=True)
+            cut = recsys_cells(arch, cfg)
+            check([c.key for c in cut] == [c.key for c in cells],
+                  "the cut DLRM has the same cells")
+            cells = cut
+        gen = torch.Generator(device=dev).manual_seed(seed * 100 + a)
+        t0 = time.perf_counter()
+        params = recsys.init_params(gen, cfg, device=dev)
+        torch.cuda.synchronize()
+        print(f"[recsys] {arch}: params on the card in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{sum(t.numel() for t in tree_leaves(params)) * 4:,} "
+              f"bytes", flush=True)
+        for cell in cells:
+            fn, args = cell.build(mesh)
+            placed = cell.shardings(mesh, args)
+            retrieval = cell.kind == "retrieval"
+            batch = recsys_inputs(cfg, args[1], gen, serve=not retrieval)
             torch.cuda.synchronize()
-            print(f"[recsys] {arch}: params on the card in "
-                  f"{time.perf_counter() - t0:.2f} s, "
-                  f"{sum(t.numel() for t in tree_leaves(params)) * 4:,} "
-                  f"bytes", flush=True)
-            for cell in cells:
-                fn, args = cell.build(mesh)
-                placed = cell.shardings(mesh, args)
-                retrieval = cell.kind == "retrieval"
-                batch = recsys_inputs(cfg, args[1], gen, serve=not retrieval)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                if retrieval:
-                    n = args[2].shape[0]
-                    cands = recsys_candidates(cfg, n, gen)
-                    (ms, (idx, vals)), n_cell = drive(lambda: (
-                        median_ms(lambda: fn(params, batch, cands)),
-                        fn(params, batch, cands)))
-                    k5_n = n_cell[k5.LAUNCHES.name]
-                    score_ms = median_ms(lambda: recsys.retrieval_scores(
-                        cfg, params, batch, cands))
-                    scores = recsys.retrieval_scores(cfg, params, batch,
-                                                     cands)
-                    topk_ms[arch] = median_ms(lambda: ops.topk(
-                        scores, TOP_K, block=TOPK_BLOCK))
-                    k5_ms[arch] = median_ms(lambda: k5.blockwise_topk(
-                        scores, k=TOP_K, block=TOPK_BLOCK))
-                    peak = torch.cuda.max_memory_allocated()
-                    check(bool(torch.isfinite(vals).all())
-                          and bool(torch.isfinite(scores).all()),
-                          f"{cell.key}: finite scores and board")
-                    tv, ti = ops.topk(scores.cpu(), TOP_K, block=TOPK_BLOCK)
-                    twin = bits_equal(idx, ti) and bits_equal(vals, tv)
-                    lib_v, _ = torch.topk(scores, TOP_K, dim=1)
-                    own = torch.equal(scores.gather(1, idx.long()), vals)
-                    distinct = idx.unique().numel() == TOP_K
-                    ties = int(torch.unique(vals).numel())
-                    share = cell.model_flops / (ms * 1e-3) / FP32_OPS_PER_S
-                    print(f"[recsys] {cell.key}: {ms:.3f} ms for {n:,} "
-                          f"candidates ({n / ms * 1e3:,.0f} candidates/s); "
-                          f"scoring {score_ms:.3f} ms, top-{TOP_K} "
-                          f"(ops.topk) {topk_ms[arch]:.3f} ms, of which "
-                          f"K5's launch alone {k5_ms[arch]:.3f} ms; {k5_n} "
-                          f"K5 launches in the cell's own calls; peak "
-                          f"{peak:,} bytes; FLOP share {share:.4f} of 67 "
-                          f"TFLOP/s FP32; board bitwise K5's twin "
-                          f"{twin}, values torch.topk's "
-                          f"{torch.equal(lib_v, vals)}, each id its own "
-                          f"score {own}, distinct {distinct}, "
-                          f"{ties} distinct values", flush=True)
-                    check(k5_n > 0, f"{cell.key}: K5 launched")
-                    check(twin, f"{cell.key}: board == K5's twin, bitwise")
-                    check(torch.equal(lib_v, vals) and own and distinct,
-                          f"{cell.key}: board tie-aware == torch.topk")
-                    del idx, vals, scores, cands, tv, ti, lib_v
-                else:
-                    b = args[1][next(iter(args[1]))].shape[0]
-                    (ms, logits), _ = drive(lambda: (
-                        median_ms(lambda: fn(params, batch)),
-                        fn(params, batch)))
-                    peak = torch.cuda.max_memory_allocated()
-                    check(bool(torch.isfinite(logits).all()),
-                          f"{cell.key}: finite logits")
-                    share = cell.model_flops / (ms * 1e-3) / FP32_OPS_PER_S
-                    line = (f"[recsys] {cell.key}: {ms:.3f} ms at B = {b:,} "
-                            f"({b / ms * 1e3:,.0f} samples/s); peak "
-                            f"{peak:,} bytes; FLOP share {share:.4f} of 67 "
-                            f"TFLOP/s FP32; logits {tuple(logits.shape)}")
-                    if cell.shape == "serve_p99":
-                        c_cfg, c_params, c_batch = recsys_on_cpu(
-                            cfg, params, batch)
-                        ref = recsys.forward(c_cfg, c_params, c_batch)
-                        err = float((logits.cpu() - ref).abs().max())
-                        close = torch.allclose(logits.cpu(), ref,
-                                               rtol=RECSYS_RTOL,
-                                               atol=RECSYS_ATOL)
-                        line += (f"; against the CPU: max |diff| {err:.3g},"
-                                 f" within rtol/atol 1e-4 {close}")
-                        check(close, f"{cell.key}: card == CPU")
-                    print(line, flush=True)
-                    del logits
-                # the (1, 1) mesh: one placement a mesh dim, every argument
-                check(len(tree_leaves(placed)) == 2 * len(tree_leaves(args)),
-                      f"{cell.key}: placements for every argument")
-                del batch
-            del params
-            gc.collect()
-            torch.cuda.empty_cache()
-            print(f"[recsys] {arch} done in "
-                  f"{time.perf_counter() - t_arch:.1f} s", flush=True)
-        print(f"[recsys] phase 11 launches (the cells' own calls) "
-              f"{launches}", flush=True)
-        check(launches[k5.LAUNCHES.name] > 0, "K5 launched in phase 11")
-        check(all(n == 0 for name, n in launches.items()
-                  if name != k5.LAUNCHES.name),
-              "no kernel but K5 launched in phase 11")
-    finally:
-        tdist.destroy_process_group()
-        shutil.rmtree(rdv, ignore_errors=True)
+            torch.cuda.reset_peak_memory_stats()
+            if retrieval:
+                n = args[2].shape[0]
+                cands = recsys_candidates(cfg, n, gen)
+                (ms, (idx, vals)), n_cell = drive(lambda: (
+                    median_ms(lambda: fn(params, batch, cands)),
+                    fn(params, batch, cands)))
+                k5_n = n_cell[k5.LAUNCHES.name]
+                score_ms = median_ms(lambda: recsys.retrieval_scores(
+                    cfg, params, batch, cands))
+                scores = recsys.retrieval_scores(cfg, params, batch,
+                                                 cands)
+                topk_ms[arch] = median_ms(lambda: ops.topk(
+                    scores, TOP_K, block=TOPK_BLOCK))
+                k5_ms[arch] = median_ms(lambda: k5.blockwise_topk(
+                    scores, k=TOP_K, block=TOPK_BLOCK))
+                peak = torch.cuda.max_memory_allocated()
+                check(bool(torch.isfinite(vals).all())
+                      and bool(torch.isfinite(scores).all()),
+                      f"{cell.key}: finite scores and board")
+                tv, ti = ops.topk(scores.cpu(), TOP_K, block=TOPK_BLOCK)
+                twin = bits_equal(idx, ti) and bits_equal(vals, tv)
+                lib_v, _ = torch.topk(scores, TOP_K, dim=1)
+                own = torch.equal(scores.gather(1, idx.long()), vals)
+                distinct = idx.unique().numel() == TOP_K
+                ties = int(torch.unique(vals).numel())
+                share = cell.model_flops / (ms * 1e-3) / FP32_OPS_PER_S
+                print(f"[recsys] {cell.key}: {ms:.3f} ms for {n:,} "
+                      f"candidates ({n / ms * 1e3:,.0f} candidates/s); "
+                      f"scoring {score_ms:.3f} ms, top-{TOP_K} "
+                      f"(ops.topk) {topk_ms[arch]:.3f} ms, of which "
+                      f"K5's launch alone {k5_ms[arch]:.3f} ms; {k5_n} "
+                      f"K5 launches in the cell's own calls; peak "
+                      f"{peak:,} bytes; FLOP share {share:.4f} of 67 "
+                      f"TFLOP/s FP32; board bitwise K5's twin "
+                      f"{twin}, values torch.topk's "
+                      f"{torch.equal(lib_v, vals)}, each id its own "
+                      f"score {own}, distinct {distinct}, "
+                      f"{ties} distinct values", flush=True)
+                check(k5_n > 0, f"{cell.key}: K5 launched")
+                check(twin, f"{cell.key}: board == K5's twin, bitwise")
+                check(torch.equal(lib_v, vals) and own and distinct,
+                      f"{cell.key}: board tie-aware == torch.topk")
+                del idx, vals, scores, cands, tv, ti, lib_v
+            else:
+                b = args[1][next(iter(args[1]))].shape[0]
+                (ms, logits), _ = drive(lambda: (
+                    median_ms(lambda: fn(params, batch)),
+                    fn(params, batch)))
+                peak = torch.cuda.max_memory_allocated()
+                check(bool(torch.isfinite(logits).all()),
+                      f"{cell.key}: finite logits")
+                share = cell.model_flops / (ms * 1e-3) / FP32_OPS_PER_S
+                line = (f"[recsys] {cell.key}: {ms:.3f} ms at B = {b:,} "
+                        f"({b / ms * 1e3:,.0f} samples/s); peak "
+                        f"{peak:,} bytes; FLOP share {share:.4f} of 67 "
+                        f"TFLOP/s FP32; logits {tuple(logits.shape)}")
+                if cell.shape == "serve_p99":
+                    c_cfg, c_params, c_batch = recsys_on_cpu(
+                        cfg, params, batch)
+                    ref = recsys.forward(c_cfg, c_params, c_batch)
+                    err = float((logits.cpu() - ref).abs().max())
+                    close = torch.allclose(logits.cpu(), ref,
+                                           rtol=RECSYS_RTOL,
+                                           atol=RECSYS_ATOL)
+                    line += (f"; against the CPU: max |diff| {err:.3g},"
+                             f" within rtol/atol 1e-4 {close}")
+                    check(close, f"{cell.key}: card == CPU")
+                print(line, flush=True)
+                del logits
+            # the (1, 1) mesh: one placement a mesh dim, every argument
+            check(len(tree_leaves(placed)) == 2 * len(tree_leaves(args)),
+                  f"{cell.key}: placements for every argument")
+            del batch
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[recsys] {arch} done in "
+              f"{time.perf_counter() - t_arch:.1f} s", flush=True)
+    print(f"[recsys] phase 11 launches (the cells' own calls) "
+          f"{launches}", flush=True)
+    check(launches[k5.LAUNCHES.name] > 0, "K5 launched in phase 11")
+    check(all(n == 0 for name, n in launches.items()
+              if name != k5.LAUNCHES.name),
+          "no kernel but K5 launched in phase 11")
     return dict(launches=launches, k5_ms=k5_ms, topk_ms=topk_ms)
+
+
+def lm_cast(cfg, specs, gen):
+    """``cfg``'s params drawn in f32 on the card from ``gen`` (the
+    reference's ``init_params``), each cast to its spec's dtype (bf16 for
+    a cell's; ``specs`` None keeps f32). Leaves are cast one at a time,
+    so the f32 draw and the cast copy overlap by one leaf."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_leaves
+    params = transformer.init_params(gen, cfg, device=gen.device)
+    if specs is None:
+        return params
+    for k, v in list(params.items()):
+        if isinstance(v, dict):
+            for kk in list(v):
+                v[kk] = v[kk].to(specs[k][kk].dtype)
+        else:
+            params[k] = v.to(specs[k].dtype)
+    for a, s in zip(tree_leaves(params), tree_leaves(specs)):
+        check(tuple(a.shape) == tuple(s.shape) and a.dtype == s.dtype,
+              "params made as the cell's specs")
+    return params
+
+
+def nbytes(tree) -> int:
+    from repro_torch.models.common import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def lm_line(key, ms, tokens, peak, flops, what):
+    """A cell's line: ms, tokens a second, peak device memory, FLOP share."""
+    share = flops / (ms * 1e-3) / FP32_OPS_PER_S
+    print(f"[lm] {key}: {ms:.3f} ms ({tokens / ms * 1e3:,.1f} tokens/s); "
+          f"peak {peak:,} bytes; FLOP share {share:.4f} of 67 TFLOP/s FP32 "
+          f"({flops:.4g} model FLOPs{what})", flush=True)
+    return dict(ms=ms, tokens_s=tokens / ms * 1e3, peak=peak, share=share)
+
+
+def lm_decode_cell_run(cell, params, gen, mesh, note=""):
+    """``LM_WARM`` untimed steps, ``LM_REPS`` timed (the median kept),
+    then ``LM_MORE`` more, so ``pos`` moves past the timed ones and every
+    local ring keeps wrapping: the cell's own ``decode_step`` over a
+    zeroed cache from the cells' ``pos = S``. Every logit finite, ``pos``
+    counted on the device."""
+    import torch
+
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.models import transformer
+    fn, (params_s, cache_s, tok_s) = cell.build(mesh)
+    placed = cell.shardings(mesh, (params_s, cache_s, tok_s))
+    check(len(placed[1]["k"]) == len(cache_s["k"]),
+          f"{cell.key}: a placement a cache layer")
+    cfg = fn.args[0]
+    b, seq = tok_s.shape[0], LM_SHAPES[cell.shape]["seq_len"]
+    cache = transformer.init_decode_cache(cfg, b, seq, dtype=torch.bfloat16,
+                                          device=gen.device)
+    for a, s in zip(cache["k"] + cache["v"], cache_s["k"] + cache_s["v"]):
+        check(a.shape == s.shape and a.dtype == s.dtype,
+              f"{cell.key}: cache made as its specs")
+    cache_bytes = nbytes({k: v for k, v in cache.items() if k != "pos"})
+    n = LM_WARM + LM_REPS + LM_MORE
+    toks = torch.randint(0, cfg.vocab_size, (n, b), generator=gen,
+                         device=gen.device, dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = {"i": 0, "cache": cache}
+
+    def step():
+        logits, state["cache"] = fn(params, state["cache"], toks[state["i"]])
+        state["i"] += 1
+        return logits
+
+    finite = True
+    for _ in range(LM_WARM):
+        finite &= bool(torch.isfinite(step()).all())
+    times = [cuda_ms(step) for _ in range(LM_REPS)]
+    for _ in range(LM_MORE):
+        logits = step()
+        finite &= bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(times))
+    check(finite, f"{cell.key}: finite logits")
+    check(tuple(logits.shape) == (b, cfg.vocab_size), f"{cell.key}: logits")
+    check(int(state["cache"]["pos"]) == seq + n,
+          f"{cell.key}: pos moved {n} steps past S")
+    print(f"[lm] {cell.key}{note}: cache {cache_bytes:,} bytes "
+          f"({', '.join(sorted({str(tuple(t.shape)) for t in cache['k']}))}"
+          f" a layer's k and v), pos {seq} -> {seq + n}; steps "
+          + ", ".join(f"{t:.3f}" for t in times) + " ms", flush=True)
+    out = lm_line(cell.key + note, ms, b, peak, cell.model_flops,
+                  f", B = {b}")
+    out["cache_bytes"] = cache_bytes
+    del state, cache, toks, logits
+    return out
+
+
+def lm_prefill_cell_run(cell, cut, params, gen, mesh):
+    """``cell``'s prefill at ``cut``'s batch: one warm-up, then the median
+    of ``LM_PREFILL_REPS`` timed calls; logits and K/V finite and shaped
+    as the reference's."""
+    import torch
+    fn, (params_s, tok_s) = cell.build(mesh)
+    cut_fn, (_, cut_tok) = cut.build(mesh)
+    cfg = fn.args[0]
+    b, s = cut_tok.shape
+    check(cut_tok.shape[1] == tok_s.shape[1] and cut_fn.args == fn.args,
+          f"{cell.key}: the cut keeps the sequence and the config")
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=gen.device, dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, kv = cut_fn(params, toks)                   # the warm-up
+    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.hd)
+    check(bool(torch.isfinite(logits).all()) and all(
+        tuple(kv[k].shape) == shape and bool(torch.isfinite(kv[k]).all())
+        for k in ("k", "v")), f"{cell.key}: finite logits and K/V")
+    check(tuple(logits.shape) == (b, cfg.vocab_size) and int(kv["pos"]) == s,
+          f"{cell.key}: logits [B, V] and pos = S")
+    del kv, logits
+    times = [cuda_ms(lambda: cut_fn(params, toks))
+             for _ in range(LM_PREFILL_REPS)]
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(times))
+    print(f"[lm] {cell.key}: calls " + ", ".join(f"{t:.1f}" for t in times)
+          + " ms", flush=True)
+    return lm_line(cell.key, ms, b * s, peak, cut.model_flops,
+                   f", scaled to B = {b} from the cell's "
+                   f"{tok_s.shape[0]}: {cell.model_flops:.4g}")
+
+
+def top2_gap(logits):
+    """Top-1 minus top-2 of each row (f32)."""
+    import torch
+    v = torch.topk(logits.float(), 2, dim=-1).values
+    return v[..., 0] - v[..., 1]
+
+
+def bf16_ulps(x: float) -> float:
+    """One bf16 ulp at the magnitude of ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def lm_card_vs_cpu(cfg, gen, prompt) -> dict:
+    """Step 5: ``cfg`` in f32 at full width, params drawn on the card and
+    copied to the host: ``prefill`` of ``prompt`` ([1, S]) and
+    ``LM_CHECK_STEPS`` teacher-forced ``decode_step``s over a zeroed cache
+    of S + ``LM_CHECK_STEPS`` positions from ``pos = 0``, card against CPU
+    within ``LM_RTOL``/``LM_ATOL``; greedy ids equal wherever the CPU's
+    top-2 gap exceeds ``LM_ATOL``. Returns the largest differences."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_map
+    c32 = replace(cfg, dtype=torch.float32)
+    params = lm_cast(c32, None, gen)
+    host = tree_map(lambda t: t.cpu(), params)
+    s = prompt.shape[1]
+    lg, kv = transformer.prefill(c32, params, prompt)
+    lg_h, kv_h = transformer.prefill(c32, host, prompt.cpu())
+    diffs = {"prefill": float((lg.cpu() - lg_h).abs().max()),
+             "prefill_kv": max(float((kv[k].cpu() - kv_h[k]).abs().max())
+                               for k in ("k", "v"))}
+    ok = torch.allclose(lg.cpu(), lg_h, rtol=LM_RTOL, atol=LM_ATOL)
+    del kv, kv_h
+    caches = [transformer.init_decode_cache(c32, 1, s + LM_CHECK_STEPS,
+                                            device=d)
+              for d in (gen.device, torch.device("cpu"))]
+    for c in caches:
+        c["pos"] = torch.zeros_like(c["pos"])
+    worst, ids_ok, near = 0.0, True, 0
+    for t in range(LM_CHECK_STEPS):
+        a, caches[0] = transformer.decode_step(c32, params, caches[0],
+                                               prompt[:, t])
+        b, caches[1] = transformer.decode_step(c32, host, caches[1],
+                                               prompt[:, t].cpu())
+        a = a.cpu()
+        worst = max(worst, float((a - b).abs().max()))
+        ok &= torch.allclose(a, b, rtol=LM_RTOL, atol=LM_ATOL)
+        clear = top2_gap(b) > LM_ATOL
+        near += int((~clear).sum())
+        ids_ok &= bool((a.argmax(-1) == b.argmax(-1))[clear].all())
+    diffs["decode"] = worst
+    print(f"[lm] card vs CPU, {cfg.name} at full width in f32 "
+          f"({nbytes(params):,} bytes of params copied to the host): "
+          f"prefill of {s} tokens, max |logits diff| {diffs['prefill']:.3g}"
+          f" (K/V {diffs['prefill_kv']:.3g}); {LM_CHECK_STEPS} decode steps "
+          f"from pos 0, max |diff| {worst:.3g}; within rtol/atol "
+          f"{LM_RTOL:g} {ok}; greedy ids equal {ids_ok} ({near} rows with "
+          f"a CPU top-2 gap under {LM_ATOL:g})", flush=True)
+    check(ok, "LM card == CPU within 1e-3 (f32)")
+    check(ids_ok, "LM greedy ids card == CPU where the top-2 gap is clear")
+    del params, host, caches
+    return diffs
+
+
+def rel_to_top(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def lm_prefill_vs_decode(cfg, params, prompt) -> dict:
+    """Step 6: ``prompt`` teacher-forced through ``decode_step`` from an
+    empty cache of S positions (``pos = 0``) on the card in bf16: the last
+    logits equal ``prefill``'s, and every layer's cache rows its K/V (a
+    window shorter than S: the positions its ring still holds), within
+    ``LM_BF16_LOGITS_REL`` (logits) or ``LM_BF16_KV_REL`` (K/V) of the
+    tensor's largest entry."""
+    import torch
+
+    from repro_torch.models import transformer
+    s = prompt.shape[1]
+    lg, kv = transformer.prefill(cfg, params, prompt)
+    cache = transformer.init_decode_cache(cfg, 1, s, device=prompt.device)
+    cache["pos"] = torch.zeros_like(cache["pos"])
+    for t in range(s):
+        dl, cache = transformer.decode_step(cfg, params, cache, prompt[:, t])
+    r_logits = rel_to_top(dl, lg)
+    r_kv = []
+    for i in range(cfg.n_layers):
+        # a ring of s_i slots holds the last s_i positions, p at p % s_i
+        s_i = cache["k"][i].shape[1]
+        p = torch.arange(s - s_i, s, device=prompt.device)
+        r_kv.append(max(rel_to_top(cache[k][i][:, p % s_i], kv[k][i][:, p])
+                        for k in ("k", "v")))
+    same_id = bool((dl.argmax(-1) == lg.argmax(-1)).all())
+    print(f"[lm] prefill vs decode, {cfg.name} bf16 on the card, {s} "
+          f"tokens: last logits max |diff| / max |logit| {r_logits:.4g}, "
+          f"K/V worst layer {max(r_kv):.4g} (layer {int(np.argmax(r_kv))}; "
+          f"first {r_kv[0]:.4g}, last {r_kv[-1]:.4g}); bounds "
+          f"{LM_BF16_LOGITS_REL:g} (logits), {LM_BF16_KV_REL:g} (K/V); "
+          f"greedy id equal {same_id}", flush=True)
+    check(r_logits <= LM_BF16_LOGITS_REL, "prefill logits == decode's (bf16)")
+    check(max(r_kv) <= LM_BF16_KV_REL, "prefill K/V == decode's cache (bf16)")
+    return dict(logits=r_logits, kv=max(r_kv))
+
+
+def lm_engine_run(cfg, params, seed, device) -> dict:
+    """Step 7: ``DecodeEngine`` (``ENGINE_SLOTS`` slots, ``ENGINE_MAX_SEQ``
+    positions) over ``ENGINE_REQUESTS`` seeded requests; each finishes
+    with ``max_new`` ids. ``ENGINE_LOCKSTEP`` of them decoded alone by a
+    greedy lockstep ``decode_step`` at B = 1, teacher-forced with the
+    engine's own ids: equal ids, except where the lockstep's top-2 gap is
+    under ``LM_GAP_ULPS`` bf16 ulps of its top logit (counted)."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serve import DecodeEngine
+    rng = np.random.default_rng(seed + 12)
+    reqs = [(rng.integers(0, cfg.vocab_size,
+                          int(rng.integers(*ENGINE_PROMPT, endpoint=True))
+                          ).tolist(),
+             int(rng.integers(*ENGINE_NEW, endpoint=True)))
+            for _ in range(ENGINE_REQUESTS)]
+    eng = DecodeEngine(cfg, params, n_slots=ENGINE_SLOTS,
+                       max_seq=ENGINE_MAX_SEQ, device=device)
+    rids = [eng.submit(p, max_new=m) for p, m in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while eng.queue or any(s.request_id is not None for s in eng.slots):
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out = eng.finished
+    check(set(out) == set(rids) and all(
+        len(out[r]) == m for r, (_, m) in zip(rids, reqs)),
+        "every engine request finishes with max_new ids")
+    gen_tok = sum(m for _, m in reqs)
+    fed = sum(len(p) + m - 1 for p, m in reqs)
+    del eng
+    mism = near = compared = 0
+    for r, (prompt, m) in zip(rids[:ENGINE_LOCKSTEP], reqs):
+        ids = out[r]
+        feed = prompt + ids[:-1]
+        cache = transformer.init_decode_cache(cfg, 1, ENGINE_MAX_SEQ,
+                                              device=device)
+        cache["pos"] = torch.zeros_like(cache["pos"])
+        toks = torch.as_tensor(feed, dtype=torch.int32, device=device)
+        for t in range(len(feed)):
+            lg, cache = transformer.decode_step(cfg, params, cache,
+                                                toks[t:t + 1])
+            j = t - (len(prompt) - 1)
+            if j < 0:
+                continue
+            compared += 1
+            got = int(lg[0].argmax())
+            if got != ids[j]:
+                top = float(lg[0].max())
+                if float(top2_gap(lg[0])) < LM_GAP_ULPS * bf16_ulps(top):
+                    near += 1
+                else:
+                    mism += 1
+    print(f"[lm] DecodeEngine, {cfg.name} bf16, {ENGINE_SLOTS} slots, "
+          f"max_seq {ENGINE_MAX_SEQ}: {ENGINE_REQUESTS} requests (prompts "
+          f"{min(len(p) for p, _ in reqs)}-{max(len(p) for p, _ in reqs)} "
+          f"tokens, max_new {min(m for _, m in reqs)}-"
+          f"{max(m for _, m in reqs)}) in {steps} steps, {sec:.3f} s: "
+          f"{sec / steps * 1e3:.3f} ms a step, {gen_tok / sec:,.1f} "
+          f"generated tokens/s, {fed / sec:,.1f} tokens/s fed; lockstep "
+          f"B = 1 on {ENGINE_LOCKSTEP} requests: {compared} ids compared, "
+          f"{near} differ under a top-2 gap of {LM_GAP_ULPS} bf16 ulps, "
+          f"{mism} elsewhere (host clock)", flush=True)
+    check(mism == 0, "engine ids == lockstep decode's (bf16 ties aside)")
+    return dict(steps=steps, seconds=sec, ms_step=sec / steps * 1e3,
+                tokens_s=gen_tok / sec, near=near, compared=compared)
+
+
+def moe_vs_formula(cfg, params, gen) -> dict:
+    """Step 8's check: layer 0's ``moe_block`` in f32 on
+    ``MOE_CHECK_TOKENS`` tokens against ``Σ_k w_tk · expert_{e_tk}(x_t)``
+    over the kept choices, on the card, within ``MOE_RTOL``/``MOE_ATOL``;
+    the router's top-k ids, the kept mask and the slots equal the CPU's
+    on the same router logits, exactly."""
+    from dataclasses import replace
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer
+    c32 = replace(cfg, dtype=torch.float32)
+    lp = {k: v[0].float() for k, v in params["layers"].items()}
+    t = MOE_CHECK_TOKENS
+    x = torch.randn((1, t, cfg.d_model), generator=gen, device=gen.device)
+    y, aux = transformer.moe_block(c32, lp, x)
+    logits = (x @ lp["router"]).float()               # moe_block's, [1, T, E]
+    cap = transformer.moe_capacity(c32, t)
+    _, w, idx, keep, slot = transformer.moe_route(c32, logits, cap)
+    _, w_h, idx_h, keep_h, slot_h = transformer.moe_route(c32, logits.cpu(),
+                                                          cap)
+    same = (torch.equal(idx.cpu(), idx_h) and torch.equal(keep.cpu(), keep_h)
+            and torch.equal(slot.cpu(), slot_h))
+    xt = x[0]
+    outs = torch.stack([
+        (F.silu(xt @ lp["w_gate"][e]) * (xt @ lp["w_up"][e])) @ lp["w_down"][e]
+        for e in range(cfg.n_experts)])                # [E, T, D]
+    kept = keep.reshape(t, cfg.top_k)
+    want = torch.zeros_like(xt)
+    for j in range(cfg.top_k):
+        e = idx[0, :, j]
+        rows = outs[e, torch.arange(t, device=e.device)]
+        want += (w[0, :, j] * kept[:, j])[:, None] * rows
+    close = torch.allclose(y[0], want, rtol=MOE_RTOL, atol=MOE_ATOL)
+    err = float((y[0] - want).abs().max())
+    print(f"[lm] {cfg.name} layer 0 moe_block in f32 on {t} tokens: "
+          f"capacity {cap}, {int(kept.sum())} of {t * cfg.top_k} choices "
+          f"kept; max |diff| against the per-token formula {err:.3g}, within "
+          f"rtol/atol {MOE_RTOL:g} {close}; route (top-{cfg.top_k} ids, kept,"
+          f" slots) equal to the CPU's {same}; aux {float(aux):.4f}",
+          flush=True)
+    check(bool(torch.isfinite(y).all()), "moe_block finite")
+    check(close, "moe_block == the per-token formula")
+    check(same, "the router's integers == the CPU's")
+    return dict(err=err, kept=int(kept.sum()))
+
+
+def phase_lm(seed: int, mesh) -> dict:
+    """Phase 12: LM serving at full width on the card.
+
+    gemma3-1b's cells from ``configs.get_cells`` on the (1, 1) mesh:
+    ``decode_32k`` (B = 128, 32,768 positions) and ``long_500k`` (B = 1,
+    524,288), each warmed, timed (median of ``LM_REPS``) and stepped on;
+    ``prefill_32k`` cut to B = 1; ``decode_32k`` over the int8 cache
+    (``kv_quant``); then the card against the CPU in f32, prefill against
+    decode in bf16 and the ``DecodeEngine``; then mixtral-8x7b at full
+    width cut to ``MOE_LAYERS`` layers: ``prefill_32k`` at B = 1,
+    ``decode_32k`` and layer 0's ``moe_block`` against its per-token
+    formula. Params are drawn on the card from seeded generators and cast
+    as the cells' specs say. Returns the phase's launch counts (all 0:
+    the LM path reaches no kernel) and the cells' numbers."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.common import (LM_SHAPES, lm_cells,
+                                            lm_decode_cell, lm_prefill_cell)
+    from repro_torch.kernels import COUNTERS
+
+    dev = torch.device("cuda")
+    for c in COUNTERS:
+        c.reset()
+    res = {}
+    with torch.inference_mode():
+        t_arch = time.perf_counter()
+        cfg = configs.get_config(LM_ARCH)
+        cells = {c.shape: c for c in configs.get_cells(LM_ARCH)}
+        check(sorted(cells) == ["decode_32k", "long_500k", "prefill_32k"],
+              "gemma3-1b's serving cells")
+        gen = torch.Generator(device=dev).manual_seed(seed * 100 + 12)
+        specs = cells["decode_32k"].build(mesh)[1][0]
+        params = lm_cast(cfg, specs, gen)
+        print(f"[lm] {LM_ARCH}: {nbytes(params):,} bytes of bf16 params on "
+              f"the card", flush=True)
+        for shape in ("decode_32k", "long_500k"):
+            res[shape] = lm_decode_cell_run(cells[shape], params, gen, mesh)
+            torch.cuda.empty_cache()
+        cell = cells["prefill_32k"]
+        b_full = LM_SHAPES["prefill_32k"]["global_batch"]
+        print(f"[lm] CUT {cell.key}: B = {b_full} -> {LM_PREFILL_B} at "
+              f"{LM_SHAPES['prefill_32k']['seq_len']:,} tokens: the "
+              f"reference's chunked_attention scores "
+              f"every query chunk against all 32,768 keys in f32 in every "
+              f"layer (114 TFLOP a sequence, >= 1.7 s at 67 TFLOP/s), and "
+              f"at B = 32 the MLP activations (3 x 14.5 GB) and the stacked "
+              f"K/V (2 x 14.0 GB) pass 80 GB", flush=True)
+        seq = LM_SHAPES["prefill_32k"]["seq_len"]
+        cut = lm_prefill_cell(LM_ARCH, cfg, batch=LM_PREFILL_B,
+                              seq_len=seq, shape_name="prefill_32k")
+        res["prefill_32k"] = lm_prefill_cell_run(cell, cut, params, gen,
+                                                 mesh)
+        torch.cuda.empty_cache()
+        q = lm_decode_cell(LM_ARCH, replace(cfg, kv_quant=True),
+                           batch=LM_SHAPES["decode_32k"]["global_batch"],
+                           seq_len=LM_SHAPES["decode_32k"]["seq_len"],
+                           shape_name="decode_32k")
+        res["decode_32k_int8"] = lm_decode_cell_run(q, params, gen, mesh,
+                                                    note=" (int8 KV)")
+        torch.cuda.empty_cache()
+        prompt = torch.randint(0, cfg.vocab_size, (1, LM_CHECK_PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+        res["card_vs_cpu"] = lm_card_vs_cpu(cfg, gen, prompt)
+        torch.cuda.empty_cache()
+        res["prefill_vs_decode"] = lm_prefill_vs_decode(cfg, params, prompt)
+        res["engine"] = lm_engine_run(cfg, params, seed, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[lm] {LM_ARCH} done in {time.perf_counter() - t_arch:.1f} s",
+              flush=True)
+
+        t_arch = time.perf_counter()
+        full = configs.get_config(MOE_ARCH)
+        mcfg = replace(full, n_layers=MOE_LAYERS)
+        full_cells = {c.shape: c for c in configs.get_cells(MOE_ARCH)}
+        mcells = {c.shape: c for c in lm_cells(MOE_ARCH, mcfg)}
+        check(sorted(mcells) == sorted(full_cells),
+              "the cut Mixtral has the same cells")
+        mgen = torch.Generator(device=dev).manual_seed(seed * 100 + 13)
+        mspecs = mcells["decode_32k"].build(mesh)[1][0]
+        print(f"[lm] CUT {MOE_ARCH}: depth {full.n_layers} -> {MOE_LAYERS} "
+              f"layers ({nbytes(full_cells['decode_32k'].build(mesh)[1][0]):,}"
+              f" -> {nbytes(mspecs):,} bytes of bf16 params: the whole model "
+              f"does not fit the card's 80 GB); d_model {mcfg.d_model}, "
+              f"{mcfg.n_heads} heads (kv {mcfg.n_kv_heads}), d_ff "
+              f"{mcfg.d_ff}, {mcfg.n_experts} experts top-{mcfg.top_k}, "
+              f"window {mcfg.sliding_window}, vocab {mcfg.vocab_size} kept",
+              flush=True)
+        mparams = lm_cast(mcfg, mspecs, mgen)
+        mcut = lm_prefill_cell(MOE_ARCH, mcfg, batch=LM_PREFILL_B,
+                               seq_len=seq, shape_name="prefill_32k")
+        res["moe_prefill_32k"] = lm_prefill_cell_run(
+            mcells["prefill_32k"], mcut, mparams, mgen, mesh)
+        torch.cuda.empty_cache()
+        res["moe_decode_32k"] = lm_decode_cell_run(
+            mcells["decode_32k"], mparams, mgen, mesh)
+        torch.cuda.empty_cache()
+        res["moe_check"] = moe_vs_formula(mcfg, mparams, mgen)
+        del mparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[lm] {MOE_ARCH} done in {time.perf_counter() - t_arch:.1f} s",
+              flush=True)
+    launches = {c.name: c.n for c in COUNTERS}
+    print(f"[lm] phase 12 launches {launches}", flush=True)
+    check(all(n == 0 for n in launches.values()),
+          "no kernel launched in phase 12: the LM path reaches none")
+    return dict(launches=launches, cells=res)
 
 
 def phase_bm25(args) -> tuple[list, dict]:
@@ -3022,16 +3547,31 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- phase 11: the recsys serving family at full width -----------------
-    t0 = time.perf_counter()
-    p11 = phase_recsys(args.seed)
-    print(f"[recsys] phase 11 done in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    # -- phases 11-12: the recsys family and LM serving at full width -----
+    import shutil
+
+    import torch.distributed as tdist
+    mesh, rdv = one_rank_mesh()
+    try:
+        t0 = time.perf_counter()
+        p11 = phase_recsys(args.seed, mesh)
+        print(f"[recsys] phase 11 done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p12 = phase_lm(args.seed, mesh)
+        print(f"[lm] phase 12 done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
     kernels[4]["phase11_ms"] = p11["k5_ms"]                 # K5 alone
     kernels[4]["phase11_topk_ms"] = p11["topk_ms"]          # all of ops.topk
     for kd in kernels:
         kd["launches_phase10"] = p10_launches[kd["name"]]
         kd["launches_phase11"] = p11["launches"][kd["name"]]
+        kd["launches_phase12"] = p12["launches"][kd["name"]]
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = kd.pop("ops") / FP32_OPS_PER_S * 1e3
         kd["bound_ms"] = max(t_bytes, t_ops)

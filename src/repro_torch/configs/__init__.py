@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 The port's counterpart of ``repro.configs``, over the architectures the
-port has: the recsys family. Each module exposes ``CONFIG`` (exact
-published config), ``SMOKE`` (reduced same-family variant for CPU tests),
-``FAMILY`` and ``cells()`` (the cells for its assigned input shapes). The
-reference's LM configs, ``egnn`` and ``bm25s`` come with their slices.
+port has: the LM family and the recsys family. Each module exposes
+``CONFIG`` (exact published config), ``SMOKE`` (reduced same-family
+variant for CPU tests), ``FAMILY`` and ``cells()`` (the cells for its
+assigned input shapes). The reference's ``egnn`` and ``bm25s`` come with
+their slices.
 """
 
 from __future__ import annotations
@@ -12,6 +13,11 @@ from __future__ import annotations
 import importlib
 
 _ARCH_MODULES = {
+    "h2o-danube3-4b": "h2o_danube3_4b",
+    "gemma3-1b": "gemma3_1b",
+    "qwen3-8b": "qwen3_8b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "autoint": "autoint",
     "mind": "mind",
     "dlrm-mlperf": "dlrm_mlperf",
@@ -19,9 +25,8 @@ _ARCH_MODULES = {
 }
 
 
-
 def _norm(name: str) -> str:
-    return name.replace("_", "-")
+    return name.replace("_", "-").replace("h2o-danube-3", "h2o-danube3")
 
 
 def get_module(arch: str):

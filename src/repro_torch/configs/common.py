@@ -8,8 +8,11 @@ built — plus how to give placements for a mesh (DTensor placement lists,
 one a tensor, by ``dist.sharding``'s rules) and a MODEL_FLOPS estimate for
 the roofline's useful-compute ratio.
 
-The LM and GNN cells and the recsys ``train_batch`` cell come with the
-slices that port their models' stacks.
+It holds the LM family's serving cells (``prefill_32k``, ``decode_32k``,
+``long_500k``) and the recsys family's. The training cells (the LM
+``train_4k``, the recsys ``train_batch``), ``remesh_dp_tp`` (the
+re-mesh of ``launch/hillclimb.py``'s variants) and the GNN cells come
+with the slices that port their stacks.
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ import functools
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
-from ..dist.sharding import batch_pspec, param_pspecs
+from ..dist.sharding import (_sizes, batch_pspec, data_axes, param_pspecs,
+                             spec_placements)
 from ..kernels import ops
-from ..models import recsys
+from ..models import recsys, transformer
 from ..models.common import tree_map
 
 
@@ -65,6 +70,211 @@ def repl(mesh, tree):
 
 def _params_sds(cfg: recsys.RecsysConfig) -> dict:
     return recsys.init_params(torch.Generator(), cfg, device="meta")
+
+
+# ==========================================================================
+# LM family
+# ==========================================================================
+
+def lm_param_pspecs(cfg: transformer.LMConfig, params_shapes, mesh,
+                    *, serving: bool = False):
+    """Role-aware parameter placements.
+
+    Megatron TP pairing: column-parallel (wq / w_gate / w_up: "model" on
+    the output dim) with row-parallel (wo / w_down: "model" on the
+    contraction dim), plus FSDP/ZeRO-style "data" sharding on the
+    complementary dim. K/V projections are replicated over "model" (GQA
+    with TP > n_kv_heads) and data-sharded for ZeRO. Embedding rows over
+    "model" serve both uses (token gather; tied unembedding →
+    vocab-sharded logits). Each leaf is a DTensor placement list, the
+    reference's ``PartitionSpec`` through ``dist.spec_placements``.
+    """
+    sizes = _sizes(mesh)
+    model = sizes.get("model", 1)
+    data = sizes.get("data", 1)
+
+    # Serving keeps weights RESIDENT (model-sharded, replicated over data —
+    # no per-step FSDP gathers) unless they don't fit ~8 GiB/chip in bf16,
+    # in which case weight-gathered inference stays on (mixtral-8x22b).
+    if serving and lm_total_params(cfg) * 2 / max(model, 1) <= 8 * 2 ** 30:
+        data = 1
+
+    def P(*entries):
+        return spec_placements(mesh, *entries)
+
+    def md(n):  # dim shardable over model?
+        return "model" if model > 1 and n % model == 0 else None
+
+    def dd(n):
+        return "data" if data > 1 and n % data == 0 else None
+
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    heads_ok = cfg.n_heads % model == 0
+
+    def kv_in(n):
+        # K/V projections: output replicated over "model", so shard the
+        # CONTRACTION dim over model (+data for ZeRO)
+        if model > 1 and data > 1 and n % (model * data) == 0:
+            return ("model", "data")
+        return md(n) or dd(n)
+
+    lay: dict = {
+        "attn_norm": P(), "mlp_norm": P(),
+        # column-parallel iff heads shardable; else replicate over model
+        "wq": P(None, dd(d), md(cfg.n_heads * hd) if heads_ok else None),
+        "wk": P(None, kv_in(d), None),
+        "wv": P(None, kv_in(d), None),
+        "wo": P(None, md(cfg.n_heads * hd) if heads_ok else None, dd(d)),
+    }
+    if cfg.qk_norm:
+        lay["q_norm"] = P()
+        lay["k_norm"] = P()
+    if cfg.is_moe:
+        lay["router"] = P()
+        lay["w_gate"] = P(None, None, dd(d), md(f))
+        lay["w_up"] = P(None, None, dd(d), md(f))
+        lay["w_down"] = P(None, None, md(f), dd(d))
+    else:
+        lay["w_gate"] = P(None, dd(d), md(f))
+        lay["w_up"] = P(None, dd(d), md(f))
+        lay["w_down"] = P(None, md(f), dd(d))
+    specs = {
+        "embed": P(md(cfg.vocab_size), None),
+        "layers": lay,
+        "final_norm": P(),
+    }
+    if "lm_head" in params_shapes:
+        specs["lm_head"] = P(None, md(cfg.vocab_size))
+    return specs
+
+
+def lm_param_shardings(cfg, params_shapes, mesh, *, serving: bool = False):
+    """The placements of :func:`lm_param_pspecs` (a placement list is
+    already what the reference's ``NamedSharding`` is)."""
+    return lm_param_pspecs(cfg, params_shapes, mesh, serving=serving)
+
+
+def lm_active_params(cfg: transformer.LMConfig) -> float:
+    """Non-embedding, routing-active parameter count (6ND convention)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    attn = d * hd * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+    if cfg.is_moe:
+        mlp = 3 * d * f * cfg.top_k + d * cfg.n_experts
+    else:
+        mlp = 3 * d * f
+    return float(cfg.n_layers * (attn + mlp))
+
+
+def lm_total_params(cfg: transformer.LMConfig) -> float:
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    attn = d * hd * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+    mlp = 3 * d * f * (cfg.n_experts or 1)
+    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    return float(cfg.n_layers * (attn + mlp) + emb)
+
+
+def _lm_attn_flops(cfg, batch, s_q, s_kv) -> float:
+    # qk^T and att@v per layer: 2 * 2 * Sq * Skv * H * hd (capped by window)
+    per_layer = []
+    for w in cfg.layer_windows():
+        eff = min(s_kv, int(w)) if w > 0 else s_kv
+        per_layer.append(4.0 * s_q * eff * cfg.n_heads * cfg.hd)
+    return float(batch * sum(per_layer))
+
+
+def _lm_params_sds(cfg: transformer.LMConfig) -> dict:
+    """The params' specs: ``meta`` tensors cast to bf16, as the
+    reference's ``eval_shape`` casts them for serving."""
+    return tree_map(lambda x: x.to(torch.bfloat16),
+                    transformer.init_params(torch.Generator(), cfg,
+                                            device="meta"))
+
+
+def lm_prefill_cell(arch: str, cfg: transformer.LMConfig, *,
+                    batch: int, seq_len: int, shape_name: str) -> Cell:
+    def build(mesh):
+        fn = functools.partial(transformer.prefill, cfg)
+        return fn, (_lm_params_sds(cfg), sds((batch, seq_len), torch.int32))
+
+    def shardings(mesh, args):
+        params_s, tok_s = args
+        return (lm_param_shardings(cfg, params_s, mesh, serving=True),
+                batch_pspec(tok_s.shape, mesh))
+
+    flops = 2.0 * lm_active_params(cfg) * batch * seq_len \
+        + _lm_attn_flops(cfg, batch, seq_len, seq_len) / 2.0  # causal half
+    return Cell(arch, shape_name, "prefill", build, shardings, flops)
+
+
+def lm_decode_cell(arch: str, cfg: transformer.LMConfig, *,
+                   batch: int, seq_len: int, shape_name: str,
+                   note: str = "") -> Cell:
+    def build(mesh):
+        fn = functools.partial(transformer.decode_step, cfg)
+        cache_s = transformer.init_decode_cache(
+            cfg, batch, seq_len, dtype=torch.bfloat16, device="meta")
+        return fn, (_lm_params_sds(cfg), cache_s,
+                    sds((batch,), torch.int32))
+
+    def shardings(mesh, args):
+        params_s, cache_s, tok_s = args
+        dp = data_axes(mesh)
+        sizes = _sizes(mesh)
+        n_dp = int(np.prod([sizes[a] for a in dp]))
+        model = sizes.get("model", 1)
+        data = sizes.get("data", 1)
+
+        def cache_shard(a):
+            # [B, S, KV, hd] (values) / [B, S, KV] (int8 scales): batch over
+            # the data axes when divisible, KV sequence dim over "model"
+            # (decode attention psums its softmax stats — tiny — instead of
+            # holding 16x the cache)
+            if a.ndim < 3:
+                return spec_placements(mesh)
+            s_len = a.shape[1]
+            if batch % n_dp == 0 and batch >= n_dp:
+                s_ax = "model" if model > 1 and s_len % model == 0 else None
+                return spec_placements(mesh, dp, s_ax)
+            if s_len % (data * model) == 0:
+                return spec_placements(mesh, None, ("data", "model"))
+            if s_len % data == 0:
+                return spec_placements(mesh, None, "data")
+            return spec_placements(mesh)
+
+        cs = tree_map(cache_shard, cache_s)
+        cs["pos"] = spec_placements(mesh)
+        return (lm_param_shardings(cfg, params_s, mesh, serving=True), cs,
+                batch_pspec(tok_s.shape, mesh))
+
+    flops = 2.0 * lm_active_params(cfg) * batch \
+        + _lm_attn_flops(cfg, batch, 1, seq_len)
+    return Cell(arch, shape_name, "decode", build, shardings, flops,
+                note=note)
+
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+
+def lm_cells(arch: str, cfg: transformer.LMConfig, *,
+             skip_long: bool = False) -> list[Cell]:
+    """The family's serving cells: ``prefill_32k``, ``decode_32k`` and,
+    unless ``skip_long``, ``long_500k`` (``train_4k`` comes with the
+    training slice)."""
+    cells = [
+        lm_prefill_cell(arch, cfg, batch=32, seq_len=32768,
+                        shape_name="prefill_32k"),
+        lm_decode_cell(arch, cfg, batch=128, seq_len=32768,
+                       shape_name="decode_32k"),
+    ]
+    if not skip_long:
+        cells.append(lm_decode_cell(arch, cfg, batch=1, seq_len=524288,
+                                    shape_name="long_500k"))
+    return cells
 
 
 # ==========================================================================

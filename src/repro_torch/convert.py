@@ -10,7 +10,8 @@ block-max table, :func:`device_index_from_reference` for a whole resident
 index (a reordered one keeps its permutation: its ``host`` is in the
 permuted id space, and ``perm`` / ``reorder`` come across with it), and
 :func:`scoring_index_from_reference` for the eager scorer's device index,
-and :func:`recsys_params_from_reference` for a recsys model's params.
+:func:`recsys_params_from_reference` for a recsys model's params, and
+:func:`lm_params_from_reference` for an LM's.
 A snapshot (``sparse.snapshot``) is the other carrier of state between
 the packages. It imports nothing of ``repro``.
 """
@@ -120,3 +121,22 @@ def recsys_params_from_reference(tree, *, device=None):
     dev = resolve_device(device)
     return tree_map(lambda x: torch.as_tensor(np.array(x, dtype=np.float32),
                                               device=dev), tree)
+
+
+def lm_params_from_reference(tree, *, device=None):
+    """The port's params for ``repro.models.transformer``'s ``tree``
+    (nested dicts of arrays, as ``jax.device_get`` of the reference's
+    ``init_params`` gives them, cast or not), on ``device`` (default
+    ``cuda``): the same structure, each leaf's dtype kept. A bfloat16
+    leaf (an ``ml_dtypes`` array, which torch does not take) crosses as
+    its bits through a 16-bit integer view."""
+    dev = resolve_device(device)
+
+    def one(x):
+        a = np.array(x)
+        if a.dtype.name == "bfloat16":
+            return torch.as_tensor(a.view(np.int16)).view(
+                torch.bfloat16).to(dev)
+        return torch.as_tensor(a, device=dev)
+
+    return tree_map(one, tree)

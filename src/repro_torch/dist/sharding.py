@@ -16,9 +16,12 @@ this module resolves them against whatever mesh is active:
 
 A placement is a DTensor placement list, one entry per MESH dimension:
 ``Shard(d)`` where the reference's ``PartitionSpec`` puts that mesh axis
-on tensor dim ``d``, ``Replicate()`` elsewhere. ``batch_pspec`` /
+on tensor dim ``d`` (a ``_StridedShard`` where a spec lists a dim's axes
+out of the mesh's order), ``Replicate()`` elsewhere;
+:func:`spec_placements` turns a spec into one. ``batch_pspec`` /
 ``param_pspecs`` are the generic placement rules for cells that have no
-architecture-specific sharding.
+architecture-specific sharding (the LM family's are
+``configs.common.lm_param_pspecs``).
 """
 
 from __future__ import annotations
@@ -97,12 +100,40 @@ def _resolve(mesh, dim: int, name: str | None) -> tuple[str, ...]:
 
 
 def _placements(mesh, per_dim: list[tuple[str, ...]]) -> list:
-    """Per-tensor-dim mesh axes -> one DTensor placement per mesh dim."""
+    """Per-tensor-dim mesh axes -> one DTensor placement per mesh dim.
+
+    A dim's axes are listed major first, as a ``PartitionSpec`` entry
+    lists them. Listed in the mesh's order they are plain ``Shard``s; an
+    axis listed after an axis that comes later in the mesh (``("model",
+    "data")`` on a (data, model) mesh) is a ``_StridedShard`` whose split
+    factor is the size of those later axes, which is how DTensor places a
+    dim split over mesh dims out of their order."""
     from torch.distributed.tensor import Replicate, Shard
 
-    where = {a: d for d, axes in enumerate(per_dim) for a in axes}
-    return [Shard(where[a]) if a in where else Replicate()
-            for a in mesh.mesh_dim_names]
+    names = list(mesh.mesh_dim_names)
+    sizes = _sizes(mesh)
+    out = {}
+    for d, axes in enumerate(per_dim):
+        for i, a in enumerate(axes):
+            later = [b for b in axes[:i] if names.index(b) > names.index(a)]
+            if later:
+                from torch.distributed.tensor.placement_types import (
+                    _StridedShard)
+                out[a] = _StridedShard(d, split_factor=math.prod(
+                    sizes[b] for b in later))
+            else:
+                out[a] = Shard(d)
+    return [out.get(a, Replicate()) for a in names]
+
+
+def spec_placements(mesh, *entries) -> list:
+    """The placements of ``PartitionSpec(*entries)`` on ``mesh``: each
+    entry names the mesh axes that shard its tensor dim (a name, a tuple
+    of names major first, or None); the dims past the entries and the
+    axes none names replicate."""
+    return _placements(mesh, [
+        () if e is None else (e,) if isinstance(e, str) else tuple(e)
+        for e in entries])
 
 
 def constrain(x, *axes: str | None):

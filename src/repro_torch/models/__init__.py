@@ -1,10 +1,12 @@
-"""Model zoo of the port: the recsys architectures for now.
+"""Model zoo of the port: the LM transformer family and the recsys
+architectures.
 
-The reference's ``repro.models`` also holds the LM transformer family and
-EGNN; they come with their slices.
+The reference's ``repro.models`` also holds EGNN; it comes with its
+slice.
 """
 
-from . import recsys
+from . import recsys, transformer
 from .recsys import RecsysConfig
+from .transformer import LMConfig
 
-__all__ = ["recsys", "RecsysConfig"]
+__all__ = ["recsys", "transformer", "LMConfig", "RecsysConfig"]

@@ -48,12 +48,13 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
                        window: torch.Tensor | int) -> torch.Tensor:
     """True where key j may attend query i: causal ∧ (window==0 ∨ i-j<window).
 
-    ``window`` may be a tensor scalar (a per-layer value), 0 meaning full
-    (dense causal) attention.
+    ``window`` is an int or a tensor scalar (a per-layer value), 0 meaning
+    full (dense causal) attention. It is read as a host int, so a mask on
+    the card costs no copy to the device.
     """
     causal = k_pos[None, :] <= q_pos[:, None]
-    w = torch.as_tensor(window, device=q_pos.device)
-    limit = torch.where(w > 0, w, torch.iinfo(torch.int32).max)
+    w = int(window)
+    limit = w if w > 0 else torch.iinfo(torch.int32).max
     dist_ok = (q_pos[:, None] - k_pos[None, :]) < limit
     return causal & dist_ok
 

@@ -29,8 +29,11 @@ admission gate (:class:`AdmissionController`) and ``max_stage_restarts``
 (3) on :class:`ServingFrontend`. ``DeviceRetriever.save`` /
 ``device_index=`` and ``RetrievalEngine.save`` / ``load`` persist and
 cold-start the resident layouts (``repro_torch.sparse.snapshot``).
+:class:`DecodeEngine` serves the LM family: slot-based continuous
+batching over ``models.transformer``.
 """
 
+from .decode_engine import DecodeEngine
 from .errors import (AdmissionRejectedError, DeadlineExceededError,
                      ExecutionStalledError, InvalidQueryError,
                      PlanOverflowError, QueueOverflowError, ResidencyError,
@@ -49,6 +52,7 @@ from .retrieval_engine import (BlockedRetriever, DeviceRetriever,
 
 __all__ = ["AdmissionController", "AdmissionRejectedError",
            "BlockedRetriever", "CircuitBreaker", "DeadlineExceededError",
+           "DecodeEngine",
            "DeviceRetriever", "ExecutionStalledError", "GatheredRetriever",
            "HEALTH_SCHEMA", "InvalidQueryError", "PackedBatch",
            "PlanOverflowError", "PrunedRetriever", "QueueOverflowError",

@@ -1,16 +1,21 @@
-"""The port's recsys configs, cells and registry against the reference's.
+"""The port's configs, cells and registry against the reference's.
 
-At full ``CONFIG`` (``meta`` tensors on the port's side, ``eval_shape``
-on the reference's: no memory): every cell's key, kind, argument shapes
-and dtypes and ``model_flops``; the params' and batch placements
-(``dist.sharding``'s DTensor placements) against the reference's
-``PartitionSpec``s over (1, 1), (1, 8), (2, 4) and (3, 2) meshes (an
-``AbstractMesh`` on the reference's side); the registry's archs, its
-unknown-name error, and the reference's archs the port still lacks,
-pinned to the ones ROADMAP queues.
+For the recsys and the LM families, at full ``CONFIG`` (``meta`` tensors
+on the port's side, ``eval_shape`` on the reference's: no memory): every
+cell's key, kind, argument shapes and dtypes and ``model_flops``; the
+params', batch and (LM decode) cache placements (``dist.sharding``'s
+DTensor placements) against the reference's ``PartitionSpec``s over (1,
+1), (1, 8), (2, 4) and (3, 2) meshes (an ``AbstractMesh`` on the
+reference's side), compared by path with each dim's mesh axes in their
+major-first order; the LM configs (``CONFIG``, ``SMOKE``, the constants),
+``lm_total_params`` / ``lm_active_params`` / ``_lm_attn_flops`` and
+``LM_SHAPES``; the registry's archs, its unknown-name error, and the
+reference's archs the port still lacks, pinned to the ones ROADMAP
+queues.
 """
 
 import dataclasses
+import functools
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -24,16 +29,20 @@ from jax.sharding import AbstractMesh
 import repro.configs as ref_configs
 import repro_torch.configs as configs
 from repro_torch.configs import common
+from repro_torch.models import transformer as pt
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["autoint", "mind", "dlrm-mlperf", "sasrec"]
+LM_ARCHS = ["h2o-danube3-4b", "gemma3-1b", "qwen3-8b", "mixtral-8x22b",
+            "mixtral-8x7b"]
 # the reference's archs the port does not have yet: ROADMAP §1 item 5
-# queues them (LM serving, then egnn with training, then bm25s)
-QUEUED = {"h2o-danube3-4b", "gemma3-1b", "qwen3-8b", "mixtral-8x22b",
-          "mixtral-8x7b", "egnn", "bm25s"}
+# queues them (egnn with training, then bm25s)
+QUEUED = {"egnn", "bm25s"}
 MESHES = [(1, 1), (1, 8), (2, 4), (3, 2)]
 DTYPES = {jnp.dtype(jnp.float32): torch.float32,
-          jnp.dtype(jnp.int32): torch.int32}
+          jnp.dtype(jnp.int32): torch.int32,
+          jnp.dtype(jnp.bfloat16): torch.bfloat16,
+          jnp.dtype(jnp.int8): torch.int8}
 
 
 def _ref_cells(arch):
@@ -62,23 +71,29 @@ def _ref_leaves(tree):
 
 
 def test_registry_lists_the_recsys_family():
-    assert configs.list_archs() == ["autoint", "mind", "dlrm-mlperf",
-                                    "sasrec"]
-    for arch in ARCHS:
+    """The LM family, then the recsys family, in the reference's order."""
+    assert configs.list_archs() == LM_ARCHS + ["autoint", "mind",
+                                               "dlrm-mlperf", "sasrec"]
+    assert configs.list_archs() == [a for a in ref_configs.list_archs()
+                                    if a not in QUEUED]
+    for arch in ARCHS + LM_ARCHS:
         mod = configs.get_module(arch)
         ref = ref_configs.get_module(arch)
-        assert mod.FAMILY == ref.FAMILY == "recsys"
+        fam = "lm" if arch in LM_ARCHS else "recsys"
+        assert mod.FAMILY == ref.FAMILY == fam
         assert configs.get_module(arch.replace("-", "_")) is mod
         assert configs._norm(arch.replace("-", "_")) == ref_configs._norm(
             arch.replace("-", "_")) == arch
+    assert configs.get_module("h2o_danube_3_4b") is configs.get_module(
+        "h2o-danube3-4b")
 
 
 def test_unknown_arch_raises_the_reference_error():
     with pytest.raises(ValueError) as port:
-        configs.get_config("gemma3-1b")
+        configs.get_config("egnn")
     with pytest.raises(ValueError) as ref:
         ref_configs.get_config("nope")
-    assert str(port.value) == (f"unknown arch 'gemma3-1b'; available: "
+    assert str(port.value) == (f"unknown arch 'egnn'; available: "
                                f"{sorted(configs.list_archs())}")
     assert str(ref.value).startswith("unknown arch 'nope'; available: [")
 
@@ -141,7 +156,9 @@ def test_cells_equal_the_reference_at_full_width(arch):
 
 def test_all_cells_and_model_flops():
     keys = [c.key for c in configs.all_cells()]
-    assert len(keys) == 12 == len(set(keys))
+    # 4 recsys archs × 3 cells; 5 LM archs × 3, but qwen3-8b skips
+    # long_500k
+    assert len(keys) == 12 + 14 == len(set(keys))
     ref_keys = {c.key for c in ref_configs.all_cells()}
     assert set(keys) <= ref_keys
     from repro.configs import common as ref_common
@@ -217,3 +234,122 @@ def _leaves_placements(tree):
         return [((i,) + p, x) for i, v in enumerate(tree)
                 for p, x in _leaves_placements(v)]
     raise TypeError(f"unexpected leaf {tree!r}")
+
+
+# -- the LM family ------------------------------------------------------------
+
+LM_SHAPE_NAMES = ["prefill_32k", "decode_32k", "long_500k"]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_lm_built(arch):
+    """The reference's LM cells of ``arch`` with their built arguments (the
+    build reads no mesh), by key."""
+    return {c.key: (c, c.build(None)[1])
+            for c in ref_configs.get_cells(arch) if c.kind != "train"}
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_configs_equal_the_reference(arch):
+    from repro.configs import common as ref_common
+    for get in ("get_config", "get_smoke"):
+        got = getattr(configs, get)(arch)
+        ref = getattr(ref_configs, get)(arch)
+        a, b = dataclasses.asdict(got), dataclasses.asdict(ref)
+        assert str(a.pop("dtype")) == "torch." + jnp.dtype(b.pop("dtype")).name
+        assert a == b
+    assert configs.get_config(arch).dtype == torch.bfloat16
+    assert configs.get_smoke(arch).dtype == torch.float32
+    mod, ref_mod = configs.get_module(arch), ref_configs.get_module(arch)
+    assert mod.N_MICROBATCHES == ref_mod.N_MICROBATCHES
+    cfg, ref_cfg = mod.CONFIG, ref_mod.CONFIG
+    assert common.lm_total_params(cfg) == ref_common.lm_total_params(ref_cfg)
+    assert common.lm_active_params(cfg) == ref_common.lm_active_params(
+        ref_cfg)
+    for b, s_q, s_kv in ((1, 1, 32_768), (4, 512, 4_096), (2, 1, 524_288)):
+        assert common._lm_attn_flops(cfg, b, s_q, s_kv) == \
+            ref_common._lm_attn_flops(ref_cfg, b, s_q, s_kv)
+    assert common.LM_SHAPES == ref_common.LM_SHAPES
+    if arch == "gemma3-1b":
+        assert common.lm_total_params(cfg) == 999_751_680
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_cells_equal_the_reference_at_full_width(arch):
+    cells = configs.get_cells(arch)
+    ref = {c.key: c for c in ref_configs.get_cells(arch)}
+    shapes = LM_SHAPE_NAMES[:2] if arch == "qwen3-8b" else LM_SHAPE_NAMES
+    assert [c.key for c in cells] == [f"{arch}/{s}" for s in shapes]
+    # train_4k is the only reference cell the family lacks
+    assert set(ref) - {c.key for c in cells} == {f"{arch}/train_4k"}
+    built = _ref_lm_built(arch)
+    for c in cells:
+        r, ref_args = built[c.key]
+        assert (c.arch, c.shape, c.kind, c.note) == (r.arch, r.shape, r.kind,
+                                                     r.note)
+        assert c.model_flops == r.model_flops
+        fn, args = c.build(None)
+        assert fn.func is {"prefill": pt.prefill,
+                           "decode": pt.decode_step}[c.kind]
+        assert fn.args == (configs.get_config(arch),)
+        got, want = dict(_leaves(args)), dict(_ref_leaves(ref_args))
+        assert set(got) == set(want)
+        for path, a in got.items():
+            b = want[path]
+            assert a.device.type == "meta", path
+            assert tuple(a.shape) == tuple(b.shape), path
+            assert a.dtype == DTYPES[jnp.dtype(b.dtype)], path
+
+
+def _port_dims_ordered(placements, ndim, sizes):
+    """Each tensor dim's mesh axes, major first: a ``_StridedShard`` is
+    minor to the plain shards of its dim, which its split factor spans."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    dims = [[] for _ in range(ndim)]
+    for name, p in zip(("data", "model"), placements):
+        if isinstance(p, _StridedShard):
+            dims[p.dim].append((name, p.split_factor))
+        elif isinstance(p, Shard):
+            dims[p.dim].append((name, None))
+        else:
+            assert isinstance(p, Replicate), p
+    out = []
+    for axes in dims:
+        plain = [n for n, f in axes if f is None]
+        for n, f in axes:
+            if f is not None:
+                assert f == int(np.prod([sizes[m] for m in plain])), axes
+        out.append(tuple(plain + [n for n, f in axes if f is not None]))
+    return out
+
+
+@pytest.mark.parametrize("mesh_shape", MESHES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_placements_equal_the_reference(arch, mesh_shape):
+    """Params (the serving rule: resident under 8 GiB a chip, else
+    data-sharded too), tokens and, for the decode cells, every layer's
+    cache and ``pos``, path by path, each dim's axes in their order."""
+    mesh = _fake_mesh(*mesh_shape)
+    sizes = dict(zip(("data", "model"), mesh_shape))
+    ref_mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    built = _ref_lm_built(arch)
+    strided = 0
+    for c in configs.get_cells(arch):
+        _, args = c.build(mesh)
+        r, ref_args = built[c.key]
+        want = dict(_ref_leaves(r.shardings(ref_mesh, ref_args)))
+        shapes = {path: tuple(a.shape) for path, a in _leaves(args)}
+        got = dict(_leaves_placements(c.shardings(mesh, args)))
+        assert set(got) == set(want) == set(shapes)
+        for path, shape in shapes.items():
+            assert len(got[path]) == 2
+            dims = _port_dims_ordered(got[path], len(shape), sizes)
+            assert dims == _ref_dims(want[path], len(shape)), (
+                c.key, path, shape)
+            strided += any(len(d) == 2 and d[0] == "model" for d in dims)
+    # the big MoEs keep their weights data-sharded while serving: their
+    # K/V projections split d_model model-major over both axes
+    if arch.startswith("mixtral") and mesh_shape == (2, 4):
+        assert strided > 0

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ``repro``, kernels built on demand.
 
 * ``import repro_torch`` (and every subpackage, ``dist``, ``launch``,
-  ``kernels.ref``, ``models`` and ``configs`` with each config module
+  ``kernels.ref``, ``models`` with ``transformer``, ``serve`` with
+  ``decode_engine``, and ``configs`` with each config module, the LM ones
   among them) leaves ``jax`` out of ``sys.modules``, and
   importing ``launch.mesh`` starts no process group;
 * an AST scan finds no import of ``jax`` or ``repro`` in any module of
@@ -65,10 +66,19 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.models.common, repro_torch.models.recsys, "
             "repro_torch.configs, repro_torch.configs.common, "
             "repro_torch.configs.dlrm_mlperf, repro_torch.configs.autoint, "
-            "repro_torch.configs.mind, repro_torch.configs.sasrec\n"
+            "repro_torch.configs.mind, repro_torch.configs.sasrec, "
+            "repro_torch.models.transformer, "
+            "repro_torch.serve.decode_engine, "
+            "repro_torch.configs.gemma3_1b, "
+            "repro_torch.configs.h2o_danube3_4b, "
+            "repro_torch.configs.qwen3_8b, "
+            "repro_torch.configs.mixtral_8x7b, "
+            "repro_torch.configs.mixtral_8x22b\n"
             "from repro_torch.configs import all_cells, get_cells\n"
             "for c in all_cells():\n    c.build(None)\n"
             "from repro_torch.convert import recsys_params_from_reference\n"
+            "from repro_torch.convert import lm_params_from_reference\n"
+            "from repro_torch.serve import DecodeEngine\n"
             "from repro_torch.core import BM25Retriever, score_batch\n"
             "from repro_torch.serve import ServingFrontend\n"
             "from repro_torch.kernels.ops import topk, bm25_score_blocked\n"

@@ -23,7 +23,8 @@ padding document would outrank real ones. ``sharded_retrieve_adaptive`` gives th
 bucket trail. ``dist.sharding`` resolves batch and parameter placements as
 the reference's ``PartitionSpec``s over (1, 8), (2, 4) and (3, 2) meshes,
 and ``constrain`` redistributes a ``DTensor`` to them; on the same meshes
-the recsys serving cells' placements equal the reference cells'.
+the recsys and LM serving cells' placements equal the reference cells'
+(an LM placement split model-major over both axes is a strided shard).
 
 In-process: ``_device_gathered_topk`` against the reference's on the CPU
 and bitwise run to run; the adaptive wrapper's trail, cap and
@@ -237,11 +238,13 @@ PORT_SCRIPT = textwrap.dedent("""
                           meshes[n].get_coordinate())
 
     def enc(placements):
-        return [("S", p.dim) if p.is_shard() else ("R",)
+        return [("SS", p.dim, p.split_factor)
+                if type(p).__name__ == "_StridedShard"
+                else ("S", p.dim) if p.is_shard() else ("R",)
                 for p in placements]
 
     # {path: encoded placements} of a tree whose leaves are placement
-    # lists (the recsys cells' shardings)
+    # lists (the cells' shardings)
     def flat_placements(tree, path=()):
         if isinstance(tree, (list, tuple)) and tree and all(
                 hasattr(p, "is_shard") for p in tree):
@@ -346,12 +349,14 @@ PORT_SCRIPT = textwrap.dedent("""
                                                             x))
         res["local"] = (tuple(y.to_local().shape),
                         tuple(z.to_local().shape))
-        from repro_torch import configs as recsys_configs
-        res["recsys"] = {}
-        for cell in recsys_configs.all_cells():
-            _, args = cell.build(mesh)
-            res["recsys"][cell.key] = flat_placements(
-                cell.shardings(mesh, args))
+        from repro_torch import configs as port_configs
+        res["recsys"], res["lm"] = {}, {}
+        for arch in port_configs.list_archs():
+            family = port_configs.get_module(arch).FAMILY
+            for cell in port_configs.get_cells(arch):
+                _, args = cell.build(mesh)
+                res[family][cell.key] = flat_placements(
+                    cell.shardings(mesh, args))
         out["sharding"][name] = res
     out["foreign"] = sorted(m for m in sys.modules
                             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -539,14 +544,18 @@ def test_mesh_shapes_match_the_reference(runs):
 
 
 def _spec_dims(placements, names, ndim):
-    """Encoded DTensor placements -> per tensor dim, its mesh axes."""
+    """Encoded DTensor placements -> per tensor dim, its mesh axes, major
+    first (a strided shard is minor to its dim's plain shards)."""
     dims = [() for _ in range(ndim)]
+    minor = [() for _ in range(ndim)]
     for name, p in zip(names, placements):
         if p[0] == "S":
             dims[p[1]] = dims[p[1]] + (name,)
+        elif p[0] == "SS":
+            minor[p[1]] = minor[p[1]] + (name,)
         else:
             assert p == ("R",), p
-    return dims
+    return [d + m for d, m in zip(dims, minor)]
 
 
 def _ref_dims(spec, ndim):
@@ -593,12 +602,11 @@ def test_sharding_resolution_matches_the_reference(runs, mesh_name):
         assert got["rank_mismatch"] == "ValueError"
 
 
-@pytest.mark.parametrize("mesh_name", list(SHARDING_MESHES))
-def test_recsys_cell_placements_on_the_gloo_meshes(runs, mesh_name):
-    """The recsys serving cells' placements (``configs.common``'s
+def _check_cell_placements(runs, mesh_name, family, archs):
+    """The serving cells' placements of ``archs`` (``configs.common``'s
     ``shardings``, at full ``CONFIG``) on the ranks' real ``DeviceMesh``es
     equal the reference cells' ``NamedSharding``s on an ``AbstractMesh``
-    of the same shape."""
+    of the same shape, each dim's axes in their order."""
     import jax
     from jax.sharding import AbstractMesh
 
@@ -608,9 +616,9 @@ def test_recsys_cell_placements_on_the_gloo_meshes(runs, mesh_name):
     shape = mesh_shape(n, max_model=max_model)
     ref_mesh = AbstractMesh(shape, ("data", "model"))
     want = {}
-    for arch in ("autoint", "mind", "dlrm-mlperf", "sasrec"):
+    for arch in archs:
         for c in ref_configs.get_cells(arch):
-            if c.shape == "train_batch":
+            if c.kind == "train":
                 continue
             _, args = c.build(ref_mesh)
             ndim = {tuple(getattr(k, "key", getattr(k, "idx", None))
@@ -625,13 +633,29 @@ def test_recsys_cell_placements_on_the_gloo_meshes(runs, mesh_name):
                         c.shardings(ref_mesh, args)))}
             assert len(want[c.key]) == len(ndim)
     for r in range(n):
-        got = runs.port[r]["sharding"][mesh_name]["recsys"]
+        got = runs.port[r]["sharding"][mesh_name][family]
         assert set(got) == set(want)
         for key, paths in want.items():
             assert set(got[key]) == set(paths), key
             for path, dims in paths.items():
                 assert _spec_dims(got[key][path], ("data", "model"),
                                   len(dims)) == dims, (key, path)
+
+
+@pytest.mark.parametrize("mesh_name", list(SHARDING_MESHES))
+def test_recsys_cell_placements_on_the_gloo_meshes(runs, mesh_name):
+    _check_cell_placements(runs, mesh_name, "recsys",
+                           ("autoint", "mind", "dlrm-mlperf", "sasrec"))
+
+
+@pytest.mark.parametrize("mesh_name", list(SHARDING_MESHES))
+def test_lm_cell_placements_on_the_gloo_meshes(runs, mesh_name):
+    """The LM serving cells' params, tokens and decode caches: the
+    weight-gathered MoEs' K/V projections split d_model model-major over
+    both axes, a ``_StridedShard`` on the data dim."""
+    _check_cell_placements(runs, mesh_name, "lm",
+                           ("h2o-danube3-4b", "gemma3-1b", "qwen3-8b",
+                            "mixtral-8x22b", "mixtral-8x7b"))
 
 
 # -- in process ---------------------------------------------------------------
