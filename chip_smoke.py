@@ -245,6 +245,38 @@ Phases (any failure exits non-zero; nothing is caught):
    device memory (params included) and FLOP share of 67 TFLOP/s
    (``model_flops`` of the cut batch or depth); each decode cell its
    cache bytes. No kernel launches here: the LM path reaches none.
+13. after phase 12, every earlier tensor freed, on the same mesh and
+   group: training at full width (``train/``, the families' train
+   cells). First which sums repeat on the card: ``index_add_``,
+   ``index_select``'s backward and ``table[ids]``'s backward (reported),
+   and the port's fixed-order ``segment_sum`` and ``gather_rows``'
+   backward (held bitwise run to run and to the CPU's bits). Then each
+   family's SMOKE in f32 (gemma3-1b, mixtral-8x7b, the four recsys
+   archs, EGNN's node and graph readouts) trained three steps on the CPU
+   and twice on the card: the card's runs bitwise equal, the losses within
+   rtol 1e-5, the first step's grads within rtol 1e-4 / atol 1e-6 · max
+   |g|, the params within atol 1e-5 wherever AdamW's first step is held to
+   a sign by the grads (within 2 · steps · lr elsewhere, counted). Then
+   the train cells of ``configs.get_cells``: gemma3-1b ``train_4k`` at
+   full width and 4,096 positions, its global batch **cut** from 256 to
+   ``TRAIN_LM_BATCH`` (two microbatches, as the config says); the four
+   recsys ``train_batch`` cells at B = 65,536, DLRM's table **cut** to
+   ``DLRM_TRAIN_ROW_CAP`` rows a field (a step holds seven copies of it);
+   EGNN on Cora, on phase 7's Reddit graph through the (15, 10)
+   ``neighbor_sample``, on ogb_products with all 2,449,029 nodes and its
+   edges **cut** to ``PRODUCTS_TRAIN_EDGES`` (``CUT`` lines give the bytes
+   reckoned), and on 128 molecules. Each cell runs ``TRAIN_STEPS`` steps on
+   a fixed batch (the loss must fall), then through ``train.loop.
+   run_training`` half of them into a checkpoint (bitwise equal to the
+   straight run there) and the rest resumed from it (bitwise equal to the
+   straight run's end), the other microbatch count (LM and recsys: the
+   clipped grads within the dtype's tolerance, the params as above) and
+   one step with int8 compression (the same loss, finite params). Each
+   prints its step's ms (CUDA events, the median after the first),
+   samples, tokens, seeds, nodes or graphs a second, peak device memory,
+   and ``model_flops`` (of the cut batch) over its time as a share of the
+   peak of its compute dtype (989 TFLOP/s bf16 for the LM, 67 TFLOP/s
+   f32 for the rest). No kernel launches: the training path reaches none.
 
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
@@ -266,7 +298,8 @@ phase 10's steps, and K5 carries ``phase10_ms`` (the steps' and the
 merge's times); ``launches_phase11`` counts every kernel in phase 11's
 cells (K5 alone launches there), and K5 carries ``phase11_ms``
 (``ops.topk``'s ms on each arch's ``[1, 2^20]`` scores);
-``launches_phase12`` counts every kernel in phase 12 (all 0).
+``launches_phase12`` counts every kernel in phase 12 and
+``launches_phase13`` every kernel in phase 13 (all 0).
 """
 
 from __future__ import annotations
@@ -400,6 +433,22 @@ ENGINE_PROMPT, ENGINE_NEW = (8, 200), (16, 64)   # drawn, ends included
 ENGINE_LOCKSTEP = 4            # requests decoded again alone
 MOE_CHECK_TOKENS = 64
 MOE_RTOL = MOE_ATOL = 1e-4     # moe_block vs the per-token formula, f32
+# phase 13: training at full width (train/, the three families' train cells)
+TRAIN_STEPS = 4                # straight steps on a fixed batch (2 + 2 resumed)
+TRAIN_LM_BATCH = 4             # train_4k's global batch (cut from 256)
+DLRM_TRAIN_ROW_CAP = 2 ** 19   # rows a DLRM field keeps in training (cut)
+PRODUCTS_TRAIN_EDGES = 2 ** 23  # ogb_products' edges in training (cut)
+EGNN_BYTES_PER_EDGE = 4_800    # one EGNN layer's recompute + backward, f32
+TRAIN_SMOKE_STEPS = 3          # card against CPU at each family's SMOKE
+TRAIN_LOSS_RTOL = 1e-5         # losses, card vs CPU (f32, TF32 off)
+TRAIN_GRAD_RTOL = 1e-4         # grads, card vs CPU: rtol, and atol as a
+TRAIN_GRAD_ATOL_REL = 1e-6     # share of the leaf's largest |g|
+TRAIN_PARAM_ATOL = 1e-5        # params: card vs CPU, M = 2 vs M = 1
+TRAIN_BF16_GRAD_REL = 2.0 ** -5  # bf16 grads, M = 2 vs M = 1: share of max
+TRAIN_SPLIT_GRAD_REL = 1e-5    # f32 grads at B = 65,536, M = 2 vs M = 1:
+                               # sums of up to 3.3M terms in another order
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16, NVIDIA data sheet
+PROBE_ROWS, PROBE_IDS, PROBE_D = 1 << 20, 1 << 23, 64   # repeatability probe
 
 
 def check(ok, what: str) -> None:
@@ -1409,8 +1458,8 @@ def sample_bags(graph, rng):
     """Hop-1 bags ``[SAMPLE_SEEDS, 15]`` and hop-2 bags ``[SAMPLE_SEEDS ·
     15, 10]`` of global node ids, by ``neighbor_sample``'s rule
     (``fanout_bags`` over ``Graph.csr()``); a hop-2 bag per hop-1 slot
-    (all ``-1`` under a pad). Returns ``(hop1, hop2, csr_s)``, ``csr_s``
-    the host seconds of the CSR."""
+    (all ``-1`` under a pad). Returns ``(hop1, hop2, csr_s, csr)``,
+    ``csr_s`` the host seconds of the CSR ``csr``."""
     from repro_torch.data.graphs import fanout_bags
     t0 = time.perf_counter()
     indptr, src_idx = graph.csr()
@@ -1419,7 +1468,7 @@ def sample_bags(graph, rng):
     hop1 = fanout_bags(indptr, src_idx, seeds, FANOUTS[0], rng=rng)
     hop2 = fanout_bags(indptr, src_idx, hop1.reshape(-1), FANOUTS[1],
                        rng=rng)
-    return hop1, hop2, csr_s
+    return hop1, hop2, csr_s, (indptr, src_idx)
 
 
 def mean_weights(bags: np.ndarray) -> np.ndarray:
@@ -1435,7 +1484,7 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-def phase_sparse(seed: int) -> list:
+def phase_sparse(seed: int, keep: dict | None = None) -> list:
     """Phase 7: the sparse substrate at full width, K7 and K8.
 
     K7 (``ops.segment_sum_blocked``) aggregates ``D_HIDDEN``-wide messages
@@ -1446,7 +1495,9 @@ def phase_sparse(seed: int) -> list:
     held bitwise against its CPU twin (K7 on the largest block and 7
     others, K8 on both bag sets), the whole output against the library
     call, and the kernel, its twin on the card and the library call are
-    timed. Returns the ``kernels`` entries of K7 and K8."""
+    timed. Returns the ``kernels`` entries of K7 and K8. With ``keep``,
+    ``keep["reddit"]`` gets phase 13's (15, 10) neighbour sample of the
+    same Reddit graph (``reddit_train_sample``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1486,7 +1537,13 @@ def phase_sparse(seed: int) -> list:
     t0 = time.perf_counter()
     gr = random_graph(**REDDIT, seed=seed)
     t_reddit = time.perf_counter() - t0
-    hop1, hop2, csr_s = sample_bags(gr, rng)
+    hop1, hop2, csr_s, csr = sample_bags(gr, rng)
+    if keep is not None:
+        t1 = time.perf_counter()
+        keep["reddit"] = reddit_train_sample(gr, csr, seed)
+        print(f"[sparse] phase 13's (15, 10) sample of the Reddit graph in "
+              f"{time.perf_counter() - t1:.1f}s (host)", flush=True)
+    del csr
     table_cpu = torch.as_tensor(gr.node_feat)
     n_reddit_edges = gr.edges.shape[0]
     del gr
@@ -2345,7 +2402,8 @@ def phase_sharded(idx, oracle, rng, phase3) -> dict:
 def recsys_inputs(cfg, specs, gen, *, serve: bool) -> dict:
     """A batch shaped like ``specs`` (the cell's ``meta`` tensors), drawn
     on the card from ``gen``: sparse ids within each field's vocabulary,
-    normal dense features, item ids in [1, v) with left pads 0 on a
+    normal dense features, click labels 0 or 1, item ids in [1, v) with
+    left pads 0 on a
     ``RECSYS_PAD_SHARE`` of the history rows (and, for a serving cell,
     one all-pad row, the last)."""
     import torch
@@ -2359,6 +2417,9 @@ def recsys_inputs(cfg, specs, gen, *, serve: bool) -> dict:
                              for v in cfg.vocab_sizes], dim=1)
         elif key == "dense":
             x = torch.randn(shape, generator=gen, device=dev)
+        elif key == "labels":
+            x = torch.randint(0, 2, shape, generator=gen, device=dev,
+                              dtype=torch.int32)
         else:
             x = torch.randint(1, cfg.vocab_sizes[0], shape, generator=gen,
                               device=dev, dtype=torch.int32)
@@ -2487,7 +2548,7 @@ def phase_recsys(seed: int, mesh) -> dict:
     for a, arch in enumerate(RECSYS_ARCHS):
         t_arch = time.perf_counter()
         cfg = configs.get_config(arch)
-        cells = configs.get_cells(arch)
+        cells = [c for c in configs.get_cells(arch) if c.kind != "train"]
         if arch == "dlrm-mlperf":
             full = cfg
             cfg = replace(full, vocab_sizes=tuple(
@@ -2500,7 +2561,7 @@ def phase_recsys(seed: int, mesh) -> dict:
                   f"card's 80 GB; each field keeps at most "
                   f"{DLRM_ROW_CAP:,} rows; the 26 fields, dim 128, "
                   f"both MLPs and the interaction are kept", flush=True)
-            cut = recsys_cells(arch, cfg)
+            cut = [c for c in recsys_cells(arch, cfg) if c.kind != "train"]
             check([c.key for c in cut] == [c.key for c in cells],
                   "the cut DLRM has the same cells")
             cells = cut
@@ -2993,7 +3054,8 @@ def phase_lm(seed: int, mesh) -> dict:
     with torch.inference_mode():
         t_arch = time.perf_counter()
         cfg = configs.get_config(LM_ARCH)
-        cells = {c.shape: c for c in configs.get_cells(LM_ARCH)}
+        cells = {c.shape: c for c in configs.get_cells(LM_ARCH)
+                 if c.kind != "train"}
         check(sorted(cells) == ["decode_32k", "long_500k", "prefill_32k"],
               "gemma3-1b's serving cells")
         gen = torch.Generator(device=dev).manual_seed(seed * 100 + 12)
@@ -3041,8 +3103,10 @@ def phase_lm(seed: int, mesh) -> dict:
         t_arch = time.perf_counter()
         full = configs.get_config(MOE_ARCH)
         mcfg = replace(full, n_layers=MOE_LAYERS)
-        full_cells = {c.shape: c for c in configs.get_cells(MOE_ARCH)}
-        mcells = {c.shape: c for c in lm_cells(MOE_ARCH, mcfg)}
+        full_cells = {c.shape: c for c in configs.get_cells(MOE_ARCH)
+                      if c.kind != "train"}
+        mcells = {c.shape: c for c in lm_cells(
+            MOE_ARCH, mcfg, n_microbatches=1) if c.kind != "train"}
         check(sorted(mcells) == sorted(full_cells),
               "the cut Mixtral has the same cells")
         mgen = torch.Generator(device=dev).manual_seed(seed * 100 + 13)
@@ -3074,6 +3138,695 @@ def phase_lm(seed: int, mesh) -> dict:
     print(f"[lm] phase 12 launches {launches}", flush=True)
     check(all(n == 0 for n in launches.values()),
           "no kernel launched in phase 12: the LM path reaches none")
+    return dict(launches=launches, cells=res)
+
+
+def tree_bits_equal(a, b) -> bool:
+    """Two trees of tensors with the same paths, dtypes, shapes and bits
+    (NaN and the sign of zero included)."""
+    import torch
+
+    from repro_torch.models.common import tree_paths
+    pa, pb = tree_paths(a), tree_paths(b)
+    if [p for p, _ in pa] != [p for p, _ in pb]:
+        return False
+
+    def raw(x):
+        return x.detach().reshape(-1).contiguous().view(torch.uint8)
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and x.device == y.device and torch.equal(raw(x), raw(y))
+               for (_, x), (_, y) in zip(pa, pb))
+
+
+def step_parts(step) -> dict:
+    """What a train cell's step closes over (``make_train_step``'s
+    ``loss_fn``, ``optimizer``, ``n_microbatches``, ``compress``), through
+    the molecule cell's wrapper (which adds the static ``n_graphs``)."""
+    free = dict(zip(step.__code__.co_freevars,
+                    (c.cell_contents for c in step.__closure__)))
+    if "base_step" in free:
+        inner = step_parts(free["base_step"])
+        inner["n_graphs"] = free["n_graphs"]
+        return inner
+    return free
+
+
+def adam_slack(m1, lr: float, b1: float, tol=None):
+    """How far AdamW's first step may move a param between two runs whose
+    grads agree within ``tol`` = (rtol, atol as a share of the leaf's
+    largest |g|; default ``TRAIN_GRAD_RTOL``, ``TRAIN_GRAD_ATOL_REL``): lr
+    times the spread of its direction g / (|g| + eps) over those grads,
+    g = ``m1`` / (1 - b1), the first moment after one step. ~0 where the
+    grad's sign is held, up to 2 · lr where it is not (a grad within the
+    tolerance of zero). Made in pieces of 2^24 elements (a leaf can be
+    GBs)."""
+    import torch
+    rtol, atol_rel = tol or (TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL_REL)
+    flat = m1.reshape(-1)
+    atol = atol_rel * float(flat.abs().max()) / (1 - b1)
+    out = torch.empty_like(flat, dtype=torch.float32)
+    for lo in range(0, flat.numel(), 1 << 24):
+        g = flat[lo:lo + (1 << 24)].float() / (1 - b1)
+        t = rtol * g.abs() + atol
+        hi_, lo_ = g + t, g - t
+        out[lo:lo + (1 << 24)] = lr * (hi_ / (hi_.abs() + 1e-8)
+                                       - lo_ / (lo_.abs() + 1e-8))
+    return out.reshape(m1.shape)
+
+
+def params_within(got, want, m1_want, lr: float, b1: float, *,
+                  steps: int = 1, tol=None) -> tuple[float, int, int]:
+    """``got`` against ``want`` (param trees on one device) after
+    ``steps`` AdamW steps: every element within ``TRAIN_PARAM_ATOL`` but
+    where AdamW's first step was not held to a sign by the grads
+    (``adam_slack`` past the atol, from ``want``'s first moment ``m1_want``
+    after its first step, with the grad tolerance ``tol``): there within
+    ``2 · steps · lr``. Returns (the
+    largest error outside that set, the largest inside it, the size of
+    the set)."""
+    from repro_torch.models.common import tree_paths
+    worst_held, worst_free, n_free = 0.0, 0.0, 0
+    moments = dict(tree_paths(m1_want))
+    for (path, a), (_, b) in zip(tree_paths(got), tree_paths(want),
+                                 strict=True):
+        err = (a.float() - b.float()).abs()
+        slack = adam_slack(moments[path], lr, b1, tol)
+        free = slack > TRAIN_PARAM_ATOL
+        if steps == 1:
+            bound = TRAIN_PARAM_ATOL + slack
+            check(bool((err <= bound).all()), f"{path}: within the grads' "
+                  f"tolerance through AdamW's first step")
+        n_free += int(free.sum())
+        if (~free).any():
+            worst_held = max(worst_held, float(err[~free].max()))
+        if free.any():
+            worst_free = max(worst_free, float(err[free].max()))
+    check(worst_held <= TRAIN_PARAM_ATOL,
+          f"params within {TRAIN_PARAM_ATOL:g} where the sign is held "
+          f"({worst_held:.3g})")
+    check(worst_free <= 2 * steps * lr, f"params within 2 · {steps} · lr "
+          f"where it is not ({worst_free:.3g})")
+    return worst_held, worst_free, n_free
+
+
+def train_probe(seed: int) -> dict:
+    """Which sums repeat on the card: ``index_add_`` (the port's segment
+    sum before this slice), ``index_select``'s backward, the backward of
+    ``table[ids]`` (advanced indexing: ``index_put_`` with accumulate),
+    and the port's fixed-order ``segment_sum`` and ``gather_rows``'
+    backward, each run twice on ``PROBE_IDS`` Zipf-skewed ids into
+    ``PROBE_ROWS`` rows of ``PROBE_D`` f32 columns; the port's two also
+    against the CPU, bitwise. Only the port's are held to it."""
+    import torch
+
+    from repro_torch.sparse.segment_ops import gather_rows, segment_sum
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed * 100 + 31)
+    # Zipf-ish ids: a few rows take thousands of adds each
+    u = torch.rand(PROBE_IDS, generator=gen, device=dev)
+    ids = (PROBE_ROWS * u.pow(3.0)).long().clamp_max(PROBE_ROWS - 1)
+    vals = torch.randn(PROBE_IDS, PROBE_D, generator=gen, device=dev)
+    table = torch.randn(PROBE_ROWS, PROBE_D, generator=gen, device=dev)
+
+    def index_add():
+        return torch.zeros_like(table).index_add_(0, ids, vals)
+
+    def gather_grad(fn, t, vals):
+        t = t.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(t), t, grad_outputs=vals)
+        return g
+
+    def grad_of(fn):
+        return lambda: gather_grad(fn, table, vals)
+
+    ops_ = {"index_add_": index_add,
+            "index_select backward": grad_of(
+                lambda t: t.index_select(0, ids)),
+            "table[ids] backward (index_put_ accumulate)": grad_of(
+                lambda t: t[ids]),
+            "segment_sum": lambda: segment_sum(vals, ids, PROBE_ROWS),
+            "gather_rows backward": grad_of(lambda t: gather_rows(t, ids))}
+    out = {}
+    for name, fn in ops_.items():
+        a = fn()
+        b = fn()
+        torch.cuda.synchronize()
+        diff = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        out[name] = diff
+        print(f"[train] repeatable on the card? {name}: "
+              f"{'yes' if diff == 0 else 'no'} ({diff:,} of {a.numel():,} "
+              f"elements differ between two runs)", flush=True)
+        del a, b
+    check(out["segment_sum"] == 0 and out["gather_rows backward"] == 0,
+          "the port's fixed-order sums repeat bitwise on the card")
+    n = PROBE_IDS // 16
+    cpu_ids, cpu_vals = ids[:n].cpu(), vals[:n].cpu()
+    same_seg = bits_equal(segment_sum(vals[:n], ids[:n], PROBE_ROWS),
+                          segment_sum(cpu_vals, cpu_ids, PROBE_ROWS))
+    same_gather = bits_equal(
+        gather_grad(lambda t: gather_rows(t, ids[:n]), table, vals[:n]),
+        gather_grad(lambda t: gather_rows(t, cpu_ids), table.cpu(),
+                    cpu_vals))
+    print(f"[train] the port's segment_sum and gather_rows backward on "
+          f"{n:,} ids: bitwise the CPU's {same_seg}, {same_gather}",
+          flush=True)
+    check(same_seg and same_gather, "fixed-order sums: the card's bits are "
+          "the CPU's")
+    del vals, table, ids
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_smoke_cases():
+    """The card-against-CPU cases: (name, init_params, cfg, loss_fn, numpy
+    batch, static extras) at each family's SMOKE (f32): gemma3-1b and mixtral-8x7b
+    (local/global attention, the MoE dispatch), the four recsys archs,
+    EGNN's node readout over a graph with padding edges and its graph
+    readout over molecules."""
+    import functools
+    from dataclasses import replace
+
+    from repro_torch import configs
+    from repro_torch.data.clicklogs import ctr_batches, seq_rec_batches
+    from repro_torch.data.graphs import batched_molecules, random_graph
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.models import egnn, recsys, transformer
+    out = []
+    for arch in ("gemma3-1b", "mixtral-8x7b"):
+        cfg = configs.get_smoke(arch)
+        out.append((arch, transformer.init_params, cfg,
+                    functools.partial(transformer.loss_fn, cfg),
+                    next(lm_batches(vocab_size=cfg.vocab_size, batch=4,
+                                    seq_len=32, seed=1)), {}))
+    for arch in RECSYS_ARCHS:
+        cfg = configs.get_smoke(arch)
+        if cfg.model in ("dlrm", "autoint"):
+            b = next(ctr_batches(vocab_sizes=cfg.vocab_sizes,
+                                 n_dense=cfg.n_dense, batch=16, seed=1))
+        else:
+            b = next(seq_rec_batches(n_items=cfg.vocab_sizes[0],
+                                     seq_len=cfg.seq_len, batch=16, seed=1,
+                                     per_position=cfg.model == "sasrec"))
+        out.append((arch, recsys.init_params, cfg,
+                    functools.partial(recsys.loss_fn, cfg), b, {}))
+    cfg = configs.get_smoke("egnn")
+    g = random_graph(64, 4, d_feat=cfg.d_feat, n_classes=cfg.n_out, seed=1)
+    pad = np.full((8, 2), -1, np.int32)
+    out.append(("egnn-node", egnn.init_params, cfg,
+                functools.partial(egnn.loss_fn, cfg), {
+        "node_feat": g.node_feat, "coords": g.coords,
+        "edges": np.concatenate([g.edges.astype(np.int32), pad]),
+        "labels": g.labels.astype(np.int32)}, {}))
+    cfgg = replace(cfg, readout="graph", n_out=1, d_feat=11)
+    mb = batched_molecules(8, n_nodes=10, n_edges=16, seed=1)
+    n_graphs = mb.pop("n_graphs")
+    mb["edges"] = np.concatenate([mb["edges"], pad])
+    out.append(("egnn-graph", egnn.init_params, cfgg,
+                functools.partial(egnn.loss_fn, cfgg), mb,
+                {"n_graphs": n_graphs}))
+    return out
+
+
+def train_card_vs_cpu(seed: int) -> dict:
+    """Each family's SMOKE (f32, TF32 off) trained ``TRAIN_SMOKE_STEPS``
+    steps on the CPU and twice on the card from the same params and
+    batch: the card's two runs bitwise equal; the first step's grads
+    within ``TRAIN_GRAD_RTOL`` / ``TRAIN_GRAD_ATOL_REL`` · max |g| of the
+    CPU's; every step's loss within ``TRAIN_LOSS_RTOL``; the params within
+    ``TRAIN_PARAM_ATOL`` after the first step and after the last
+    (``params_within``)."""
+    import torch
+
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.train import AdamW, init_train_state, make_train_step
+    from repro_torch.train.step import value_and_grad
+
+    dev = torch.device("cuda")
+    res = {}
+    for i, (name, init, cfg, loss_fn, nb, extra) in enumerate(
+            train_smoke_cases()):
+        p_cpu = init(torch.Generator().manual_seed(seed + i), cfg,
+                     device="cpu")
+        b_cpu = dict({k: torch.as_tensor(v) for k, v in nb.items()},
+                     **extra)
+        b_dev = dict({k: torch.as_tensor(v, device=dev)
+                      for k, v in nb.items()}, **extra)
+        opt = AdamW(lr=1e-3)
+        step = make_train_step(loss_fn, opt)
+        (l_cpu, _), g_cpu = value_and_grad(loss_fn, p_cpu, b_cpu)
+        (l_dev, _), g_dev = value_and_grad(
+            loss_fn, tree_map(lambda t: t.to(dev), p_cpu), b_dev)
+        worst_g = 0.0
+        for (path, a), (_, w) in zip(tree_paths(g_dev), tree_paths(g_cpu)):
+            a, top = a.cpu(), float(w.abs().max())
+            err = (a - w).abs() - TRAIN_GRAD_RTOL * w.abs()
+            check(bool((err <= TRAIN_GRAD_ATOL_REL * top).all()),
+                  f"{name} {path}: grad on the card within tolerance")
+            worst_g = max(worst_g, float(((a - w).abs()).max() / max(
+                top, 1e-30)))
+        runs = {}
+        for where in ("cpu", "card", "card again"):
+            d = torch.device("cpu") if where == "cpu" else dev
+            p = tree_map(lambda t: t.to(d), p_cpu)
+            s = init_train_state(p, opt)
+            b = b_cpu if where == "cpu" else b_dev
+            losses, first = [], None
+            for k in range(TRAIN_SMOKE_STEPS):
+                p, s, m = step(p, s, b)
+                losses.append(float(m["loss"]))
+                if k == 0:
+                    first = (tree_map(lambda t: t.cpu(), p),
+                             tree_map(lambda t: t.cpu(), s["m"]))
+            runs[where] = (p, s, losses, first)
+        same = tree_bits_equal(runs["card"][:2], runs["card again"][:2])
+        check(same, f"{name}: two runs on the card bitwise equal")
+        lc, ld = np.array(runs["cpu"][2]), np.array(runs["card"][2])
+        check(bool(np.all(np.abs(ld - lc) <= TRAIN_LOSS_RTOL * np.abs(lc))),
+              f"{name}: losses on the card within rtol "
+              f"{TRAIN_LOSS_RTOL:g} of the CPU's ({ld} vs {lc})")
+        check(abs(float(l_dev) - float(l_cpu)) <= TRAIN_LOSS_RTOL * abs(
+            float(l_cpu)), f"{name}: loss before the first step")
+        m1 = runs["cpu"][3][1]
+        held1 = params_within(runs["card"][3][0], runs["cpu"][3][0], m1,
+                              opt.lr, opt.b1)
+        last = params_within(tree_map(lambda t: t.cpu(), runs["card"][0]),
+                             runs["cpu"][0], m1, opt.lr, opt.b1,
+                             steps=TRAIN_SMOKE_STEPS)
+        res[name] = dict(losses_cpu=runs["cpu"][2],
+                         losses_card=runs["card"][2], grad_rel=worst_g,
+                         step1=held1, last=last, repeat=same)
+        print(f"[train] card vs CPU {name} (SMOKE, f32): losses card "
+              f"{[f'{x:.6f}' for x in ld]} CPU {[f'{x:.6f}' for x in lc]} "
+              f"(max rel {float(np.max(np.abs(ld - lc) / np.abs(lc))):.2e});"
+              f" grads max |card - CPU| / max |g| {worst_g:.2e}; params "
+              f"after step 1 max err {held1[0]:.2e} where AdamW's sign is "
+              f"held ({held1[2]} elements not held, max {held1[1]:.2e}); "
+              f"after step {TRAIN_SMOKE_STEPS} {last[0]:.2e} ({last[1]:.2e});"
+              f" two card runs bitwise {same}", flush=True)
+    return res
+
+
+def train_cell_run(key: str, step, make_state, batch, *, flops: float,
+                   peak: float, peak_name: str, units: int, unit: str,
+                   alt_step=None, compress_step=None, grad_tol=None
+                   ) -> dict:
+    """One train cell at full width on the card.
+
+    ``make_state(compress=False)`` draws the cell's params afresh from a
+    fixed seed (the same bits each call) and its optimizer state. Run B,
+    through ``train.loop.run_training`` with a checkpoint directory:
+    ``TRAIN_STEPS // 2`` steps from a fresh state and a checkpoint (the
+    peak device memory is read over it). Run A: ``TRAIN_STEPS`` steps of
+    ``step`` on the same fixed ``batch``, each timed (CUDA events), the
+    loss required to fall, its state at ``TRAIN_STEPS // 2`` bitwise
+    equal to run B's (two runs from one seed). Run C: a fresh state that
+    ``run_training`` resumes from run B's checkpoint to ``TRAIN_STEPS``,
+    bitwise equal to run A's final state (auto-resume is exact). The
+    steps are functional, so a state is kept by keeping its tensors, on
+    the card. ``alt_step`` (the cell's step with the other microbatch
+    count), from a fresh state, against run A's first step: its first
+    moment (its clipped grads) within ``grad_tol`` (rtol, atol as a share
+    of the leaf's largest; default the f32 ``TRAIN_GRAD_RTOL``,
+    ``TRAIN_GRAD_ATOL_REL``) and its params by ``params_within``;
+    ``compress_step`` (int8 with error feedback) from a fresh state: its
+    loss is run A's first loss and its params finite."""
+    import itertools
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.models.common import tree_paths
+    from repro_torch.train.checkpoint import (latest_complete_step,
+                                              load_checkpoint)
+    from repro_torch.train.loop import LoopConfig, run_training
+    opt = step_parts(step)["optimizer"]
+    half_steps = TRAIN_STEPS // 2
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    print(f"[train] {key}: {before / 1e9:.2f} GB on the card before the "
+          f"cell", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="train-ckpt-")
+    try:
+        batches = itertools.repeat(batch)
+        t0 = time.perf_counter()
+        got_half = run_training(step, make_state(), batches, LoopConfig(
+            total_steps=half_steps, ckpt_dir=tmp, ckpt_every=half_steps,
+            log_every=TRAIN_STEPS))
+        t_b = time.perf_counter() - t0
+        peak_mem = torch.cuda.max_memory_allocated() - before
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(tmp) for f in fs)
+
+        params, state = make_state()
+        losses, times, first, repeat = [], [], None, None
+        for i in range(TRAIN_STEPS):
+            out = {}
+            times.append(cuda_ms(lambda: out.update(r=step(params, state,
+                                                           batch))))
+            params, state, met = out.pop("r")
+            losses.append(float(met["loss"]))
+            if i == 0:
+                first = (params, state["m"], float(met["lr"]))
+            if i + 1 == half_steps:
+                repeat = tree_bits_equal((params, state), got_half)
+                del got_half
+        final = (params, state)
+        del params, state, out
+
+        # run C: the loop's resume (``latest_complete_step``, then
+        # ``load_checkpoint`` into a fresh state), then the rest of the
+        # steps; run through the loop itself it would also save the end,
+        # 12 GB more to disk for the LM
+        t0 = time.perf_counter()
+        latest = latest_complete_step(tmp)
+        check(latest == half_steps, f"{key}: the newest complete step is "
+              f"{latest}")
+        got = load_checkpoint(tmp, latest, make_state())
+        t_load = time.perf_counter() - t0
+        for _ in range(TRAIN_STEPS - latest):
+            p_, s_, _m = step(*got, batch)
+            got = (p_, s_)
+            del p_, s_, _m
+        t_c = time.perf_counter() - t0
+        resumed = tree_bits_equal(got, final)
+        del got, final
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ms = float(np.median(times[1:]))
+    share = flops / (ms * 1e-3) / peak
+    check(all(np.isfinite(losses)), f"{key}: finite losses")
+    check(losses[-1] < losses[0], f"{key}: the loss falls on a fixed batch "
+          f"({losses})")
+    check(repeat, f"{key}: two runs from one seed bitwise equal")
+    check(resumed, f"{key}: resumed from step {half_steps} bitwise equal "
+          f"to {TRAIN_STEPS} straight steps")
+    res = dict(ms=ms, times=times, losses=losses, peak=peak_mem,
+               share=share, rate=units / (ms * 1e-3), repeat=repeat,
+               resumed=resumed, ckpt_bytes=ckpt_bytes,
+               loop_s=(t_b, t_load, t_c), leftover=before)
+    extra = ""
+    if alt_step is not None:
+        torch.cuda.reset_peak_memory_stats()
+        p_alt, s_alt, m_alt = alt_step(*make_state(), batch)
+        res["alt_peak"] = torch.cuda.max_memory_allocated()
+        rtol, atol_rel = grad_tol or (TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL_REL)
+        worst_m = 0.0
+        for (path, a), (_, w) in zip(tree_paths(s_alt["m"]),
+                                     tree_paths(first[1]), strict=True):
+            top = float(w.abs().max())
+            over = (a - w).abs() - rtol * w.abs() - atol_rel * top
+            check(bool((over <= 0).all()), f"{key} {path}: M="
+                  f"{step_parts(alt_step)['n_microbatches']}'s grads "
+                  f"within ({rtol:g}, {atol_rel:g}) of the step's")
+            worst_m = max(worst_m, float((a - w).abs().max()) / max(
+                top, 1e-30))
+        res["alt_grad_rel"] = worst_m
+        res["alt"] = params_within(p_alt, first[0], first[1], first[2],
+                                   opt.b1, tol=grad_tol)
+        res["alt_loss"] = (float(m_alt["loss"]), losses[0])
+        extra = (f"; M={step_parts(alt_step)['n_microbatches']} against "
+                 f"M={step_parts(step)['n_microbatches']}: clipped grads max "
+                 f"|diff| / max {worst_m:.2e}, params max err "
+                 f"{res['alt'][0]:.2e} where AdamW's sign is held "
+                 f"({res['alt'][2]} elements not held, max "
+                 f"{res['alt'][1]:.2e}), loss {res['alt_loss'][0]:.6f} vs "
+                 f"{losses[0]:.6f}, peak {res['alt_peak'] / 1e9:.2f} GB "
+                 f"with run A's first step held")
+        del p_alt, s_alt
+    del first
+    if compress_step is not None:
+        p_c, _, m_c = compress_step(*make_state(compress=True), batch)
+        res["compress_loss"] = float(m_c["loss"])
+        check(res["compress_loss"] == losses[0],
+              f"{key}: the compressed step's loss is the step's")
+        check(all(bool(torch.isfinite(x).all()) for _, x in tree_paths(p_c)),
+              f"{key}: finite params after a compressed step")
+        del p_c, _
+        extra += f"; compress=True: loss {res['compress_loss']:.6f}, finite"
+    print(f"[train] {key}: step {ms:.3f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; all {[round(t, 3) for t in times]}), "
+          f"{res['rate']:,.1f} {unit}/s, peak {peak_mem / 1e9:.2f} GB "
+          f"(over {half_steps} steps and a save; {before / 1e9:.2f} GB "
+          f"held before), FLOP share {share:.4f} of {peak_name}; losses "
+          f"{[round(x, 6) for x in losses]}; two runs bitwise {repeat}; "
+          f"resumed bitwise {resumed} (checkpoint {ckpt_bytes:,} bytes; "
+          f"the loop {t_b:.1f} s to step {half_steps} with its save; "
+          f"resumed in {t_c:.1f} s, its load {t_load:.1f} s){extra}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def egnn_batch_on_card(cfg, n_nodes: int, n_edges: int, n_edges_pad: int,
+                       gen) -> dict:
+    """A node-readout EGNN batch drawn on the card: normal features and
+    coordinates, ``n_edges`` edges by ``data.graphs.random_graph``'s rule
+    (uniform sources, destinations ``N · U^(1/3)``: a power-law in-degree)
+    and ``n_edges_pad - n_edges`` padding edges (-1), labels uniform in
+    the classes."""
+    import torch
+    dev = gen.device
+    src = torch.randint(0, n_nodes, (n_edges,), generator=gen, device=dev)
+    u = torch.rand(n_edges, generator=gen, device=dev, dtype=torch.float64)
+    dst = (n_nodes * u.pow(1.0 / 3.0)).long().clamp_max(n_nodes - 1)
+    edges = torch.full((n_edges_pad, 2), -1, dtype=torch.int32, device=dev)
+    edges[:n_edges, 0] = src.to(torch.int32)
+    edges[:n_edges, 1] = dst.to(torch.int32)
+    return {"node_feat": torch.randn(n_nodes, cfg.d_feat, generator=gen,
+                                     device=dev),
+            "coords": torch.randn(n_nodes, cfg.coord_dim, generator=gen,
+                                  device=dev),
+            "edges": edges,
+            "labels": torch.randint(0, cfg.n_out, (n_nodes,), generator=gen,
+                                    device=dev, dtype=torch.int32)}
+
+
+def reddit_train_sample(graph, csr, seed: int) -> dict:
+    """minibatch_lg's batch: ``data.graphs.neighbor_sample`` of
+    ``SAMPLE_SEEDS`` seeds (nodes with an in-neighbour) at ``FANOUTS``
+    over ``graph``, whose CSR ``csr`` is already made (numpy, host)."""
+    from types import SimpleNamespace
+
+    from repro_torch.data.graphs import neighbor_sample
+    rng = np.random.default_rng(seed + 13)
+    has_in = np.flatnonzero(np.diff(csr[0]) > 0)
+    seeds = rng.choice(has_in, size=SAMPLE_SEEDS, replace=False)
+    view = SimpleNamespace(csr=lambda: csr, node_feat=graph.node_feat,
+                           coords=graph.coords, labels=graph.labels)
+    return neighbor_sample(view, seeds, FANOUTS, rng=rng)
+
+
+def phase_train(seed: int, mesh, reddit=None) -> dict:
+    """Phase 13: training at full width on the card (one rank).
+
+    First which sums repeat on the card (``train_probe``) and each
+    family's SMOKE on the card against the CPU (``train_card_vs_cpu``).
+    Then the train cells of ``configs.get_cells``, each through
+    ``train_cell_run``: gemma3-1b ``train_4k`` at full width and 4,096
+    positions, its global batch **cut** to ``TRAIN_LM_BATCH`` (M = 2, as
+    the config says; M = 1 beside it); the four recsys ``train_batch``
+    cells at B = 65,536 (DLRM's table **cut** to ``DLRM_TRAIN_ROW_CAP``
+    rows a field; M = 2 beside M = 1); EGNN on Cora, Reddit's (15, 10)
+    sample (``reddit``: phase 7's, else drawn here), ogb_products with
+    every node and its edges **cut** to ``PRODUCTS_TRAIN_EDGES``, and the
+    128 molecules. Every cell also takes one compressed step. Returns the
+    phase's launch counts (all 0: the training path reaches no kernel)
+    and the numbers."""
+    import functools
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import egnn as egnn_cfg
+    from repro_torch.configs.common import (gnn_train_cell, lm_train_cell,
+                                            recsys_cells)
+    from repro_torch.data.graphs import batched_molecules, random_graph
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.models import egnn, recsys, transformer
+    from repro_torch.models.common import count_params
+    from repro_torch.train import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    for c in COUNTERS:
+        c.reset()
+    res = {"probe": train_probe(seed),
+           "card_vs_cpu": train_card_vs_cpu(seed)}
+
+    def variant(step, **kw):
+        parts = step_parts(step)
+        base = make_train_step(parts["loss_fn"], parts["optimizer"], **{
+            "n_microbatches": parts["n_microbatches"], "compress": False,
+            **kw})
+        if "n_graphs" not in parts:
+            return base
+        n_graphs = parts["n_graphs"]
+        return lambda p, s, b: base(p, s, dict(b, n_graphs=n_graphs))
+
+    def state_maker(init, cfg, opt, s):
+        def make_state(compress=False):
+            p = init(torch.Generator(device=dev).manual_seed(s), cfg,
+                     device=dev)
+            return p, init_train_state(p, opt, compress=compress)
+        return make_state
+
+    # -- LM: gemma3-1b train_4k, global batch cut ---------------------------
+    t_fam = time.perf_counter()
+    cfg = configs.get_config(LM_ARCH)
+    (full,) = [c for c in configs.get_cells(LM_ARCH) if c.kind == "train"]
+    seq = full.build(None)[1][2]["tokens"].shape[1]
+    m = configs.get_module(LM_ARCH).N_MICROBATCHES
+    cell = lm_train_cell(LM_ARCH, cfg, global_batch=TRAIN_LM_BATCH,
+                         seq_len=seq, n_microbatches=m)
+    check(cell.key == full.key, "the cut train_4k is train_4k")
+    step, (specs, _, bspec) = cell.build(mesh)
+    print(f"[train] CUT {full.key}: global batch "
+          f"{full.build(None)[1][2]['tokens'].shape[0]} -> {TRAIN_LM_BATCH} "
+          f"sequences of {seq:,} ({m} microbatches of "
+          f"{TRAIN_LM_BATCH // m}): at B = 256 one step is "
+          f"{full.model_flops / 1e15:.0f} PFLOP, minutes at the bf16 peak; "
+          f"d_model {cfg.d_model}, {cfg.n_layers} layers, vocab "
+          f"{cfg.vocab_size:,} kept; f32 params, grads, m and v of "
+          f"{count_params(specs):,} params are "
+          f"{4 * 4 * count_params(specs) / 1e9:.1f} GB", flush=True)
+    nb = next(lm_batches(vocab_size=cfg.vocab_size, batch=TRAIN_LM_BATCH,
+                         seq_len=seq, seed=seed))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in nb.items()}
+    check(all(tuple(batch[k].shape) == tuple(bspec[k].shape)
+              and batch[k].dtype == bspec[k].dtype for k in bspec),
+          "the LM batch is made as its spec")
+    opt = step_parts(step)["optimizer"]
+    res[full.key] = train_cell_run(
+        full.key, step, state_maker(transformer.init_params, cfg, opt,
+                                    seed * 100 + 41), batch,
+        flops=cell.model_flops, peak=BF16_OPS_PER_S,
+        peak_name="989 TFLOP/s (bf16)", units=TRAIN_LM_BATCH * seq,
+        unit="tokens", alt_step=variant(step, n_microbatches=1),
+        compress_step=variant(step, compress=True),
+        grad_tol=(0.0, TRAIN_BF16_GRAD_REL))
+    del batch
+    print(f"[train] lm done in {time.perf_counter() - t_fam:.1f} s",
+          flush=True)
+
+    # -- recsys: train_batch at B = 65,536 ----------------------------------
+    t_fam = time.perf_counter()
+    for a, arch in enumerate(RECSYS_ARCHS):
+        rcfg = configs.get_config(arch)
+        (cell,) = [c for c in configs.get_cells(arch) if c.kind == "train"]
+        if arch == "dlrm-mlperf":
+            fullcfg = rcfg
+            rcfg = replace(fullcfg, vocab_sizes=tuple(
+                min(v, DLRM_TRAIN_ROW_CAP) for v in fullcfg.vocab_sizes))
+            table = rcfg.padded_rows * rcfg.embed_dim * 4
+            print(f"[train] CUT {cell.key}: table rows "
+                  f"{fullcfg.padded_rows:,} -> {rcfg.padded_rows:,} "
+                  f"({fullcfg.padded_rows * fullcfg.embed_dim * 4 / 1e9:.1f}"
+                  f" -> {table / 1e9:.2f} GB in f32), at most "
+                  f"{DLRM_TRAIN_ROW_CAP:,} rows a field: a step holds the "
+                  f"table's params, grads, m, v and the new params, m and "
+                  f"v (7 x {table / 1e9:.2f} = {7 * table / 1e9:.1f} GB) "
+                  f"and its temporaries (about 13 tables at M = 2), and "
+                  f"the checks keep up to 5 more copies; the 26 fields, "
+                  f"dim 128, both MLPs and the interaction are kept",
+                  flush=True)
+            (cut,) = [c for c in recsys_cells(arch, rcfg,
+                                              train_microbatches=1)
+                      if c.kind == "train"]
+            check(cut.key == cell.key, "the cut DLRM has its train cell")
+            cell = cut
+        step, (specs, _, bspec) = cell.build(mesh)
+        gen = torch.Generator(device=dev).manual_seed(seed * 100 + 50 + a)
+        batch = recsys_inputs(rcfg, bspec, gen, serve=False)
+        opt = step_parts(step)["optimizer"]
+        b = int(bspec["labels" if "labels" in bspec else "history"].shape[0])
+        res[cell.key] = train_cell_run(
+            cell.key, step, state_maker(recsys.init_params, rcfg, opt,
+                                        seed * 100 + 60 + a), batch,
+            flops=cell.model_flops, peak=FP32_OPS_PER_S,
+            peak_name="67 TFLOP/s (f32)", units=b, unit="samples",
+            alt_step=variant(step, n_microbatches=2),
+            compress_step=variant(step, compress=True),
+            grad_tol=(TRAIN_GRAD_RTOL, TRAIN_SPLIT_GRAD_REL))
+        del batch
+    print(f"[train] recsys done in {time.perf_counter() - t_fam:.1f} s",
+          flush=True)
+
+    # -- GNN: EGNN at its four shapes ----------------------------------------
+    t_fam = time.perf_counter()
+    cells = {c.shape: c for c in configs.get_cells("egnn")}
+    for i, shape in enumerate(egnn_cfg.SHAPE_DEFS):
+        d = egnn_cfg.SHAPE_DEFS[shape]
+        ecfg = egnn_cfg.shape_config(shape)
+        cell = cells[shape]
+        gen = torch.Generator(device=dev).manual_seed(seed * 100 + 70 + i)
+        t0 = time.perf_counter()
+        if shape == "ogb_products":
+            per_edge = EGNN_BYTES_PER_EDGE
+            print(f"[train] CUT {cell.key}: edges {d['n_edges']:,} -> "
+                  f"{PRODUCTS_TRAIN_EDGES:,}, all {d['n_nodes']:,} nodes "
+                  f"kept: one layer's recompute and backward hold about "
+                  f"{per_edge:,} bytes an edge (h_i, h_j, the [E, 129] "
+                  f"concat, phi_e's and phi_x's activations and their "
+                  f"grads), {d['n_edges'] * per_edge / 1e9:.0f} GB at full "
+                  f"size, {PRODUCTS_TRAIN_EDGES * per_edge / 1e9:.0f} GB "
+                  f"cut", flush=True)
+            cell = gnn_train_cell("egnn", ecfg, shape, n_nodes=d["n_nodes"],
+                                  n_edges=PRODUCTS_TRAIN_EDGES)
+            check(cell.key == cells[shape].key, "the cut products cell")
+        step, (specs, _, bspec) = cell.build(mesh)
+        n_pad = bspec["edges"].shape[0]
+        if shape == "molecule":
+            mb = batched_molecules(d["n_graphs"], n_nodes=30, n_edges=64,
+                                   d_feat=ecfg.d_feat, seed=seed)
+            mb.pop("n_graphs")
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in mb.items()}
+            units, unit = d["n_graphs"], "graphs"
+        elif shape == "minibatch_lg":
+            if reddit is None:
+                g = random_graph(**REDDIT, seed=seed)
+                reddit = reddit_train_sample(g, g.csr(), seed)
+                del g
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in reddit.items()}
+            batch["edges"] = torch.cat([batch["edges"], torch.full(
+                (n_pad - batch["edges"].shape[0], 2), -1, dtype=torch.int32,
+                device=dev)])
+            units, unit = SAMPLE_SEEDS, "seeds"
+        else:
+            n_real = (PRODUCTS_TRAIN_EDGES if shape == "ogb_products"
+                      else d["n_edges"])
+            batch = egnn_batch_on_card(ecfg, d["n_nodes"], n_real, n_pad,
+                                       gen)
+            units, unit = d["n_nodes"], "nodes"
+        check(all(tuple(batch[k].shape) == tuple(bspec[k].shape)
+                  and batch[k].dtype == bspec[k].dtype for k in bspec),
+              f"{cell.key}: the batch is made as its spec")
+        print(f"[train] {cell.key}: batch of {d['n_nodes']:,} nodes, "
+              f"{n_pad:,} edge slots ({int((batch['edges'][:, 0] >= 0).sum()):,}"
+              f" edges) on the card in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        opt = step_parts(step)["optimizer"]
+        res[cell.key] = train_cell_run(
+            cell.key, step, state_maker(egnn.init_params, ecfg, opt,
+                                        seed * 100 + 80 + i), batch,
+            flops=cell.model_flops, peak=FP32_OPS_PER_S,
+            peak_name="67 TFLOP/s (f32)", units=units, unit=unit,
+            compress_step=variant(step, compress=True))
+        del batch
+    print(f"[train] gnn done in {time.perf_counter() - t_fam:.1f} s",
+          flush=True)
+    launches = {c.name: c.n for c in COUNTERS}
+    print(f"[train] phase 13 launches {launches}", flush=True)
+    check(all(n == 0 for n in launches.values()),
+          "no kernel launched in phase 13: the training path reaches none")
     return dict(launches=launches, cells=res)
 
 
@@ -3542,12 +4295,13 @@ def main(argv=None) -> int:
 
     # -- phase 7: the sparse substrate at full width -----------------------
     t0 = time.perf_counter()
-    kernels += phase_sparse(args.seed)
+    keep = {}
+    kernels += phase_sparse(args.seed, keep)
     print(f"[sparse] done in {time.perf_counter() - t0:.1f}s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- phases 11-12: the recsys family and LM serving at full width -----
+    # -- phases 11-13: recsys and LM serving, training at full width -------
     import shutil
 
     import torch.distributed as tdist
@@ -3563,6 +4317,12 @@ def main(argv=None) -> int:
         p12 = phase_lm(args.seed, mesh)
         print(f"[lm] phase 12 done in {time.perf_counter() - t0:.1f}s",
               flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p13 = phase_train(args.seed, mesh, keep.pop("reddit", None))
+        print(f"[train] phase 13 done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
     finally:
         tdist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -3572,6 +4332,7 @@ def main(argv=None) -> int:
         kd["launches_phase10"] = p10_launches[kd["name"]]
         kd["launches_phase11"] = p11["launches"][kd["name"]]
         kd["launches_phase12"] = p12["launches"][kd["name"]]
+        kd["launches_phase13"] = p13["launches"][kd["name"]]
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = kd.pop("ops") / FP32_OPS_PER_S * 1e3
         kd["bound_ms"] = max(t_bytes, t_ops)

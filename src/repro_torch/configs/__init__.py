@@ -1,11 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 The port's counterpart of ``repro.configs``, over the architectures the
-port has: the LM family and the recsys family. Each module exposes
+port has: the LM family, EGNN and the recsys family. Each module exposes
 ``CONFIG`` (exact published config), ``SMOKE`` (reduced same-family
 variant for CPU tests), ``FAMILY`` and ``cells()`` (the cells for its
-assigned input shapes). The reference's ``egnn`` and ``bm25s`` come with
-their slices.
+assigned input shapes). The reference's ``bm25s`` comes with its slice.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ _ARCH_MODULES = {
     "qwen3-8b": "qwen3_8b",
     "mixtral-8x22b": "mixtral_8x22b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "egnn": "egnn",
     "autoint": "autoint",
     "mind": "mind",
     "dlrm-mlperf": "dlrm_mlperf",

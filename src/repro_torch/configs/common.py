@@ -1,18 +1,18 @@
 """Cell plumbing: every (architecture × input shape) becomes a ``Cell``.
 
-The port's counterpart of ``repro.configs.common``, for the recsys
-family. A Cell knows how to build its step function and abstract
-arguments lazily — ``meta`` tensors, the counterpart of
+The port's counterpart of ``repro.configs.common``. A Cell knows how to
+build its step function and abstract arguments lazily — ``meta`` tensors, the counterpart of
 ``jax.ShapeDtypeStruct``, so nothing touches a device when cells are
 built — plus how to give placements for a mesh (DTensor placement lists,
 one a tensor, by ``dist.sharding``'s rules) and a MODEL_FLOPS estimate for
 the roofline's useful-compute ratio.
 
-It holds the LM family's serving cells (``prefill_32k``, ``decode_32k``,
-``long_500k``) and the recsys family's. The training cells (the LM
-``train_4k``, the recsys ``train_batch``), ``remesh_dp_tp`` (the
-re-mesh of ``launch/hillclimb.py``'s variants) and the GNN cells come
-with the slices that port their stacks.
+It holds the LM family's cells (``train_4k``, ``prefill_32k``,
+``decode_32k``, ``long_500k``), the GNN family's train cells and the
+recsys family's (``train_batch``, ``serve_p99``, ``serve_bulk``,
+``retrieval_cand``). A train cell's function is
+``train.make_train_step``'s step, its arguments ``(params, opt_state,
+batch)``.
 """
 
 from __future__ import annotations
@@ -27,8 +27,10 @@ import torch
 from ..dist.sharding import (_sizes, batch_pspec, data_axes, param_pspecs,
                              spec_placements)
 from ..kernels import ops
-from ..models import recsys, transformer
+from ..models import egnn, recsys, transformer
 from ..models.common import tree_map
+from ..train.optimizer import AdamW, cosine_schedule
+from ..train.step import make_train_step
 
 
 def sds(shape, dtype=torch.float32) -> torch.Tensor:
@@ -190,6 +192,38 @@ def _lm_params_sds(cfg: transformer.LMConfig) -> dict:
                                             device="meta"))
 
 
+def lm_train_cell(arch: str, cfg: transformer.LMConfig, *,
+                  global_batch: int, seq_len: int,
+                  n_microbatches: int, remesh: Callable | None = None,
+                  note: str = "") -> Cell:
+    def build(mesh):
+        opt = AdamW(lr=cosine_schedule(peak_lr=3e-4, warmup_steps=100,
+                                       total_steps=10_000))
+        step = make_train_step(functools.partial(transformer.loss_fn, cfg),
+                               opt, n_microbatches=n_microbatches)
+        params_s = transformer.init_params(torch.Generator(), cfg,
+                                           device="meta")
+        opt_s = opt.init(params_s)
+        batch_s = {"tokens": sds((global_batch, seq_len), torch.int32),
+                   "labels": sds((global_batch, seq_len), torch.int32)}
+        return step, (params_s, opt_s, batch_s)
+
+    def shardings(mesh, args):
+        params_s, opt_s, batch_s = args
+        ps = lm_param_shardings(cfg, params_s, mesh)
+        os_ = {"m": lm_param_shardings(cfg, opt_s["m"], mesh),
+               "v": lm_param_shardings(cfg, opt_s["v"], mesh),
+               "step": spec_placements(mesh)}
+        bs = batch_shardings(mesh, batch_s)
+        return (ps, os_, bs)
+
+    tokens = global_batch * seq_len
+    flops = 6.0 * lm_active_params(cfg) * tokens \
+        + 3.0 * _lm_attn_flops(cfg, global_batch, seq_len, seq_len)
+    return Cell(arch, f"train_{seq_len // 1024}k", "train", build, shardings,
+                flops, note=note, remesh=remesh)
+
+
 def lm_prefill_cell(arch: str, cfg: transformer.LMConfig, *,
                     batch: int, seq_len: int, shape_name: str) -> Cell:
     def build(mesh):
@@ -260,12 +294,11 @@ LM_SHAPES = {
 }
 
 
-def lm_cells(arch: str, cfg: transformer.LMConfig, *,
+def lm_cells(arch: str, cfg: transformer.LMConfig, *, n_microbatches: int,
              skip_long: bool = False) -> list[Cell]:
-    """The family's serving cells: ``prefill_32k``, ``decode_32k`` and,
-    unless ``skip_long``, ``long_500k`` (``train_4k`` comes with the
-    training slice)."""
     cells = [
+        lm_train_cell(arch, cfg, global_batch=256, seq_len=4096,
+                      n_microbatches=n_microbatches),
         lm_prefill_cell(arch, cfg, batch=32, seq_len=32768,
                         shape_name="prefill_32k"),
         lm_decode_cell(arch, cfg, batch=128, seq_len=32768,
@@ -275,6 +308,59 @@ def lm_cells(arch: str, cfg: transformer.LMConfig, *,
         cells.append(lm_decode_cell(arch, cfg, batch=1, seq_len=524288,
                                     shape_name="long_500k"))
     return cells
+
+
+# ==========================================================================
+# GNN family
+# ==========================================================================
+
+def gnn_train_cell(arch: str, cfg: egnn.EGNNConfig, shape_name: str, *,
+                   n_nodes: int, n_edges: int, batch_labels: int | None = None,
+                   n_graphs: int | None = None, note: str = "") -> Cell:
+    n_edges_pad = int(-(-n_edges // 512) * 512)
+
+    def build(mesh):
+        opt = AdamW(lr=1e-3)
+        base_step = make_train_step(functools.partial(egnn.loss_fn, cfg), opt)
+        if cfg.readout == "graph":
+            # n_graphs is static — close over it rather than passing a leaf
+            def step(params, opt_state, batch):
+                return base_step(params, opt_state,
+                                 dict(batch, n_graphs=n_graphs))
+        else:
+            step = base_step
+        params_s = egnn.init_params(torch.Generator(), cfg, device="meta")
+        opt_s = opt.init(params_s)
+        batch_s = {
+            "node_feat": sds((n_nodes, cfg.d_feat)),
+            "coords": sds((n_nodes, cfg.coord_dim)),
+            "edges": sds((n_edges_pad, 2), torch.int32),
+        }
+        if cfg.readout == "graph":
+            batch_s["graph_ids"] = sds((n_nodes,), torch.int32)
+            batch_s["targets"] = sds((n_graphs, cfg.n_out))
+        else:
+            batch_s["labels"] = sds((n_nodes,), torch.int32)
+        return step, (params_s, opt_s, batch_s)
+
+    def shardings(mesh, args):
+        params_s, opt_s, batch_s = args
+        all_axes = tuple(mesh.mesh_dim_names)
+
+        def bshard(key, a):
+            if key == "edges":
+                return spec_placements(mesh, all_axes, None)
+            return spec_placements(mesh)
+
+        bs = {k: bshard(k, v) for k, v in batch_s.items()}
+        return (repl(mesh, params_s), repl(mesh, opt_s), bs)
+
+    d = cfg.d_hidden
+    # messages: phi_e (2 layers d->d) per edge; phi_h per node; x3 for bwd
+    flops = 3.0 * cfg.n_layers * (
+        2.0 * n_edges * (2 * d + 1 + cfg.d_edge) * d + 2.0 * n_edges * d * d
+        + 4.0 * n_nodes * d * d)
+    return Cell(arch, shape_name, "train", build, shardings, flops, note)
 
 
 # ==========================================================================
@@ -320,6 +406,28 @@ def recsys_model_flops(cfg: recsys.RecsysConfig, batch: int) -> float:
     l = cfg.seq_len
     return float(batch * (2 * l * d * d
                           + cfg.capsule_iters * 4 * cfg.n_interests * l * d))
+
+
+def recsys_train_cell(arch: str, cfg: recsys.RecsysConfig, *,
+                      batch: int, n_microbatches: int = 1) -> Cell:
+    def build(mesh):
+        opt = AdamW(lr=1e-3)
+        step = make_train_step(functools.partial(recsys.loss_fn, cfg), opt,
+                               n_microbatches=n_microbatches)
+        params_s = _params_sds(cfg)
+        opt_s = opt.init(params_s)
+        return step, (params_s, opt_s, _recsys_batch_sds(cfg, batch, True))
+
+    def shardings(mesh, args):
+        params_s, opt_s, batch_s = args
+        ps = params_shardings(mesh, params_s)
+        os_ = {"m": params_shardings(mesh, opt_s["m"]),
+               "v": params_shardings(mesh, opt_s["v"]),
+               "step": spec_placements(mesh)}
+        return (ps, os_, batch_shardings(mesh, batch_s))
+
+    return Cell(arch, "train_batch", "train", build, shardings,
+                3.0 * recsys_model_flops(cfg, batch))
 
 
 def recsys_serve_cell(arch: str, cfg: recsys.RecsysConfig, *,
@@ -375,10 +483,11 @@ def recsys_retrieval_cell(arch: str, cfg: recsys.RecsysConfig, *,
 RECSYS_SHAPES = dict(train_batch=65_536, serve_p99=512, serve_bulk=262_144)
 
 
-def recsys_cells(arch: str, cfg: recsys.RecsysConfig) -> list[Cell]:
-    """The family's serving cells: ``serve_p99``, ``serve_bulk`` and
-    ``retrieval_cand`` (``train_batch`` comes with the training slice)."""
+def recsys_cells(arch: str, cfg: recsys.RecsysConfig, *,
+                 train_microbatches: int = 1) -> list[Cell]:
     return [
+        recsys_train_cell(arch, cfg, batch=RECSYS_SHAPES["train_batch"],
+                          n_microbatches=train_microbatches),
         recsys_serve_cell(arch, cfg, batch=RECSYS_SHAPES["serve_p99"],
                           shape_name="serve_p99"),
         recsys_serve_cell(arch, cfg, batch=RECSYS_SHAPES["serve_bulk"],

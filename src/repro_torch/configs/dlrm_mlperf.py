@@ -28,4 +28,4 @@ FAMILY = "recsys"
 
 
 def cells():
-    return recsys_cells("dlrm-mlperf", CONFIG)
+    return recsys_cells("dlrm-mlperf", CONFIG, train_microbatches=1)

@@ -25,8 +25,8 @@ CONFIG = LMConfig(
 SMOKE = reduced(CONFIG, global_every=3, n_layers=3)
 
 FAMILY = "lm"
-N_MICROBATCHES = 2                # the train cell's, with the training slice
+N_MICROBATCHES = 2
 
 
 def cells():
-    return lm_cells("gemma3-1b", CONFIG)
+    return lm_cells("gemma3-1b", CONFIG, n_microbatches=N_MICROBATCHES)

@@ -22,8 +22,8 @@ CONFIG = LMConfig(
 SMOKE = reduced(CONFIG)
 
 FAMILY = "lm"
-N_MICROBATCHES = 4                # the train cell's, with the training slice
+N_MICROBATCHES = 4
 
 
 def cells():
-    return lm_cells("h2o-danube3-4b", CONFIG)
+    return lm_cells("h2o-danube3-4b", CONFIG, n_microbatches=N_MICROBATCHES)

@@ -24,8 +24,8 @@ CONFIG = LMConfig(
 SMOKE = reduced(CONFIG, moe_group_seq=16)
 
 FAMILY = "lm"
-N_MICROBATCHES = 8                # the train cell's, with the training slice
+N_MICROBATCHES = 8
 
 
 def cells():
-    return lm_cells("mixtral-8x7b", CONFIG)
+    return lm_cells("mixtral-8x7b", CONFIG, n_microbatches=N_MICROBATCHES)

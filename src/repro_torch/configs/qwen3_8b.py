@@ -21,8 +21,9 @@ CONFIG = LMConfig(
 SMOKE = reduced(CONFIG)
 
 FAMILY = "lm"
-N_MICROBATCHES = 4                # the train cell's, with the training slice
+N_MICROBATCHES = 4
 
 
 def cells():
-    return lm_cells("qwen3-8b", CONFIG, skip_long=True)
+    return lm_cells("qwen3-8b", CONFIG, n_microbatches=N_MICROBATCHES,
+                    skip_long=True)

@@ -10,8 +10,11 @@ block-max table, :func:`device_index_from_reference` for a whole resident
 index (a reordered one keeps its permutation: its ``host`` is in the
 permuted id space, and ``perm`` / ``reorder`` come across with it), and
 :func:`scoring_index_from_reference` for the eager scorer's device index,
-:func:`recsys_params_from_reference` for a recsys model's params, and
-:func:`lm_params_from_reference` for an LM's.
+:func:`recsys_params_from_reference` for a recsys model's params,
+:func:`lm_params_from_reference` for an LM's,
+:func:`egnn_params_from_reference` for an EGNN's, and
+:func:`train_state_from_reference` for an optimizer state of
+``repro.train`` (moments, step and error feedback).
 A snapshot (``sparse.snapshot``) is the other carrier of state between
 the packages. It imports nothing of ``repro``.
 """
@@ -140,3 +143,25 @@ def lm_params_from_reference(tree, *, device=None):
         return torch.as_tensor(a, device=dev)
 
     return tree_map(one, tree)
+
+
+def egnn_params_from_reference(tree, *, device=None):
+    """The port's params for ``repro.models.egnn``'s ``tree`` (as
+    ``jax.device_get`` of the reference's ``init_params`` gives them), on
+    ``device`` (default ``cuda``): the same structure, every leaf an f32
+    tensor."""
+    return recsys_params_from_reference(tree, device=device)
+
+
+def train_state_from_reference(state: dict, *, device=None) -> dict:
+    """The port's optimizer state for ``repro.train``'s ``state`` (``m``
+    and ``v`` trees of f32 arrays, the int32 ``step`` and, when the step
+    compresses, the ``ef`` tree), on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    out = {k: recsys_params_from_reference(state[k], device=dev)
+           for k in ("m", "v")}
+    out["step"] = torch.as_tensor(np.array(state["step"], dtype=np.int32),
+                                  device=dev)
+    if "ef" in state:
+        out["ef"] = recsys_params_from_reference(state["ef"], device=dev)
+    return out

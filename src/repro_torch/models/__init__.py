@@ -1,12 +1,10 @@
-"""Model zoo of the port: the LM transformer family and the recsys
-architectures.
+"""Model zoo of the port: the LM transformer family, the recsys
+architectures and EGNN."""
 
-The reference's ``repro.models`` also holds EGNN; it comes with its
-slice.
-"""
-
-from . import recsys, transformer
+from . import egnn, recsys, transformer
+from .egnn import EGNNConfig
 from .recsys import RecsysConfig
 from .transformer import LMConfig
 
-__all__ = ["recsys", "transformer", "LMConfig", "RecsysConfig"]
+__all__ = ["egnn", "recsys", "transformer", "EGNNConfig", "LMConfig",
+           "RecsysConfig"]

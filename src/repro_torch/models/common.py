@@ -118,3 +118,36 @@ def count_params(params) -> int:
 def cast_tree(params, dtype):
     return tree_map(
         lambda x: x.to(dtype) if x.is_floating_point() else x, params)
+
+
+def tree_paths(tree, prefix: tuple = ()) -> list:
+    """``(path, leaf)`` pairs in ``jax.tree_util``'s order: a dict's keys
+    sorted, a list's or tuple's items in order; a path holds the keys and
+    indices that lead to the leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure (its dicts' key order kept) holding
+    ``leaves``, given in :func:`tree_paths`' order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = dict.fromkeys(t)
+            for k in sorted(t):
+                out[k] = build(t[k])
+            return out
+        if isinstance(t, (list, tuple)):
+            vals = [build(v) for v in t]
+            return type(t)(*vals) if hasattr(t, "_fields") else type(t)(
+                vals)
+        return next(it)
+
+    return build(like)

@@ -10,10 +10,14 @@ top-k (``lax.top_k`` twice, no Pallas kernel); the port's selects with
 ``kernels.ops.topk``, K5 on the card, by choice.
 
 Params are trees of f32 tensors; model code is plain functions on
-tensors, with no backward pass here. Every lookup is :func:`take_rows`,
+tensors, trained through ``loss_fn`` under autograd (``train/``). Every
+lookup is :func:`take_rows`,
 which gives ``jnp.take``'s rows for any id: an id in ``[-rows, -1]``
 counts from the end and any other id outside the table gives a row of
-NaN, with no host sync and no device-side assert. The products are
+NaN, with no host sync and no device-side assert, and whose backward
+adds each row's gradients into the table in a fixed order
+(``sparse.segment_ops.gather_rows``; ``index_select``'s own backward
+adds with atomics on CUDA). The products are
 ``torch.matmul`` / ``einsum`` in f32, as the reference computes them
 outside any kernel.
 """
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..sparse.segment_ops import gather_rows
 from .common import normal_init, split_keys
 
 
@@ -74,12 +79,14 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     ``jnp.take``'s default ``mode="fill"``: an id in ``[-rows, -1]`` wraps
     to ``rows + id``; any other id outside ``[0, rows)`` gives a NaN row.
     Ids are clamped before the gather (so no id faults) and the rows of
-    out-of-range ids are filled in place afterwards.
+    out-of-range ids are filled in place afterwards. The gather is
+    :func:`gather_rows`: ``index_select``'s rows, with a backward that sums
+    each table row's gradients in input order.
     """
     n = table.shape[0]
     ids = torch.where(ids < 0, ids + n, ids)
     bad = (ids < 0) | (ids >= n)
-    rows = torch.index_select(table, 0, ids.clamp(0, n - 1).reshape(-1))
+    rows = gather_rows(table, ids.clamp(0, n - 1).reshape(-1))
     rows = rows.view(*ids.shape, table.shape[1])
     return rows.masked_fill_(bad[..., None], float("nan"))
 

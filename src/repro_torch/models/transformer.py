@@ -15,8 +15,15 @@ implementation covers the five LM architectures:
   for decode.
 
 Params are plain dicts of tensors (the reference's pytrees), model code
-plain functions on tensors; serving runs under ``torch.inference_mode()``
-and there is no backward pass here. The arithmetic is the reference's:
+plain functions on tensors. Serving (``prefill``, ``decode_step``) runs
+under ``torch.inference_mode()``; training goes through ``forward`` and
+``loss_fn`` under autograd, with ``torch.utils.checkpoint`` where the
+reference remats (each layer, and each loss chunk so that its ``[B, cs,
+V]`` logits are recomputed in the backward). The embedding gather is
+``sparse.segment_ops.gather_rows``, whose backward sums each row's
+gradients in a fixed order (``table[ids]``'s backward adds in no fixed
+order on the CPU, ``index_select``'s with atomics on CUDA), so a train
+step gives the same bits run to run. The arithmetic is the reference's:
 projections, the MLP and the MoE in ``cfg.dtype``; norms and RoPE in f32;
 attention scores and the PV product as f32 einsums over f32 copies of q,
 k and v. Products are ``torch.matmul`` / ``einsum`` (TF32 stays off, as
@@ -37,8 +44,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from ..device import resolve_device
 from ..dist import sharding
+from ..sparse.segment_ops import gather_rows
 from .common import causal_window_mask, normal_init, rms_norm, split_keys
 
 
@@ -157,7 +167,8 @@ def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor
     """``params["embed"].astype(dtype)[tokens]`` (times ``sqrt(d_model)``
     rounded to ``cfg.dtype`` under ``embed_scale``).
 
-    The reference's plain index: an id in ``[-rows, -1]`` counts from the
+    The rows are :func:`gather_rows`'s (a fixed-order backward). The
+    reference's plain index: an id in ``[-rows, -1]`` counts from the
     end, and any id still outside the table clamps to its first or last
     row (no fill, no host sync, no device assert). The rows are gathered
     before the cast, which gives the same bits as casting the whole table
@@ -165,7 +176,8 @@ def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor
     table = params["embed"]
     n = table.shape[0]
     ids = torch.where(tokens < 0, tokens + n, tokens).clamp_(0, n - 1)
-    x = table[ids].to(cfg.dtype)
+    x = gather_rows(table, ids.reshape(-1)).view(
+        *ids.shape, table.shape[1]).to(cfg.dtype)
     if cfg.embed_scale:
         x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=cfg.dtype))
     return x
@@ -407,16 +419,24 @@ def _layer_fwd(cfg: LMConfig, lp: dict, x: torch.Tensor,
 def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
             positions: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Embed + all layers. Returns (hidden [B,S,D] in cfg.dtype, aux loss)."""
+    """Embed + all layers. Returns (hidden [B,S,D] in cfg.dtype, aux loss).
+
+    Each layer runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of its scan body): under autograd only its input is
+    kept and its activations are recomputed in the backward. The layer
+    params are ``unbind`` views of the ``[L, ...]`` leaves, whose backward
+    stacks the L gradients once."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = sharding.constrain(_embed(cfg, params, tokens), "dp", None, None)
+    layers = {k: p.unbind(0) for k, p in params["layers"].items()}
     auxes = []
     for i, (win, th) in enumerate(zip(cfg.layer_windows(),
                                       cfg.layer_thetas())):
-        x, aux = _layer_fwd(cfg, _layer(params, i), x, positions, int(win),
-                            float(th))
+        lp = {k: v[i] for k, v in layers.items()}
+        x, aux = checkpoint(_layer_fwd, cfg, lp, x, positions, int(win),
+                            float(th), use_reentrant=False)
         auxes.append(aux)
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps,
                  plus_one=cfg.rmsnorm_plus_one)
@@ -429,12 +449,26 @@ def _unembed(cfg: LMConfig, params: dict) -> torch.Tensor:
     return params["lm_head"].to(cfg.dtype)
 
 
+def _chunk_ce(h: torch.Tensor, lab: torch.Tensor, head: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One loss chunk's summed CE and its count of valid labels."""
+    logits = (h @ head).float()                             # [B, cs, V]
+    logits = sharding.constrain(logits, "dp", None, "model")  # vocab-sharded
+    lse = torch.logsumexp(logits, dim=-1)
+    safe = torch.clamp_min(lab, 0).long()
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    valid = (lab >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
 def loss_fn(cfg: LMConfig, params: dict, batch: dict
             ) -> tuple[torch.Tensor, dict]:
     """Next-token CE, computed in sequence chunks (logits never [B,S,V]).
 
-    batch: tokens [B, S] int32, labels [B, S] int32 (-1 = ignore). The
-    value only: the gradient comes with the training stack.
+    batch: tokens [B, S] int32, labels [B, S] int32 (-1 = ignore). Each
+    chunk runs under ``torch.utils.checkpoint``, so under autograd its
+    ``[B, cs, V]`` logits are recomputed in the backward instead of being
+    kept for every chunk.
     """
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
@@ -447,16 +481,10 @@ def loss_fn(cfg: LMConfig, params: dict, batch: dict
     ces, cnts = [], []
     for c0 in range(0, s, cs):
         h = sharding.constrain(hidden[:, c0:c0 + cs], "dp", None, None)
-        lab = labels[:, c0:c0 + cs]
-        logits = (h @ head).float()                         # [B, cs, V]
-        # vocab-sharded CE
-        logits = sharding.constrain(logits, "dp", None, "model")
-        lse = torch.logsumexp(logits, dim=-1)
-        safe = torch.clamp_min(lab, 0).long()
-        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-        valid = (lab >= 0).float()
-        ces.append(((lse - gold) * valid).sum())
-        cnts.append(valid.sum())
+        ce_c, cnt = checkpoint(_chunk_ce, h, labels[:, c0:c0 + cs], head,
+                               use_reentrant=False)
+        ces.append(ce_c)
+        cnts.append(cnt)
     n_tok = torch.clamp_min(torch.stack(cnts).sum(), 1.0)
     ce = torch.stack(ces).sum() / n_tok
     loss = ce + 0.01 * aux

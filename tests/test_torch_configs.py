@@ -35,9 +35,9 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["autoint", "mind", "dlrm-mlperf", "sasrec"]
 LM_ARCHS = ["h2o-danube3-4b", "gemma3-1b", "qwen3-8b", "mixtral-8x22b",
             "mixtral-8x7b"]
-# the reference's archs the port does not have yet: ROADMAP §1 item 5
-# queues them (egnn with training, then bm25s)
-QUEUED = {"egnn", "bm25s"}
+# the reference's archs the port does not have yet: ROADMAP §1 queues
+# them (bm25s, with the launch tooling)
+QUEUED = {"bm25s"}
 MESHES = [(1, 1), (1, 8), (2, 4), (3, 2)]
 DTYPES = {jnp.dtype(jnp.float32): torch.float32,
           jnp.dtype(jnp.int32): torch.int32,
@@ -71,8 +71,9 @@ def _ref_leaves(tree):
 
 
 def test_registry_lists_the_recsys_family():
-    """The LM family, then the recsys family, in the reference's order."""
-    assert configs.list_archs() == LM_ARCHS + ["autoint", "mind",
+    """The LM family, EGNN, then the recsys family, in the reference's
+    order."""
+    assert configs.list_archs() == LM_ARCHS + ["egnn", "autoint", "mind",
                                                "dlrm-mlperf", "sasrec"]
     assert configs.list_archs() == [a for a in ref_configs.list_archs()
                                     if a not in QUEUED]
@@ -90,10 +91,10 @@ def test_registry_lists_the_recsys_family():
 
 def test_unknown_arch_raises_the_reference_error():
     with pytest.raises(ValueError) as port:
-        configs.get_config("egnn")
+        configs.get_config("bm25s")
     with pytest.raises(ValueError) as ref:
         ref_configs.get_config("nope")
-    assert str(port.value) == (f"unknown arch 'egnn'; available: "
+    assert str(port.value) == (f"unknown arch 'bm25s'; available: "
                                f"{sorted(configs.list_archs())}")
     assert str(ref.value).startswith("unknown arch 'nope'; available: [")
 
@@ -135,10 +136,10 @@ def test_configs_equal_the_reference(arch):
 def test_cells_equal_the_reference_at_full_width(arch):
     cells = configs.get_cells(arch)
     ref = _ref_cells(arch)
-    assert [c.key for c in cells] == [
-        f"{arch}/serve_p99", f"{arch}/serve_bulk", f"{arch}/retrieval_cand"]
-    # train_batch is the only reference cell the family lacks
-    assert set(ref) - {c.key for c in cells} == {f"{arch}/train_batch"}
+    assert [c.key for c in cells] == [c.key for c in
+                                      ref_configs.get_cells(arch)] == [
+        f"{arch}/train_batch", f"{arch}/serve_p99", f"{arch}/serve_bulk",
+        f"{arch}/retrieval_cand"]
     for c in cells:
         r = ref[c.key]
         assert (c.arch, c.shape, c.kind) == (r.arch, r.shape, r.kind)
@@ -156,11 +157,13 @@ def test_cells_equal_the_reference_at_full_width(arch):
 
 def test_all_cells_and_model_flops():
     keys = [c.key for c in configs.all_cells()]
-    # 4 recsys archs × 3 cells; 5 LM archs × 3, but qwen3-8b skips
-    # long_500k
-    assert len(keys) == 12 + 14 == len(set(keys))
+    # 4 recsys archs × 4 cells; 5 LM archs × 4, but qwen3-8b skips
+    # long_500k; EGNN's 4 shapes
+    assert len(keys) == 16 + 19 + 4 == len(set(keys))
     ref_keys = {c.key for c in ref_configs.all_cells()}
     assert set(keys) <= ref_keys
+    assert ref_keys - set(keys) == {c.key for c in
+                                    ref_configs.get_cells("bm25s")}
     from repro.configs import common as ref_common
     for arch in ARCHS:
         cfg = configs.get_config(arch)
@@ -238,7 +241,7 @@ def _leaves_placements(tree):
 
 # -- the LM family ------------------------------------------------------------
 
-LM_SHAPE_NAMES = ["prefill_32k", "decode_32k", "long_500k"]
+LM_SHAPE_NAMES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -246,7 +249,7 @@ def _ref_lm_built(arch):
     """The reference's LM cells of ``arch`` with their built arguments (the
     build reads no mesh), by key."""
     return {c.key: (c, c.build(None)[1])
-            for c in ref_configs.get_cells(arch) if c.kind != "train"}
+            for c in ref_configs.get_cells(arch)}
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -278,10 +281,9 @@ def test_lm_configs_equal_the_reference(arch):
 def test_lm_cells_equal_the_reference_at_full_width(arch):
     cells = configs.get_cells(arch)
     ref = {c.key: c for c in ref_configs.get_cells(arch)}
-    shapes = LM_SHAPE_NAMES[:2] if arch == "qwen3-8b" else LM_SHAPE_NAMES
+    shapes = LM_SHAPE_NAMES[:3] if arch == "qwen3-8b" else LM_SHAPE_NAMES
     assert [c.key for c in cells] == [f"{arch}/{s}" for s in shapes]
-    # train_4k is the only reference cell the family lacks
-    assert set(ref) - {c.key for c in cells} == {f"{arch}/train_4k"}
+    assert set(ref) == {c.key for c in cells}
     built = _ref_lm_built(arch)
     for c in cells:
         r, ref_args = built[c.key]
@@ -289,9 +291,17 @@ def test_lm_cells_equal_the_reference_at_full_width(arch):
                                                      r.note)
         assert c.model_flops == r.model_flops
         fn, args = c.build(None)
-        assert fn.func is {"prefill": pt.prefill,
-                           "decode": pt.decode_step}[c.kind]
-        assert fn.args == (configs.get_config(arch),)
+        if c.kind == "train":
+            step = _step_closure(fn)
+            assert step["loss_fn"].func is pt.loss_fn
+            assert step["loss_fn"].args == (configs.get_config(arch),)
+            assert step["n_microbatches"] == configs.get_module(
+                arch).N_MICROBATCHES
+            assert step["compress"] is False
+        else:
+            assert fn.func is {"prefill": pt.prefill,
+                               "decode": pt.decode_step}[c.kind]
+            assert fn.args == (configs.get_config(arch),)
         got, want = dict(_leaves(args)), dict(_ref_leaves(ref_args))
         assert set(got) == set(want)
         for path, a in got.items():
@@ -299,6 +309,13 @@ def test_lm_cells_equal_the_reference_at_full_width(arch):
             assert a.device.type == "meta", path
             assert tuple(a.shape) == tuple(b.shape), path
             assert a.dtype == DTYPES[jnp.dtype(b.dtype)], path
+
+
+def _step_closure(fn) -> dict:
+    """The variables ``make_train_step``'s step closes over, by name."""
+    assert fn.__qualname__ == "make_train_step.<locals>.train_step"
+    return dict(zip(fn.__code__.co_freevars,
+                    (c.cell_contents for c in fn.__closure__)))
 
 
 def _port_dims_ordered(placements, ndim, sizes):
@@ -353,3 +370,91 @@ def test_lm_placements_equal_the_reference(arch, mesh_shape):
     # K/V projections split d_model model-major over both axes
     if arch.startswith("mixtral") and mesh_shape == (2, 4):
         assert strided > 0
+
+
+# -- train cells: the recsys and GNN families -----------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_recsys_train_cell_steps_like_the_reference(arch):
+    """``train_batch``'s step: ``recsys.loss_fn`` of the config, the
+    reference's microbatches, AdamW at 1e-3; its optimizer state on meta
+    tensors shaped like the params (f32) with an int32 0-d step."""
+    from repro_torch.models import recsys as pr
+    (c,) = [c for c in configs.get_cells(arch) if c.kind == "train"]
+    fn, (params_s, opt_s, batch_s) = c.build(None)
+    step = _step_closure(fn)
+    assert step["loss_fn"].func is pr.loss_fn
+    assert step["n_microbatches"] == 1 and step["optimizer"].lr == 1e-3
+    assert set(opt_s) == {"m", "v", "step"}
+    assert opt_s["step"].dtype == torch.int32 and opt_s["step"].dim() == 0
+    for (pa, a), (pb, b) in zip(_leaves(params_s), _leaves(opt_s["m"])):
+        assert pa == pb and a.shape == b.shape and b.dtype == torch.float32
+        assert b.device.type == "meta"
+    assert ("labels" in batch_s) == (c.arch in ("autoint", "dlrm-mlperf"))
+
+
+EGNN_SHAPES = ["full_graph_sm", "minibatch_lg", "ogb_products", "molecule"]
+
+
+def test_egnn_config_and_cells_equal_the_reference():
+    from repro.configs import egnn as ref_mod
+    from repro_torch.configs import egnn as mod
+    for got, ref in ((mod.CONFIG, ref_mod.CONFIG), (mod.SMOKE, ref_mod.SMOKE)):
+        a, b = dataclasses.asdict(got), dataclasses.asdict(ref)
+        assert a.pop("dtype") == torch.float32
+        assert jnp.dtype(b.pop("dtype")) == jnp.float32
+        assert a == b
+    assert mod.FAMILY == ref_mod.FAMILY == "gnn"
+    assert mod.SHAPE_DEFS == ref_mod.SHAPE_DEFS
+    cells = configs.get_cells("egnn")
+    ref = {c.key: c for c in ref_configs.get_cells("egnn")}
+    assert [c.key for c in cells] == list(ref) == [
+        f"egnn/{s}" for s in EGNN_SHAPES]
+    for c in cells:
+        r = ref[c.key]
+        assert (c.arch, c.shape, c.kind, c.note) == (r.arch, r.shape, r.kind,
+                                                     r.note)
+        assert c.model_flops == r.model_flops
+        fn, args = c.build(None)
+        _, ref_args = r.build(None)
+        got, want = dict(_leaves(args)), dict(_ref_leaves(ref_args))
+        assert set(got) == set(want)
+        for path, a in got.items():
+            b = want[path]
+            assert a.device.type == "meta", path
+            assert tuple(a.shape) == tuple(b.shape), path
+            assert a.dtype == DTYPES[jnp.dtype(b.dtype)], path
+        step = _step_closure(fn if c.shape != "molecule"
+                             else _molecule_base(fn))
+        assert step["loss_fn"].args == (mod.shape_config(c.shape),)
+
+
+def _molecule_base(fn):
+    """The molecule cell's step closes over the base step and the static
+    ``n_graphs``."""
+    inner = dict(zip(fn.__code__.co_freevars,
+                     (x.cell_contents for x in fn.__closure__)))
+    assert inner["n_graphs"] == 128
+    return inner["base_step"]
+
+
+@pytest.mark.parametrize("mesh_shape", MESHES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_egnn_placements_equal_the_reference(mesh_shape):
+    """Params and optimizer state replicated, edges over every mesh axis,
+    the other batch leaves replicated."""
+    mesh = _fake_mesh(*mesh_shape)
+    ref_mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    ref = {c.key: c for c in ref_configs.get_cells("egnn")}
+    for c in configs.get_cells("egnn"):
+        _, args = c.build(mesh)
+        r = ref[c.key]
+        _, ref_args = r.build(ref_mesh)
+        want = dict(_ref_leaves(r.shardings(ref_mesh, ref_args)))
+        shapes = {path: tuple(a.shape) for path, a in _leaves(args)}
+        got = dict(_leaves_placements(c.shardings(mesh, args)))
+        assert set(got) == set(want) == set(shapes)
+        for path, shape in shapes.items():
+            sizes = dict(zip(("data", "model"), mesh_shape))
+            assert _port_dims_ordered(got[path], len(shape), sizes) == \
+                _ref_dims(want[path], len(shape)), (c.key, path)

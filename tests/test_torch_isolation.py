@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no ``repro``, kernels built on demand.
 
-* ``import repro_torch`` (and every subpackage, ``dist``, ``launch``,
-  ``kernels.ref``, ``models`` with ``transformer``, ``serve`` with
-  ``decode_engine``, and ``configs`` with each config module, the LM ones
-  among them) leaves ``jax`` out of ``sys.modules``, and
+* ``import repro_torch`` (and every subpackage, ``dist``, ``launch`` with
+  ``train``, ``kernels.ref``, ``models`` with ``transformer`` and
+  ``egnn``, ``serve`` with ``decode_engine``, ``train`` with each of its
+  modules, and ``configs`` with each config module, the LM ones and
+  EGNN's among them) leaves ``jax`` out of ``sys.modules``, and
   importing ``launch.mesh`` starts no process group;
 * an AST scan finds no import of ``jax`` or ``repro`` in any module of
   ``src/repro_torch``, in ``chip_smoke.py`` or in ``tools/``, and no
@@ -73,11 +74,19 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.configs.h2o_danube3_4b, "
             "repro_torch.configs.qwen3_8b, "
             "repro_torch.configs.mixtral_8x7b, "
-            "repro_torch.configs.mixtral_8x22b\n"
+            "repro_torch.configs.mixtral_8x22b, "
+            "repro_torch.train, repro_torch.train.optimizer, "
+            "repro_torch.train.step, repro_torch.train.grad_compress, "
+            "repro_torch.train.checkpoint, repro_torch.train.loop, "
+            "repro_torch.models.egnn, repro_torch.configs.egnn, "
+            "repro_torch.launch.train\n"
             "from repro_torch.configs import all_cells, get_cells\n"
             "for c in all_cells():\n    c.build(None)\n"
             "from repro_torch.convert import recsys_params_from_reference\n"
             "from repro_torch.convert import lm_params_from_reference\n"
+            "from repro_torch.convert import (egnn_params_from_reference, "
+            "train_state_from_reference)\n"
+            "from repro_torch.train import AdamW, make_train_step\n"
             "from repro_torch.serve import DecodeEngine\n"
             "from repro_torch.core import BM25Retriever, score_batch\n"
             "from repro_torch.serve import ServingFrontend\n"

@@ -60,6 +60,8 @@ def test_mind_cells_full_width_match_the_cpu(cuda_device):
     smoke = _smoke()
     seen = []
     for cell in configs.get_cells("mind"):
+        if cell.kind == "train":            # phase 13's and the train tests'
+            continue
         fn, args = cell.build(None)
         batch = smoke.recsys_inputs(cfg, args[1], gen,
                                     serve=cell.kind == "serve")

@@ -23,8 +23,11 @@ padding document would outrank real ones. ``sharded_retrieve_adaptive`` gives th
 bucket trail. ``dist.sharding`` resolves batch and parameter placements as
 the reference's ``PartitionSpec``s over (1, 8), (2, 4) and (3, 2) meshes,
 and ``constrain`` redistributes a ``DTensor`` to them; on the same meshes
-the recsys and LM serving cells' placements equal the reference cells'
-(an LM placement split model-major over both axes is a strided shard).
+the recsys, LM and GNN cells' placements (train cells included) equal
+the reference cells' (an LM placement split model-major over both axes is
+a strided shard). qwen3-8b's smoke trains one step on the (2, 4) mesh
+with its params placed by ``lm_param_shardings`` and the batch split over
+the data axis, within 1e-2 of world size 1 (the reference's bound).
 
 In-process: ``_device_gathered_topk`` against the reference's on the CPU
 and bitwise run to run; the adaptive wrapper's trail, cap and
@@ -350,7 +353,7 @@ PORT_SCRIPT = textwrap.dedent("""
         res["local"] = (tuple(y.to_local().shape),
                         tuple(z.to_local().shape))
         from repro_torch import configs as port_configs
-        res["recsys"], res["lm"] = {}, {}
+        res["recsys"], res["lm"], res["gnn"] = {}, {}, {}
         for arch in port_configs.list_archs():
             family = port_configs.get_module(arch).FAMILY
             for cell in port_configs.get_cells(arch):
@@ -358,6 +361,71 @@ PORT_SCRIPT = textwrap.dedent("""
                 res[family][cell.key] = flat_placements(
                     cell.shardings(mesh, args))
         out["sharding"][name] = res
+    # the LM train step on the (2, 4) mesh: params placed by
+    # lm_param_shardings (DTensors), gathered for the step, the batch's
+    # data shard on each rank, every microbatch's grads averaged over the
+    # data axis, AdamW on the gathered params on every rank
+    import functools
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.common import lm_param_shardings
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import AdamW, init_train_state, make_train_step
+    cfg = get_smoke("qwen3-8b")
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(8, 16)).astype(np.int32))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    opt = AdamW(lr=1e-3)
+    full_step = make_train_step(functools.partial(transformer.loss_fn, cfg),
+                                opt, n_microbatches=2)
+    _, _, m1 = full_step(params, init_train_state(params, opt), batch)
+    m8 = make_mesh_from(list(range(8)), max_model=4, device_type="cpu")
+    specs = lm_param_shardings(cfg, params, m8)
+    flat = lambda t, pre=(): ([(pre, t)] if not isinstance(t, dict) else
+                              [x for k in sorted(t)
+                               for x in flat(t[k], pre + (k,))])
+    placed = {path: distribute_tensor(p, m8, dict(flat(specs))[path])
+              for path, p in flat(params)}
+    data_group = m8.get_group("data")
+    n_data = dict(zip(m8.mesh_dim_names, m8.shape))["data"]
+
+    class DataMean(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, p):
+            return p.view_as(p)
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.clone()
+            tdist.all_reduce(g, group=data_group)
+            return g / n_data
+
+    def dp_loss(p, b):
+        return transformer.loss_fn(cfg, tree_map(DataMean.apply, p), b)
+
+    gathered = tree_map(lambda x: x, params)
+    for path, d in placed.items():
+        node = gathered
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = d.full_tensor()
+    rows = 8 // n_data
+    coord = m8.get_coordinate()[0]
+    local = {k: v[coord * rows:(coord + 1) * rows] for k, v in batch.items()}
+    step = make_train_step(dp_loss, opt, n_microbatches=2)
+    p2, s2, m2 = step(gathered, init_train_state(gathered, opt), local)
+    loss = m2["loss"].clone()
+    tdist.all_reduce(loss, group=data_group)
+    out["lm_train"] = dict(
+        loss=float(loss) / n_data, single=float(m1["loss"]),
+        placements={"/".join(p): enc(d.placements)
+                    for p, d in placed.items()},
+        finite=all(bool(torch.isfinite(x).all()) for _, x in flat(p2)),
+        grad_norm=float(m2["grad_norm"]), single_norm=float(
+            m1["grad_norm"]))
     out["foreign"] = sorted(m for m in sys.modules
                             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     pickle.dump(out, open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb"))
@@ -603,7 +671,7 @@ def test_sharding_resolution_matches_the_reference(runs, mesh_name):
 
 
 def _check_cell_placements(runs, mesh_name, family, archs):
-    """The serving cells' placements of ``archs`` (``configs.common``'s
+    """The cells' placements of ``archs`` (``configs.common``'s
     ``shardings``, at full ``CONFIG``) on the ranks' real ``DeviceMesh``es
     equal the reference cells' ``NamedSharding``s on an ``AbstractMesh``
     of the same shape, each dim's axes in their order."""
@@ -618,8 +686,6 @@ def _check_cell_placements(runs, mesh_name, family, archs):
     want = {}
     for arch in archs:
         for c in ref_configs.get_cells(arch):
-            if c.kind == "train":
-                continue
             _, args = c.build(ref_mesh)
             ndim = {tuple(getattr(k, "key", getattr(k, "idx", None))
                           for k in kp): len(a.shape)
@@ -650,12 +716,41 @@ def test_recsys_cell_placements_on_the_gloo_meshes(runs, mesh_name):
 
 @pytest.mark.parametrize("mesh_name", list(SHARDING_MESHES))
 def test_lm_cell_placements_on_the_gloo_meshes(runs, mesh_name):
-    """The LM serving cells' params, tokens and decode caches: the
-    weight-gathered MoEs' K/V projections split d_model model-major over
-    both axes, a ``_StridedShard`` on the data dim."""
+    """The LM cells' params, optimizer state, tokens and decode caches:
+    the weight-gathered MoEs' (and every train cell's) K/V projections
+    split d_model model-major over both axes, a ``_StridedShard`` on the
+    data dim."""
     _check_cell_placements(runs, mesh_name, "lm",
                            ("h2o-danube3-4b", "gemma3-1b", "qwen3-8b",
                             "mixtral-8x22b", "mixtral-8x7b"))
+
+
+@pytest.mark.parametrize("mesh_name", list(SHARDING_MESHES))
+def test_gnn_cell_placements_on_the_gloo_meshes(runs, mesh_name):
+    """EGNN's train cells: params and optimizer state replicated, the
+    edges over every mesh axis."""
+    _check_cell_placements(runs, mesh_name, "gnn", ("egnn",))
+
+
+def test_lm_train_step_runs_sharded(runs):
+    """The counterpart of ``tests/test_distributed.py::
+    test_lm_train_step_runs_sharded``: qwen3-8b's smoke with two
+    microbatches on the 8-rank (2, 4) mesh, its params placed by
+    ``lm_param_shardings`` (K/V projections model-major over both axes),
+    the batch split over the data axis: the loss is within the
+    reference's 1e-2 of world size 1, and every rank's params finite."""
+    for r in range(WORLD):
+        got = runs.port[r]["lm_train"]
+        assert got["loss"] > 0 and got["finite"]
+        assert abs(got["loss"] - got["single"]) < 1e-2
+        assert abs(got["grad_norm"] - got["single_norm"]) < 1e-2 * max(
+            1.0, got["single_norm"])
+        pl = got["placements"]
+        assert pl["layers/wk"][0][0] == "SS"        # data: strided, minor
+        assert pl["layers/wk"][1] == ("S", 1)      # model: major on d
+        assert pl["layers/wq"] == [("S", 1), ("S", 2)]
+        assert pl["embed"] == [("R",), ("S", 0)]
+        assert got["loss"] == runs.port[0]["lm_train"]["loss"]
 
 
 # -- in process ---------------------------------------------------------------

@@ -161,7 +161,7 @@ def time_k8(torch, cs, seed: int) -> tuple[dict, dict]:
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 7)
     gr = random_graph(**cs.REDDIT, seed=seed)
-    hop1, hop2, _ = cs.sample_bags(gr, rng)
+    hop1, hop2, _, _ = cs.sample_bags(gr, rng)
     table = torch.as_tensor(gr.node_feat, device=dev)
     del gr
     ms, sums = {}, {}
