@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's query paths, sparse substrate, recsys and LM cells on GPU.
+"""Drive the port's query paths, sparse substrate and model cells on GPU.
 
     python3 chip_smoke.py [--n-docs N] [--seed S] [--batches N]
 
@@ -85,7 +85,7 @@ Phases (any failure exits non-zero; nothing is caught):
    4,096]`` segments, then the merge), through ``score_batch`` +
    ``ops.topk`` on the eager scorer's ``DeviceIndex`` with
    ``suggest_p_max``, and ``BM25Retriever`` end to end from texts (the
-   Zipf corpus rendered as words, cut to 100,000 documents: tokenizing
+   Zipf corpus rendered as words, cut to 50,000 documents: tokenizing
    the full 2,097,152 in Python would take most of the time budget; a
    ragged last K5 segment), the launch counts read around the three. The
    unfused board's values bitwise equal the fused K2 board's, its ids
@@ -168,10 +168,11 @@ Phases (any failure exits non-zero; nothing is caught):
    through a recovery hop) and ``stale_version`` (a typed
    ``SnapshotVersionError``), every recovered board bitwise equal to the
    saving retriever's; (d) ``DeviceRetriever(regime="auto",
-   reorder="signature")`` built on phase 3's index (host reorder seconds
-   and build seconds), then pruned batches at B = 32 and 256 on it and on
-   phase 3's retriever: ``frags_planned/pruned/skipped``, batch ms, zero
-   posting and descriptor bytes, sampled queries exact in client ids.
+   reorder="signature")`` built on (c)'s index (cut from full width: its
+   build took 106-135 s; host reorder seconds and build seconds), then
+   pruned batches at B = 32 and 256 on it and on (c)'s retriever:
+   ``frags_planned/pruned/skipped``, batch ms, zero posting and
+   descriptor bytes, sampled queries exact in client ids.
 10. after phase 6, on phase 3's index (its retriever freed): the sharded
    step on ``torch.distributed`` at world size 1 — one card runs one
    NCCL rank, so this checks the step and times its local steps; it is
@@ -277,6 +278,26 @@ Phases (any failure exits non-zero; nothing is caught):
    and ``model_flops`` (of the cut batch) over its time as a share of the
    peak of its compute dtype (989 TFLOP/s bf16 for the LM, 67 TFLOP/s
    f32 for the rest). No kernel launches: the training path reaches none.
+14. inside phase 10, on its mesh and its upload of phase 3's index (after
+   its timings, before its group is destroyed): the bm25s cells of
+   ``configs/bm25s.py`` at full width through their own functions.
+   ``score_2m`` (``make_sharded_retrieve`` over both axes, ``P_MAX``
+   16,384) on the cell's shapes: int32 ``indptr`` ``[1, 200,001]``, the
+   postings padded on the card to the cell's ``nnz_pad`` (251,658,240),
+   ``DTensor`` shards, phase 3's first batch padded to ``Q_MAX``; the
+   queries over the budget counted (nearly all at world size 1: the cell
+   as the reference defines it), 8 rows (every query under the budget
+   among them) bitwise equal to the step's plain versions on the CPU, each
+   query under the budget exact against ``ScipyBM25``.
+   ``score_blocked_2m``: phase 3's resident blocked layout padded on the
+   card to ``[4,096, 61,440]`` (the largest block's postings printed; a
+   larger block fails the phase), the batch's table padded to ``U_MAX``
+   2,048; K6 then K5; 10 sampled queries exact against ``ScipyBM25``,
+   the board tie-aware equal to phase 3's blocked board, the
+   ``sharded_topk`` variant at world size 1 bitwise equal to it. Each cell
+   prints its median ms of 5 calls after a warm-up (CUDA events) and its
+   peak device memory; the launch counts are read around the cells' own
+   calls (K5 and K6 must launch, nothing else).
 
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
@@ -299,7 +320,9 @@ merge's times); ``launches_phase11`` counts every kernel in phase 11's
 cells (K5 alone launches there), and K5 carries ``phase11_ms``
 (``ops.topk``'s ms on each arch's ``[1, 2^20]`` scores);
 ``launches_phase12`` counts every kernel in phase 12 and
-``launches_phase13`` every kernel in phase 13 (all 0).
+``launches_phase13`` every kernel in phase 13 (all 0);
+``launches_phase14`` counts every kernel in phase 14's cells, and K5 and
+K6 carry ``phase14_ms`` (each cell's median ms).
 """
 
 from __future__ import annotations
@@ -339,7 +362,7 @@ K6_TWIN_COLS = tuple(64 * c + 2 * j + c % 2 for c in range(4)
                      for j in range(32))
 TOPK_BLOCK = 4096              # ops.topk's segment: K5's block
 TOPK_ROW = 9000                # phase 2's K5 rows: ragged for 512 and 4096
-TEXT_DOCS = 100_000            # BM25Retriever's text corpus (phase 6 cut)
+TEXT_DOCS = 50_000             # BM25Retriever's text corpus (phase 6 cut)
 WORD_LETTERS = "bcdfghjklmnpqrstvwxz"   # token id -> a word (phase 6)
 REGIMES = ("auto", "gathered", "blocked", "pruned")
 N_SHARDS = 4                   # engine shards on the one card (phase 4)
@@ -384,13 +407,14 @@ FE_TIMEOUT_S = 300.0           # every future resolves within this
 REGIME_KERNEL = {"gathered": "bm25_resident_score_topk",
                  "blocked": "bm25_block_score_topk",
                  "pruned": "bm25_resident_score_topk_pruned"}
-# phase 9: K1/K3 past 512 rows, snapshots and reordering at full width
+# phase 9: K1/K3 past 512 rows and snapshots at full width, faults and
+# reordering at the small run's depth
 F3_K = 600                     # k past 512: resident blocks of 1,024 rows
 F3_SAMPLES = 20                # sampled queries held exact a regime
 # K1/K3's sampled query columns at 1,024 rows: both lanes' columns at the
 # edges of each of the four CTA column groups
 F3_TWIN_COLS = (0, 1, 62, 63, 64, 127, 128, 191, 192, 255)
-SNAP_FAULT_DOCS = 65_536       # 9c's fault lanes (cut: the small run's depth)
+SNAP_FAULT_DOCS = 65_536       # 9c's and 9d's docs (cut: the small run's)
 SNAP_FAULTS = (("snapshot.write", "torn_write"),
                ("snapshot.manifest", "manifest_corrupt"),
                ("snapshot.manifest", "stale_version"),
@@ -2094,9 +2118,10 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
                        N_VOCAB, params=idx.params)
     sdr = DeviceRetriever(sidx, block_size=DOC_BLOCK, q_max=Q_MAX,
                           device="cuda")
+    soracle = ScipyBM25(sidx)
     sqs = zipf_queries(srng, QUERY_BATCH, N_VOCAB)
     want, _ = serve(sdr, sqs, TOP_K)
-    sampled_exact(ScipyBM25(sidx), sqs, want, srng, 5)
+    sampled_exact(soracle, sqs, want, srng, 5)
     for site, kind in SNAP_FAULTS:
         path = tempfile.mkdtemp(prefix="bm25s-fault-")
         try:
@@ -2141,11 +2166,12 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
                      f"{same}"), flush=True)
         finally:
             shutil.rmtree(path, ignore_errors=True)
-    del sdr, sidx, loaded
+    del loaded
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 9d: reordering at full width -------------------------------------------
+    # -- 9d: reordering, on 9c's index (cut: a full-width reordered build
+    # took 106-135 s of the smoke's time) ----------------------------------
     host_s = {}
     real = {n: getattr(reorder, n) for n in ("signature_permutation",
                                              "permute_index")}
@@ -2163,7 +2189,7 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
     try:
         reset_transfer_stats()
         t0 = time.perf_counter()
-        rdr = DeviceRetriever(idx, regime="auto", reorder="signature",
+        rdr = DeviceRetriever(sidx, regime="auto", reorder="signature",
                               block_size=DOC_BLOCK, q_max=Q_MAX,
                               device="cuda")
         torch.cuda.synchronize()
@@ -2171,20 +2197,22 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
     finally:
         for name, fn in real.items():
             setattr(reorder, name, fn)
-    print(f"[reorder] DeviceRetriever(reorder='signature') at full width: "
+    print(f"[reorder] DeviceRetriever(reorder='signature') at "
+          f"{SNAP_FAULT_DOCS} docs: "
           f"signature_permutation {host_s['signature_permutation']:.1f} s, "
           f"permute_index {host_s['permute_index']:.1f} s (host), build "
           f"{build_s:.1f} s in all; posting bytes uploaded "
           f"{TRANSFERS.posting_bytes}", flush=True)
-    check(rdr.dindex.perm is not None, "the full-width index was reordered")
+    check(rdr.dindex.perm is not None, "the index was reordered")
     for b in REORDER_WIDTHS:
         qsb = zipf_queries(rng, b, N_VOCAB)
-        for name, r in (("unordered", dr), ("reordered", rdr)):
+        for name, r in (("unordered", sdr), ("reordered", rdr)):
             serve(r, qsb, TOP_K, "pruned")       # the bucket grows once
             reset_transfer_stats()
             res, ms = serve(r, qsb, TOP_K, "pruned")
             p = res.plan
-            worst = sampled_exact(oracle, qsb, res, rng, min(F3_SAMPLES, b))
+            worst = sampled_exact(soracle, qsb, res, rng,
+                                  min(F3_SAMPLES, b))
             print(f"[reorder] {name} pruned B={b}: frags_planned="
                   f"{p.frags_planned} frags_pruned={p.frags_pruned} "
                   f"frags_skipped={p.frags_skipped} (K3) ms={ms:.1f} "
@@ -2195,7 +2223,7 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
             check(TRANSFERS.posting_bytes == 0, f"{name} ships no postings")
             check(TRANSFERS.descriptor_bytes == 0,
                   f"{name} ships no descriptors")
-    del rdr
+    del rdr, sdr, sidx, soracle
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[snapshot] phase 9 launches {served}", flush=True)
@@ -2220,7 +2248,7 @@ def boards_tie_equal(a_ids, a_vals, b_ids, b_vals) -> bool:
     return True
 
 
-def phase_sharded(idx, oracle, rng, phase3) -> dict:
+def phase_sharded(idx, oracle, rng, phase3, phase14=None) -> dict:
     """Phase 10: the sharded step on ``torch.distributed`` at world size 1.
 
     One card can run one NCCL rank, so this is the step's plumbing and its
@@ -2238,7 +2266,11 @@ def phase_sharded(idx, oracle, rng, phase3) -> dict:
     (f) ``python -m repro_torch.launch.serve`` on the card at its defaults
     (then with ``--rescale 2``). Every board is exact against
     ``ScipyBM25`` on sampled queries and tie-aware equal to phase 3's
-    gathered board of its batch. Returns the launch counts of (c)-(d)."""
+    gathered board of its batch. With ``phase14`` (an rng, phase 3's
+    blocked layout, its batch and board), :func:`phase_cells` runs
+    after (e) on the same mesh and uploaded arrays, before the group is
+    destroyed. Returns the launch counts of (c)-(d), the times of (e) and
+    phase 14's result (None where it did not run)."""
     import os
     import shutil
     import tempfile
@@ -2372,7 +2404,14 @@ def phase_sharded(idx, oracle, rng, phase3) -> dict:
               f" + merge {times['merge']:.3f} ms (CUDA events, world size "
               f"1); launches {launches}", flush=True)
         check(launches[k5.LAUNCHES.name] > 0, "K5 launched in phase 10")
-        del arrs, steps, adaptive, ids, vals, over
+        del steps, adaptive, ids, vals, over
+        p14 = None
+        if phase14 is not None:
+            t14 = time.perf_counter()
+            p14 = phase_cells(mesh, arrs, idx, oracle, *phase14)
+            print(f"[cells] phase 14 done in "
+                  f"{time.perf_counter() - t14:.1f}s", flush=True)
+        del arrs, phase14
     finally:
         tdist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -2396,7 +2435,229 @@ def phase_sharded(idx, oracle, rng, phase3) -> dict:
         if "--rescale" not in extra:
             check(r.stdout.rstrip().endswith("degraded 0/100"),
                   "the launcher serves 100 queries, none degraded")
-    return dict(launches=launches, times=times)
+    return dict(launches=launches, times=times, phase14=p14)
+
+
+def phase_cells(mesh, arrs, idx, oracle, rng, blk, qs, res3) -> dict:
+    """Phase 14: the bm25s cells of ``configs/bm25s.py`` at full width on
+    phase 10's one-rank NCCL mesh, through their own functions.
+
+    ``score_2m``: the cell built on the mesh (``make_sharded_retrieve``
+    over both axes, ``P_MAX`` 16,384) and called on its own shapes: phase
+    10's upload of phase 3's index as int32 ``indptr`` and the postings
+    padded on the card to the cell's ``nnz_pad``, ``DTensor`` shards; the
+    256 five-token Zipf queries of phase 3's first batch padded to
+    ``Q_MAX``. At world size 1 the budget cuts nearly every query (the
+    cell as the reference defines it): the overflowed queries are counted
+    by their host budget; 8 rows (every query under the budget among
+    them) are held bitwise against the same step's plain versions on the
+    CPU (``score_batch`` over the host arrays, ``ops.topk`` through K5's
+    twin; at one shard the merge keeps that order), and each query under
+    the budget exact against ``ScipyBM25``. ``score_blocked_2m``: phase
+    3's resident blocked layout padded on the card to the cell's
+    ``[4,096, 61,440]`` (it fails if a block holds more postings), the
+    batch's table padded to ``U_MAX``; K6 then K5 (``ops.topk``); sampled
+    queries exact against ``ScipyBM25``, the board tie-aware equal to
+    phase 3's blocked board of the batch; ``sharded_topk=True`` at world
+    size 1 bitwise equal to it. Each cell: the median ms of 5 calls after
+    a warm-up (CUDA events) and the peak device memory, split into the
+    resident bytes by what holds them and the call's temporaries. The
+    launch counts are read around the cells' own calls (K5 and K6; the
+    rest 0); after them the blocked cell's parts are timed alone on its
+    operands: K6, the ``[B, n]`` layout copy, ``ops.topk`` and K5 within
+    it."""
+    from types import SimpleNamespace
+
+    import torch
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import bm25s
+    from repro_torch.core import pad_queries
+    from repro_torch.core.retrieval import topk_numpy
+    from repro_torch.core.scoring import DeviceIndex as ScoringIndex
+    from repro_torch.core.scoring import score_batch
+    from repro_torch.kernels import COUNTERS, ops
+    from repro_torch.kernels import blockwise_topk as k5
+    from repro_torch.kernels import bm25_block_score as k2
+    from repro_torch.sparse.block_csr import pack_query_batch
+
+    dev = arrs[1].to_local().device
+    toks, wts = pad_queries(qs, bm25s.Q_MAX)
+    toks_d = torch.as_tensor(toks, device=dev)
+    wts_d = torch.as_tensor(wts, device=dev)
+    out = {}
+
+    def specs_match(args, specs, what):
+        for a, s in zip(args, specs):
+            check(tuple(a.shape) == tuple(s.shape) and a.dtype == s.dtype,
+                  f"{what}: {tuple(a.shape)} {a.dtype} as the cell's "
+                  f"{tuple(s.shape)} {s.dtype}")
+
+    def measured(key, call):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ms = median_ms(call)
+        peak = torch.cuda.max_memory_allocated()
+        out[key] = dict(ms=ms, peak_bytes=peak, resident_bytes=resident)
+        return ms, peak
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    for c in COUNTERS:
+        c.reset()
+    # -- score_2m ----------------------------------------------------------
+    cell = bm25s.cells()[0]
+    fn, (spec_idx, spec_t, spec_w) = cell.build(mesh)
+    nnz_pad = spec_idx[1].shape[1]
+    local = [a.to_local() for a in arrs]
+    check(local[1].shape[1] <= nnz_pad, "the index fits the cell's nnz_pad")
+    cell_arrays = (local[0].to(torch.int32),
+                   F.pad(local[1], (0, nnz_pad - local[1].shape[1])),
+                   F.pad(local[2], (0, nnz_pad - local[2].shape[1])),
+                   *local[3:])
+    specs_match(cell_arrays, spec_idx, "score_2m index")
+    specs_match((toks_d, wts_d), (spec_t, spec_w), "score_2m queries")
+    idx_arrays = tuple(DTensor.from_local(t, mesh, arrs[0].placements,
+                                          run_check=False)
+                       for t in cell_arrays)
+    ids2, vals2 = fn(idx_arrays, toks_d, wts_d)
+    ms2, peak2 = measured("score_2m", lambda: fn(idx_arrays, toks_d, wts_d))
+    # -- score_blocked_2m --------------------------------------------------
+    cell_b = bm25s.cells()[1]
+    fn_b, spec_b = cell_b.build(mesh)
+    n_post = (blk[0] >= 0).sum(dim=1)
+    largest = int(n_post.max())
+    p_cell = spec_b[0].shape[1]
+    print(f"[cells] phase 3's blocked layout {tuple(blk[0].shape)}: the "
+          f"largest block holds {largest} postings (the cell's P "
+          f"{p_cell})", flush=True)
+    check(largest <= p_cell, f"a block holds {largest} postings, more than "
+          f"the cell's {p_cell}")
+    pad = p_cell - blk[0].shape[1]
+    blocked = (F.pad(blk[0], (0, pad), value=-1), F.pad(blk[1], (0, pad)),
+               F.pad(blk[2], (0, pad)))
+    uniq, weights = pack_query_batch(toks, wts, u_max=bm25s.U_MAX)
+    table = (torch.as_tensor(uniq, device=dev),
+             torch.as_tensor(weights, device=dev))
+    specs_match((*blocked, *table), spec_b, "score_blocked_2m")
+    ids_b, vals_b = fn_b(*blocked, *table)
+    ms_b, peak_b = measured("score_blocked_2m",
+                            lambda: fn_b(*blocked, *table))
+    fn_s, _ = bm25s._score_blocked_cell(sharded_topk=True).build(mesh)
+    shards = tuple(DTensor.from_local(t, mesh, arrs[0].placements,
+                                      run_check=False) for t in blocked)
+    ids_s, vals_s = fn_s(*shards, *table)
+    torch.cuda.synchronize()
+    launches = {c.name: c.n for c in COUNTERS}
+    print(f"[cells] launches over the cells' calls {launches}", flush=True)
+    for name in (k5.LAUNCHES.name, k2.LAUNCHES_DENSE.name):
+        check(launches[name] > 0, f"{name} launched in phase 14")
+    check(all(n == 0 for name, n in launches.items()
+              if name not in (k5.LAUNCHES.name, k2.LAUNCHES_DENSE.name)),
+          "phase 14 launches K5 and K6 only")
+
+    # -- where the blocked cell's time and memory go: its three parts on
+    # its own operands, each the median of 5 after a warm-up (CUDA events;
+    # side timings, after the launch counts were read) ----------------------
+    b = bm25s.QUERY_BATCH
+    dense = k2.bm25_block_score(*blocked, *table, block_size=bm25s.DOC_BLOCK)
+    flat = dense.permute(2, 0, 1).reshape(b, -1)
+    split = dict(
+        k6=median_ms(lambda: k2.bm25_block_score(
+            *blocked, *table, block_size=bm25s.DOC_BLOCK)),
+        layout_copy=median_ms(lambda: dense.permute(2, 0, 1).reshape(b, -1)),
+        topk=median_ms(lambda: ops.topk(flat, bm25s.TOP_K, block=4096)),
+        k5=median_ms(lambda: k5.blockwise_topk(flat, k=bm25s.TOP_K,
+                                               block=4096)))
+    split["rank_merge"] = split["topk"] - split["k5"]
+    whole = split["k6"] + split["layout_copy"] + split["topk"]
+    del dense, flat
+    print(f"[cells] score_blocked_2m's parts (median of 5, CUDA events): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f"; K6 + copy + topk {whole:.3f} ms against the cell's "
+          f"{ms_b:.3f} ms", flush=True)
+    # the bytes resident at each cell's call, by what holds them
+    held = dict(phase10_upload=nbytes(*local),
+                score_2m_padded=nbytes(*(  # the new copies among them
+                    t for t in cell_arrays[:3] if all(
+                        t.data_ptr() != u.data_ptr() for u in local))),
+                phase3_blocked=nbytes(*blk),
+                blocked_padded=nbytes(*blocked, *table))
+    memory = {}
+    for key, names in (("score_2m", ("phase10_upload", "score_2m_padded",
+                                     "phase3_blocked")),
+                       ("score_blocked_2m", tuple(held))):
+        parts = {n: held[n] for n in names}
+        parts["other_resident"] = out[key]["resident_bytes"] - sum(
+            parts.values())
+        parts["temporaries"] = (out[key]["peak_bytes"]
+                                - out[key]["resident_bytes"])
+        memory[key] = parts
+        print(f"[cells] {key}: peak {out[key]['peak_bytes'] / 1e9:.2f} GB = "
+              + " + ".join(f"{n} {v / 1e9:.2f}" for n, v in parts.items())
+              + " GB", flush=True)
+
+    # -- score_2m's checks ---------------------------------------------------
+    df = np.diff(idx.indptr)
+    need = np.where(toks >= 0, df[np.maximum(toks, 0)], 0).sum(1)
+    over = need > bm25s.P_MAX
+    under = np.flatnonzero(~over)
+    print(f"[cells] score_2m: {int(over.sum())} of {len(qs)} queries "
+          f"overflowed the {bm25s.P_MAX}-posting budget (host sum of df; "
+          f"median demand {int(np.median(need))})", flush=True)
+    check(ids2.shape == (bm25s.QUERY_BATCH, bm25s.TOP_K)
+          and bool(torch.isfinite(vals2).all()), "score_2m board")
+    rest = np.setdiff1d(np.arange(len(qs)), under)
+    rows = np.sort(np.concatenate([under, rng.choice(
+        rest, size=max(0, 8 - under.size), replace=False)]))
+    cpu_idx = ScoringIndex(*(torch.from_numpy(np.asarray(a)) for a in (
+        idx.indptr, idx.doc_ids, idx.scores, idx.nonoccurrence)),
+        n_docs=int(idx.doc_lens.size))
+    s = score_batch(cpu_idx, toks[rows], wts[rows], p_max=bm25s.P_MAX)
+    cpu_vals, cpu_ids = ops.topk(s, bm25s.TOP_K)
+    del s, cpu_idx
+    sel = torch.as_tensor(rows, device=dev)
+    same2 = (bits_equal(ids2[sel], cpu_ids)
+             and bits_equal(vals2[sel], cpu_vals))
+    print(f"[cells] score_2m rows {rows.tolist()} bitwise equal to the "
+          f"step's plain versions on the CPU {same2}", flush=True)
+    check(same2, "score_2m bitwise its CPU plain run")
+    h_ids, h_vals = ids2.cpu().numpy(), vals2.cpu().numpy()
+    worst2 = 0.0
+    for qi in under:
+        sc = oracle.score(qs[qi])
+        _, ref_v = topk_numpy(sc[None], bm25s.TOP_K)
+        np.testing.assert_allclose(h_vals[qi], ref_v[0], rtol=0,
+                                   atol=EXACT_ATOL)
+        np.testing.assert_allclose(sc[h_ids[qi]], h_vals[qi], rtol=0,
+                                   atol=EXACT_ATOL)
+        worst2 = max(worst2, float(np.abs(h_vals[qi] - ref_v[0]).max()))
+    print(f"[cells] score_2m: {under.size} queries under the budget exact "
+          f"against ScipyBM25, max |score - oracle| {worst2:.3g}; "
+          f"{ms2:.3f} ms (median of 5, CUDA events), peak "
+          f"{peak2 / 1e9:.2f} GB", flush=True)
+
+    # -- score_blocked_2m's checks -------------------------------------------
+    worst_b = sampled_exact(oracle, qs, board(ids_b, vals_b), rng,
+                            SHARD_SAMPLES)
+    same3 = boards_tie_equal(ids_b.cpu().numpy(), vals_b.cpu().numpy(),
+                             res3.ids, res3.scores)
+    same_s = bits_equal(ids_s, ids_b) and bits_equal(vals_s, vals_b)
+    print(f"[cells] score_blocked_2m: {SHARD_SAMPLES} sampled queries exact "
+          f"against ScipyBM25, max |score - oracle| {worst_b:.3g}; "
+          f"tie-aware equal to phase 3's blocked board {same3}; "
+          f"sharded_topk at world size 1 bitwise equal {same_s}; "
+          f"{ms_b:.3f} ms (median of 5, CUDA events), peak "
+          f"{peak_b / 1e9:.2f} GB", flush=True)
+    check(same3, "score_blocked_2m tie-aware equal to phase 3's board")
+    check(same_s, "sharded_topk at world size 1 == the default variant")
+    out.update(launches=launches, overflowed=int(over.sum()),
+               under_budget=int(under.size), largest_block=largest,
+               split_ms=split, memory=memory)
+    return out
 
 
 def recsys_inputs(cfg, specs, gen, *, serve: bool) -> dict:
@@ -3831,10 +4092,11 @@ def phase_train(seed: int, mesh, reddit=None) -> dict:
 
 
 def phase_bm25(args) -> tuple[list, dict]:
-    """Phases 3-6, 8-10: the BM25 query paths at full width (retriever,
-    front-end, snapshots, ladder, kernels, dense path, sharded step).
-    Returns the ``kernels`` entries of K1-K6 and phase 10's launch counts;
-    every tensor of these phases is freed on return."""
+    """Phases 3-6, 8-10 and 14: the BM25 query paths at full width
+    (retriever, front-end, snapshots, ladder, kernels, dense path, sharded
+    step, the bm25s cells). Returns the ``kernels`` entries of K1-K6 and
+    the launch counts of phases 10 and 14; every tensor of these phases is
+    freed on return."""
     import torch
 
     from repro_torch.core import BM25Params, ScipyBM25, build_index
@@ -4224,16 +4486,31 @@ def phase_bm25(args) -> tuple[list, dict]:
     kernels += phase_dense(dr, idx, oracle, rng)
     print(f"[dense] done in {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # -- phase 10: the sharded step at world size 1, the launcher ----------
+    # -- phase 10: the sharded step at world size 1, the launcher; phase 14:
+    # the bm25s cells on its mesh, on phase 3's blocked layout --------------
+    blk = (dr.dindex.blk_tok, dr.dindex.blk_loc, dr.dindex.blk_sc)
     del dr
     gc.collect()
     torch.cuda.empty_cache()
+    qs14, res14 = next((qs, res) for regime, i, qs, res in served
+                       if regime == "blocked")
+
+    from repro_torch.configs import bm25s
+    phase14 = (np.random.default_rng(args.seed + 14), blk, qs14, res14)
+    if n_docs != bm25s.N_DOCS:
+        print(f"[cells] CUT: phase 14 runs the bm25s cells at their "
+              f"{bm25s.N_DOCS} docs only; skipped at n_docs={n_docs}",
+              flush=True)
+        phase14 = None
+
     t0 = time.perf_counter()
     p10 = phase_sharded(
         idx, oracle, np.random.default_rng(args.seed + 10),
-        [(qs, res) for regime, i, qs, res in served if regime == "gathered"])
-    print(f"[sharded] phase 10 done in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+        [(qs, res) for regime, i, qs, res in served if regime == "gathered"],
+        phase14=phase14)
+    del blk, phase14
+    print(f"[sharded] phases 10 and 14 done in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     for kd in kernels:
         kd["launches_frontend"] = fe_launches[kd["name"]]
         kd["launches_phase9"] = p9["launches"][kd["name"]]
@@ -4243,7 +4520,17 @@ def phase_bm25(args) -> tuple[list, dict]:
     for kd in (kernels[0], kernels[2]):
         kd[f"bound_ms_rows{p9['rows']}_k{F3_K}"] = p9["rows_bound_ms"]
     kernels[4]["phase10_ms"] = p10["times"]                 # K5's path
-    return kernels, p10["launches"]
+    p14 = p10["phase14"]
+    if p14 is None:                                         # not run
+        return kernels, p10["launches"], None
+    for kd in kernels[4:6]:                                 # K5, K6
+        kd["phase14_ms"] = {key: p14[key]["ms"] for key in (
+            "score_2m", "score_blocked_2m")}
+    kernels[4]["phase14_split_ms"] = {                      # K5's share
+        key: p14["split_ms"][key] for key in ("k5", "topk")}
+    kernels[5]["phase14_split_ms"] = {                      # K6's share
+        key: p14["split_ms"][key] for key in ("k6", "layout_copy")}
+    return kernels, p10["launches"], p14["launches"]
 
 
 def main(argv=None) -> int:
@@ -4289,7 +4576,7 @@ def main(argv=None) -> int:
     print(f"[kernel-vs-twin] done in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
-    kernels, p10_launches = phase_bm25(args)
+    kernels, p10_launches, p14_launches = phase_bm25(args)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4333,6 +4620,8 @@ def main(argv=None) -> int:
         kd["launches_phase11"] = p11["launches"][kd["name"]]
         kd["launches_phase12"] = p12["launches"][kd["name"]]
         kd["launches_phase13"] = p13["launches"][kd["name"]]
+        kd["launches_phase14"] = (None if p14_launches is None
+                                  else p14_launches[kd["name"]])
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = kd.pop("ops") / FP32_OPS_PER_S * 1e3
         kd["bound_ms"] = max(t_bytes, t_ops)

@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port's counterpart of ``repro.configs``, over the architectures the
-port has: the LM family, EGNN and the recsys family. Each module exposes
-``CONFIG`` (exact published config), ``SMOKE`` (reduced same-family
-variant for CPU tests), ``FAMILY`` and ``cells()`` (the cells for its
-assigned input shapes). The reference's ``bm25s`` comes with its slice.
+The port's counterpart of ``repro.configs``: ten assigned architectures
+(the LM family, EGNN, the recsys family) + the paper's own (``bm25s``).
+Each module exposes ``CONFIG`` (exact published config), ``SMOKE``
+(reduced same-family variant for CPU tests), ``FAMILY`` and ``cells()``
+(the cells for its assigned input shapes).
 """
 
 from __future__ import annotations
@@ -22,7 +22,10 @@ _ARCH_MODULES = {
     "mind": "mind",
     "dlrm-mlperf": "dlrm_mlperf",
     "sasrec": "sasrec",
+    "bm25s": "bm25s",
 }
+
+ASSIGNED_ARCHS = [a for a in _ARCH_MODULES if a != "bm25s"]
 
 
 def _norm(name: str) -> str:
@@ -49,9 +52,10 @@ def get_cells(arch: str):
     return get_module(arch).cells()
 
 
-def all_cells():
+def all_cells(include_extra: bool = True):
+    archs = list(_ARCH_MODULES) if include_extra else ASSIGNED_ARCHS
     out = []
-    for a in _ARCH_MODULES:
+    for a in archs:
         out.extend(get_cells(a))
     return out
 

@@ -50,6 +50,11 @@ class Cell:
     note: str = ""
     remesh: Callable | None = None  # (mesh) -> mesh: logical re-mesh of the
                                     # SAME devices (perf variants only)
+    partitioned: bool = False       # the step is one rank's program over
+                                    # DTensor shards (it issues its own
+                                    # collectives)
+    count_bound: str = ""           # what a data-dependent size is counted
+                                    # at by the dry run ("" = exact)
 
     @property
     def key(self) -> str:

@@ -3,10 +3,11 @@
 The port's counterpart of ``repro.core.retrieval``: the numpy half
 (planner, sanitizer, default-document ids, host top-k and merges) is
 copied; :func:`splice_default_docs` is torch. The sharded step
-(:func:`make_sharded_retrieve`, :func:`sharded_retrieve_adaptive`,
-:func:`stack_shard_arrays`) runs the reference's ``shard_map`` step on a
-``torch.distributed`` device mesh: a local score and top-k on each rank's
-shard, an all-gather of the candidates, a global merge.
+(:func:`make_sharded_retrieve` over :func:`sharded_topk_step`,
+:func:`sharded_retrieve_adaptive`, :func:`stack_shard_arrays`) runs the
+reference's ``shard_map`` step on a ``torch.distributed`` device mesh: a
+local score and top-k on each rank's shard, an all-gather of the
+candidates, a global merge.
 
 **The tie rule.** Every board the port returns is ordered by score
 descending, then document id ascending (:func:`rank_order`). The
@@ -595,6 +596,58 @@ def _local(x) -> torch.Tensor:
     return x.to_local() if isinstance(x, DTensor) else x
 
 
+def shard_id(mesh, shard_axes: tuple[str, ...]) -> int:
+    """This rank's shard id: its mesh coordinate over ``shard_axes``,
+    row-major in the mesh's order (the leading index of its block in the
+    arrays :func:`stack_shard_arrays` stacks)."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    sid = 0
+    for a in shard_axes:
+        d = names.index(a)
+        sid = sid * int(mesh.shape[d]) + int(coord[d])
+    return sid
+
+
+def sharded_topk_step(mesh, shard_axes: tuple[str, ...], local_topk, *,
+                      k: int):
+    """The sharded step's skeleton: a top-k a rank, one all-gather of the
+    candidates, the global merge.
+
+    ``step(*args)`` replaces every ``DTensor`` among ``args`` (nested
+    tuples and lists too) by the rank's own shard and calls
+    ``local_topk(sid, *args)``, ``sid`` being :func:`shard_id`. That
+    returns the rank's ``[B, kk]`` GLOBAL ids (the step's own rule: a
+    stacked offsets array, or ``sid`` times the shard's width) and
+    scores, and ``[B]`` overflow flags or None; the step all-gathers them
+    over the shard axes' group and returns the top ``k`` of the
+    ``[B, shards · kk]`` candidates by :func:`rank_order`, and the flags
+    OR-ed (None if the local step had none) — the same on every rank.
+
+    A ``cuda`` mesh needs an NCCL group and a ``cpu`` mesh a gloo one
+    (``ValueError`` otherwise). Every rank of the default group must build
+    the step (several shard axes create their flattened group
+    collectively); only the mesh's ranks call it.
+    """
+    from torch.utils._pytree import tree_map
+
+    from ..launch.mesh import check_mesh_backend
+
+    shard_axes = tuple(shard_axes)
+    n_shards = math.prod(_mesh_sizes(mesh, shard_axes))
+    check_mesh_backend(mesh.device_type)
+    flat_group = _shard_group(mesh, shard_axes)
+
+    def step(*args):
+        gidx, vals, over = local_topk(shard_id(mesh, shard_axes),
+                                      *tree_map(_local, args))
+        group = (mesh.get_group(shard_axes[0]) if flat_group is None
+                 else flat_group)
+        return _all_gather_merge(gidx, vals, over, group, n_shards, k)
+
+    return step
+
+
 def make_sharded_retrieve(mesh, shard_axes: tuple[str, ...], *, p_max: int,
                           k: int, n_docs_per_shard: int,
                           return_overflow: bool = False,
@@ -616,12 +669,11 @@ def make_sharded_retrieve(mesh, shard_axes: tuple[str, ...], *, p_max: int,
     The local step is the port's fixed-order ``score_batch`` over the
     shard (docs at or past the shard's real count masked to the float
     minimum) and ``kernels.ops.topk`` of ``min(k, n_docs_per_shard)``
-    (K5 past 4,096 documents); ``gathered=True`` swaps in
-    :func:`_device_gathered_topk`, whose overflow flag is batch-global.
-    The merge all-gathers each shard's ``[B, kk]`` ids, scores and flags
-    in one tensor over the shard axes' group and ranks the ``shards × kk``
-    candidates by :func:`rank_order`. ``k`` larger than ``shards × kk``
-    raises ``ValueError``.
+    (K5 past 4,096 documents), its ids offset by the shard's stacked
+    ``offsets``; ``gathered=True`` swaps in :func:`_device_gathered_topk`,
+    whose overflow flag is batch-global. The gather and the merge are
+    :func:`sharded_topk_step`'s. ``k`` larger than ``shards × kk`` raises
+    ``ValueError``.
 
     A ``cuda`` mesh needs an NCCL group and a ``cpu`` mesh a gloo one
     (``ValueError`` otherwise): nothing is copied to the host to make a
@@ -630,19 +682,16 @@ def make_sharded_retrieve(mesh, shard_axes: tuple[str, ...], *, p_max: int,
     the mesh's ranks call it.
     """
     from ..kernels import ops
-    from ..launch.mesh import check_mesh_backend
     from .scoring import DeviceIndex, score_batch
 
     shard_axes = tuple(shard_axes)
     n_shards = math.prod(_mesh_sizes(mesh, shard_axes))
-    check_mesh_backend(mesh.device_type)
-    flat_group = _shard_group(mesh, shard_axes)
     kk = min(k, n_docs_per_shard)
     neg = torch.finfo(torch.float32).min
 
-    def local_score_topk(idx_arrays, toks, wts):
+    def local_score_topk(_sid, idx_arrays, toks, wts):
         indptr, doc_ids, scores, nonocc, offsets, counts = (
-            _local(x)[0] for x in idx_arrays)
+            x[0] for x in idx_arrays)
         if gathered:
             gidx, vals, over = _device_gathered_topk(
                 indptr, doc_ids, scores, nonocc, toks, wts, counts[0],
@@ -655,10 +704,13 @@ def make_sharded_retrieve(mesh, shard_axes: tuple[str, ...], *, p_max: int,
                               return_overflow=True)        # [B, n_local]
         # docs past the shard's REAL count exist only as stacking padding
         # (uneven shards): a padded doc would score the bare shift and
-        # could displace real winners — mask before selecting
-        s[:, int(counts[0]):] = neg
+        # could displace real winners — mask before selecting (a trace on
+        # ``meta`` tensors has no count: it masks at the bound, every doc)
+        s[:, 0 if s.is_meta else int(counts[0]):] = neg
         vals, local_idx = ops.topk(s, kk)
         return local_idx + offsets.to(torch.int32), vals, over
+
+    step = sharded_topk_step(mesh, shard_axes, local_score_topk, k=k)
 
     def retrieve(idx_arrays, q_tokens, q_weights):
         if k > n_shards * kk:
@@ -667,11 +719,7 @@ def make_sharded_retrieve(mesh, shard_axes: tuple[str, ...], *, p_max: int,
         dev = _local(idx_arrays[0]).device
         toks = torch.as_tensor(q_tokens).to(dev, torch.int64)
         wts = torch.as_tensor(q_weights).to(dev, torch.float32)
-        gidx, vals, over = local_score_topk(idx_arrays, toks, wts)
-        group = (mesh.get_group(shard_axes[0]) if flat_group is None
-                 else flat_group)
-        ids, mvals, over = _all_gather_merge(gidx, vals, over, group,
-                                             n_shards, k)
+        ids, mvals, over = step(idx_arrays, toks, wts)
         if return_overflow:
             return ids, mvals, over
         return ids, mvals
@@ -681,24 +729,26 @@ def make_sharded_retrieve(mesh, shard_axes: tuple[str, ...], *, p_max: int,
 
 def _all_gather_merge(gidx, vals, over, group, n_shards: int, k: int):
     """The sharded step's merge: every shard's ``[B, kk]`` ids and scores
-    and ``[B]`` flags, all-gathered in one int32 tensor over ``group``,
-    then the top ``k`` of the ``[B, n_shards · kk]`` candidates by
-    :func:`rank_order` and the flags OR-ed. The same on every rank."""
+    and ``[B]`` flags (when it has them), all-gathered in one int32 tensor
+    over ``group``, then the top ``k`` of the ``[B, n_shards · kk]``
+    candidates by :func:`rank_order` and the flags OR-ed (None for None).
+    The same on every rank."""
     import torch.distributed as tdist
 
     b, kk = gidx.shape
-    packed = torch.cat([gidx.to(torch.int32),
-                        vals.contiguous().view(torch.int32),
-                        over.to(torch.int32)[:, None]], dim=1)
+    cols = [gidx.to(torch.int32), vals.contiguous().view(torch.int32)]
+    if over is not None:
+        cols.append(over.to(torch.int32)[:, None])
+    packed = torch.cat(cols, dim=1)
     parts = [torch.empty_like(packed) for _ in range(n_shards)]
     tdist.all_gather(parts, packed, group=group)
-    allp = torch.stack(parts, dim=1)                      # [B, S, 2kk + 1]
+    allp = torch.stack(parts, dim=1)              # [B, S, 2kk (+ 1)]
     alli = allp[..., :kk].reshape(b, -1)
     allv = allp[..., kk:2 * kk].contiguous().view(torch.float32
                                                   ).reshape(b, -1)
     sel = rank_order(allv, alli)[:, :k]
     return (torch.gather(alli, 1, sel), torch.gather(allv, 1, sel),
-            allp[..., -1].any(dim=1))
+            None if over is None else allp[..., -1].any(dim=1))
 
 
 def sharded_retrieve_adaptive(mesh, shard_axes: tuple[str, ...], *, k: int,

@@ -187,17 +187,26 @@ def _flatten_postings(indptr: torch.Tensor, q_tokens: torch.Tensor,
     of the query do not fit. Callers must surface ``total > p_max`` as an
     overflow flag, otherwise the truncation is undetectable score
     corruption.
+
+    On ``meta`` tensors (a trace, which has no data) every query takes
+    its whole budget: ``S = c · p_max`` slots in one pass, the static
+    bound of the sizes above.
     """
     c, q = q_tokens.shape
     starts, kept, _ = _run_lengths(indptr, q_tokens, p_max)
     flat = kept.t().reshape(-1)                         # (position, query)
     ends = torch.cumsum(flat, 0)                        # inclusive
-    slot = torch.arange(int(ends[-1]) if q else 0, device=indptr.device)
+    if indptr.is_meta:
+        n_slots = c * p_max if q else 0
+    else:
+        n_slots = int(ends[-1]) if q else 0
+    slot = torch.arange(n_slots, device=indptr.device)
     # the run of each slot: the first whose end is past it (a binary search
     # a slot; repeat_interleave walks each run in one thread)
     owner = torch.searchsorted(ends, slot, right=True)
     pos = (starts.t().reshape(-1) - (ends - flat))[owner] + slot
-    ends = torch.cumsum(kept.sum(dim=0), 0).tolist()
+    ends = ([n_slots] if indptr.is_meta
+            else torch.cumsum(kept.sum(dim=0), 0).tolist())
     return owner % c, pos, q_weights.t().reshape(-1)[owner], ends
 
 
@@ -226,13 +235,17 @@ def score_batch(index: DeviceIndex, q_tokens, q_weights, *, p_max: int,
     queries whose posting demand exceeded ``p_max`` (their scores miss the
     dropped postings — re-run with a larger budget or log the
     degradation; see ``BM25Retriever.retrieve``).
+
+    On ``meta`` tensors (a trace) every query gathers its whole ``p_max``
+    budget: the step's sizes at their static bound, ``B · p_max`` slots.
     """
     toks, wts = _query_tables(index, q_tokens, q_weights)
     b = toks.shape[0]
     n = index.n_docs
     out = torch.zeros((b, n), dtype=torch.float32, device=index.device)
     _, kept, total = _run_lengths(index.indptr, toks, p_max)
-    per_query = kept.sum(dim=1).tolist()
+    per_query = ([p_max] * b if index.indptr.is_meta
+                 else kept.sum(dim=1).tolist())
     b0 = 0
     while b0 < b:
         b1, slots = b0 + 1, per_query[b0]

@@ -25,12 +25,14 @@ covers boards, so the hot path does not look for it.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..core.retrieval import rank_order
 from . import _build
+from .meta import MetaOp
 
 LAUNCHES = _build.LaunchCounter("blockwise_topk")
 
@@ -81,6 +83,27 @@ def blockwise_topk_plain(x, *, k: int, block: int | None = None
     return out_v, out_i
 
 
+def _fake(x, k: int, block: int):
+    r, n = x.shape
+    nb = -(-n // block)
+    return (x.new_empty((r * nb, k)),
+            x.new_empty((r * nb, k), dtype=torch.int32))
+
+
+def cost(x_shape, k: int, block: int) -> tuple[float, float]:
+    """A call's (operations, bytes) for the dry run, by the reference's
+    top-k rule (``repro/launch/costs.py``, so that the two dry runs
+    compare): ``n · log2 n`` over the ``n`` entries of ``x``, and twice
+    their bytes."""
+    n = float(math.prod(x_shape))
+    return n * max(math.log2(max(n, 2.0)), 1.0), 2.0 * 4 * n
+
+
+META = MetaOp("blockwise_topk",
+              "(Tensor x, int k, int block) -> (Tensor, Tensor)", _fake,
+              cost)
+
+
 def _fn(lib):
     f = lib.blockwise_topk_launch
     if f.argtypes is None:
@@ -99,13 +122,17 @@ def blockwise_topk(x, *, k: int, block: int | None = None
     descending, segments of ``block`` entries (default ``n``).
 
     A CPU tensor runs the plain twin; a CUDA tensor launches the kernel
-    (and raises if it cannot): there is no fall-back between the two.
+    (and raises if it cannot): there is no fall-back between the two. A
+    ``meta`` tensor (a trace) runs neither: :data:`META` gives the
+    outputs' shapes.
     """
     block = x.shape[-1] if block is None else block
     _check(x, k, block)
     dev = x.device
     if dev.type == "cpu":
         return blockwise_topk_plain(x, k=k, block=block)
+    if dev.type == "meta":
+        return META(x, k, block)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     r, n = x.shape

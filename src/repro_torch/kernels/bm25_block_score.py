@@ -24,6 +24,7 @@ import torch
 
 from ..core.retrieval import rank_order
 from . import _build
+from .meta import MetaOp
 
 LAUNCHES = _build.LaunchCounter("bm25_block_score_topk")
 LAUNCHES_DENSE = _build.LaunchCounter("bm25_block_score")
@@ -193,6 +194,31 @@ def bm25_block_score_topk(token_ids, local_doc, scores, uniq_tokens,
     return out_v, out_i
 
 
+def _dense_fake(token_ids, local_doc, scores, uniq_tokens, weights,
+                block_size: int):
+    return weights.new_empty((token_ids.shape[0], block_size,
+                              weights.shape[1]))
+
+
+def dense_cost(tok_shape, loc_shape, sc_shape, uniq_shape, w_shape,
+               block_size: int) -> tuple[float, float]:
+    """K6's (operations, bytes) a call for the dry run, bounded by shapes:
+    every slot's token, row and score (12 bytes) read once, the table and
+    the weights read once, the ``[nb, block_size, B]`` f32 output written
+    once; ``2 · B`` operations a matched slot, counted for every slot
+    (``2 · nb · P · B``), since every slot may match."""
+    nb, p = tok_shape
+    u, b = w_shape
+    return (2.0 * nb * p * b,
+            12.0 * nb * p + 4.0 * u + 4.0 * u * b + 4.0 * nb * block_size * b)
+
+
+DENSE_META = MetaOp(
+    "bm25_block_score",
+    "(Tensor token_ids, Tensor local_doc, Tensor scores, Tensor uniq_tokens,"
+    " Tensor weights, int block_size) -> Tensor", _dense_fake, dense_cost)
+
+
 def bm25_block_score(token_ids, local_doc, scores, uniq_tokens, weights, *,
                      block_size: int) -> torch.Tensor:
     """K6: blocked postings × ``[U, B]`` query table → dense
@@ -200,11 +226,13 @@ def bm25_block_score(token_ids, local_doc, scores, uniq_tokens, weights, *,
 
     A CPU tensor runs the plain twin, :func:`block_accumulate` (bitwise the
     kernel's sums); a CUDA tensor launches the kernel (and raises if it
-    cannot): there is no fall-back between the two. Postings may come in
-    any order within a block; blocks whose tokens ascend (the layout
-    ``block_postings_from_coo`` builds) take the kernel's fast path, which
-    reads only the postings the table matches. The table may have any
-    number of rows: the kernel searches it 2,048 rows at a time.
+    cannot): there is no fall-back between the two. A ``meta`` tensor (a
+    trace) runs neither: :data:`DENSE_META` gives the output's shape.
+    Postings may come in any order within a block; blocks whose tokens
+    ascend (the layout ``block_postings_from_coo`` builds) take the
+    kernel's fast path, which reads only the postings the table matches.
+    The table may have any number of rows: the kernel searches it 2,048
+    rows at a time.
     """
     _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
                     block_size)
@@ -212,6 +240,9 @@ def bm25_block_score(token_ids, local_doc, scores, uniq_tokens, weights, *,
     if dev.type == "cpu":
         return block_accumulate(token_ids, local_doc, scores, uniq_tokens,
                                 weights, block_size=block_size)
+    if dev.type == "meta":
+        return DENSE_META(token_ids, local_doc, scores, uniq_tokens, weights,
+                          block_size)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     nb, p = token_ids.shape

@@ -6,7 +6,8 @@ device. The caller initialises the default group first
 (``torch.distributed.init_process_group`` with its address, world size
 and rank); a ``cuda`` mesh needs an NCCL group and a ``cpu`` mesh a gloo
 one (:func:`check_mesh_backend`), so a collective never copies a card's
-tensors to the host behind the caller's back.
+tensors to the host behind the caller's back. The dry run's ``fake``
+group, which moves no data, serves either.
 
 Single pod: 16×16 = 256 ranks, axes ("data", "model"). Multi-pod: 2×16×16
 = 512 ranks, axes ("pod", "data", "model") — "pod" is pure data
@@ -37,7 +38,8 @@ def mesh_shape(n: int, *, max_model: int = 16) -> tuple[int, int]:
 def check_mesh_backend(device_type: str, group=None) -> None:
     """Raise ``ValueError`` unless ``group``'s backend (default: the
     default group's) serves tensors of ``device_type``: NCCL for ``cuda``,
-    gloo for ``cpu``."""
+    gloo for ``cpu``. A ``fake`` group (the dry run's, which moves no
+    data) serves either."""
     import torch.distributed as tdist
 
     need = _BACKEND.get(device_type)
@@ -45,6 +47,8 @@ def check_mesh_backend(device_type: str, group=None) -> None:
         raise ValueError(f"unknown mesh device type {device_type!r}; "
                          f"expected one of {sorted(_BACKEND)}")
     backend = str(tdist.get_backend(group))
+    if backend == "fake":
+        return
     if ":" in backend:              # e.g. "cpu:gloo,cuda:nccl"
         have = dict(p.split(":") for p in backend.split(",")).get(
             device_type)

@@ -35,9 +35,9 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["autoint", "mind", "dlrm-mlperf", "sasrec"]
 LM_ARCHS = ["h2o-danube3-4b", "gemma3-1b", "qwen3-8b", "mixtral-8x22b",
             "mixtral-8x7b"]
-# the reference's archs the port does not have yet: ROADMAP §1 queues
-# them (bm25s, with the launch tooling)
-QUEUED = {"bm25s"}
+# the reference's archs the port does not have yet (ROADMAP §1 would queue
+# them): none since the bm25s cells came
+QUEUED = set()
 MESHES = [(1, 1), (1, 8), (2, 4), (3, 2)]
 DTYPES = {jnp.dtype(jnp.float32): torch.float32,
           jnp.dtype(jnp.int32): torch.int32,
@@ -71,10 +71,12 @@ def _ref_leaves(tree):
 
 
 def test_registry_lists_the_recsys_family():
-    """The LM family, EGNN, then the recsys family, in the reference's
-    order."""
+    """The LM family, EGNN, the recsys family, then bm25s, in the
+    reference's order."""
     assert configs.list_archs() == LM_ARCHS + ["egnn", "autoint", "mind",
-                                               "dlrm-mlperf", "sasrec"]
+                                               "dlrm-mlperf", "sasrec",
+                                               "bm25s"]
+    assert configs.ASSIGNED_ARCHS == ref_configs.ASSIGNED_ARCHS
     assert configs.list_archs() == [a for a in ref_configs.list_archs()
                                     if a not in QUEUED]
     for arch in ARCHS + LM_ARCHS:
@@ -91,12 +93,12 @@ def test_registry_lists_the_recsys_family():
 
 def test_unknown_arch_raises_the_reference_error():
     with pytest.raises(ValueError) as port:
-        configs.get_config("bm25s")
+        configs.get_config("bm25")
     with pytest.raises(ValueError) as ref:
-        ref_configs.get_config("nope")
-    assert str(port.value) == (f"unknown arch 'bm25s'; available: "
+        ref_configs.get_config("bm25")
+    assert str(port.value) == (f"unknown arch 'bm25'; available: "
                                f"{sorted(configs.list_archs())}")
-    assert str(ref.value).startswith("unknown arch 'nope'; available: [")
+    assert str(port.value) == str(ref.value)
 
 
 def test_missing_archs_are_the_queued_ones():
@@ -156,14 +158,19 @@ def test_cells_equal_the_reference_at_full_width(arch):
 
 
 def test_all_cells_and_model_flops():
-    keys = [c.key for c in configs.all_cells()]
+    keys = [c.key for c in configs.all_cells(include_extra=False)]
     # 4 recsys archs × 4 cells; 5 LM archs × 4, but qwen3-8b skips
     # long_500k; EGNN's 4 shapes
     assert len(keys) == 16 + 19 + 4 == len(set(keys))
-    ref_keys = {c.key for c in ref_configs.all_cells()}
-    assert set(keys) <= ref_keys
-    assert ref_keys - set(keys) == {c.key for c in
-                                    ref_configs.get_cells("bm25s")}
+    assert keys == [c.key for c in
+                    ref_configs.all_cells(include_extra=False)]
+    # with the two bm25s cells: 41 cells over 11 archs, the reference's
+    every = configs.all_cells()
+    assert [c.key for c in every] == [c.key for c in
+                                      ref_configs.all_cells()]
+    assert len(every) == 41 and len({c.arch for c in every}) == 11
+    assert set(keys) == {c.key for c in every} - {
+        c.key for c in ref_configs.get_cells("bm25s")}
     from repro.configs import common as ref_common
     for arch in ARCHS:
         cfg = configs.get_config(arch)

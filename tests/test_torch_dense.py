@@ -113,6 +113,14 @@ def test_k6_rejects_bad_operands():
         k6.bm25_block_score(di.blk_tok, di.blk_loc[:, :-1], di.blk_sc,
                             torch.as_tensor(tab), torch.as_tensor(w),
                             block_size=BLOCK)
-    with pytest.raises(ValueError, match="unsupported device"):
+    # a meta tensor (the dry run's trace) gets the output's shape, and is
+    # checked as any other operand
+    out = k6.bm25_block_score(*(t.to("meta") for t in args),
+                              torch.as_tensor(w).to("meta"),
+                              block_size=BLOCK)
+    assert out.shape == (di.blk_tok.shape[0], BLOCK, w.shape[1])
+    assert out.device.type == "meta" and out.dtype == torch.float32
+    with pytest.raises(TypeError):
         k6.bm25_block_score(*(t.to("meta") for t in args),
-                            torch.as_tensor(w).to("meta"), block_size=BLOCK)
+                            torch.as_tensor(w).double().to("meta"),
+                            block_size=BLOCK)

@@ -3,9 +3,12 @@
 * ``import repro_torch`` (and every subpackage, ``dist``, ``launch`` with
   ``train``, ``kernels.ref``, ``models`` with ``transformer`` and
   ``egnn``, ``serve`` with ``decode_engine``, ``train`` with each of its
-  modules, and ``configs`` with each config module, the LM ones and
-  EGNN's among them) leaves ``jax`` out of ``sys.modules``, and
-  importing ``launch.mesh`` starts no process group;
+  modules, ``configs`` with each config module, the LM ones, EGNN's and
+  bm25s's among them, and the dry run's ``launch.costs``,
+  ``launch.dryrun`` and ``launch.report``) leaves ``jax`` out of
+  ``sys.modules``, importing ``launch.mesh`` starts no process group,
+  and importing the dry run sets no environment variable, starts no
+  group and registers no op;
 * an AST scan finds no import of ``jax`` or ``repro`` in any module of
   ``src/repro_torch``, in ``chip_smoke.py`` or in ``tools/``, and no
   ``sys.modules.get`` of a ``repro.`` module (the fault sites peek at
@@ -79,9 +82,12 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.train.step, repro_torch.train.grad_compress, "
             "repro_torch.train.checkpoint, repro_torch.train.loop, "
             "repro_torch.models.egnn, repro_torch.configs.egnn, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.configs.bm25s, "
+            "repro_torch.kernels.meta, repro_torch.launch.costs, "
+            "repro_torch.launch.dryrun, repro_torch.launch.report\n"
             "from repro_torch.configs import all_cells, get_cells\n"
-            "for c in all_cells():\n    c.build(None)\n"
+            "for c in all_cells(include_extra=False):\n    c.build(None)\n"
+            "get_cells('bm25s')[1].build(None)\n"
             "from repro_torch.convert import recsys_params_from_reference\n"
             "from repro_torch.convert import lm_params_from_reference\n"
             "from repro_torch.convert import (egnn_params_from_reference, "
@@ -99,6 +105,24 @@ def test_import_leaves_jax_out_of_sys_modules():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\nprint('clean')")
+    r = _run(["-c", code], cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
+def test_the_dry_run_changes_nothing_on_import():
+    """Importing the dry run, its counter and its report sets no
+    environment variable, starts no process group and registers no op;
+    the dry run's ``fake`` group lives only inside ``main()``."""
+    code = ("import os, torch, torch.distributed as d\n"
+            "env = dict(os.environ)\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.costs\n"
+            "import repro_torch.launch.report, repro_torch.configs.bm25s\n"
+            "import repro_torch.kernels.meta\n"
+            "assert dict(os.environ) == env\n"
+            "assert not d.is_initialized()\n"
+            "assert not hasattr(torch.ops.repro_torch, 'blockwise_topk')\n"
+            "print('clean')")
     r = _run(["-c", code], cwd=ROOT)
     assert r.returncode == 0, r.stderr
     assert "clean" in r.stdout

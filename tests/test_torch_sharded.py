@@ -354,7 +354,7 @@ PORT_SCRIPT = textwrap.dedent("""
                         tuple(z.to_local().shape))
         from repro_torch import configs as port_configs
         res["recsys"], res["lm"], res["gnn"] = {}, {}, {}
-        for arch in port_configs.list_archs():
+        for arch in port_configs.ASSIGNED_ARCHS:
             family = port_configs.get_module(arch).FAMILY
             for cell in port_configs.get_cells(arch):
                 _, args = cell.build(mesh)

@@ -164,5 +164,12 @@ def test_k5_rejects_bad_operands():
         k5.blockwise_topk(torch.zeros((2, 64), dtype=torch.float64), k=1)
     with pytest.raises(ValueError):
         k5.blockwise_topk(torch.zeros(64), k=1)
-    with pytest.raises(ValueError, match="unsupported device"):
-        k5.blockwise_topk(torch.zeros((2, 64), device="meta"), k=1)
+    # a meta tensor (the dry run's trace) gets the outputs' shapes, and
+    # is checked as any other operand
+    v, i = k5.blockwise_topk(torch.zeros((2, 64), device="meta"), k=3,
+                             block=16)
+    assert v.shape == i.shape == (8, 3) and i.dtype == torch.int32
+    assert v.device.type == i.device.type == "meta"
+    with pytest.raises(TypeError):
+        k5.blockwise_topk(torch.zeros((2, 64), dtype=torch.float64,
+                                      device="meta"), k=1)
