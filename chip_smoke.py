@@ -296,8 +296,25 @@ Phases (any failure exits non-zero; nothing is caught):
    the board tie-aware equal to phase 3's blocked board, the
    ``sharded_topk`` variant at world size 1 bitwise equal to it. Each cell
    prints its median ms of 5 calls after a warm-up (CUDA events) and its
-   peak device memory; the launch counts are read around the cells' own
-   calls (K5 and K6 must launch, nothing else).
+   peak device memory. Then the hillclimb's bf16 variants through the
+   same cell function (``sharded_topk``, bf16 scores and weights):
+   ``topk2stage_bf16`` (B = 256, ``U_MAX``) and ``topk2stage_bf16_b1024``
+   (B = 1,024 fresh queries of phase 3's generator, ``u_max`` 4,096,
+   beside the f32 cell at the same B): each board's values bitwise
+   ``torch.topk`` of the bf16 K6 output, its ids tie-aware (each carries
+   its value), every id's f32 score at least the f32 cell's 100th less
+   2^-6 x the query's top score; K6-bf16 and K5-bf16 bitwise their CPU
+   twins on a slice of blocks and rows; each cell's median ms beside the
+   f32 cell's, K6-bf16's and K5-bf16's alone, and in turns with
+   ``torch.sparse.mm`` (bf16 CSR) and ``torch.topk``. The launch counts
+   are read around the cells' own calls (K5 and K6, f32 and bf16, must
+   launch, nothing else);
+15. the LM path partitioned on DTensor placements over the one-rank
+   NCCL mesh (``dist.sharding.partitioned``, after phase 13): one
+   gemma3-1b ``decode_32k`` step at full width and one step of phase
+   13's cut ``train_4k``, each bitwise equal to the same cell's function
+   on plain tensors (logits and every cache layer; loss, params and
+   moments), each partitioned step timed beside the plain one.
 
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
@@ -322,7 +339,10 @@ cells (K5 alone launches there), and K5 carries ``phase11_ms``
 ``launches_phase12`` counts every kernel in phase 12 and
 ``launches_phase13`` every kernel in phase 13 (all 0);
 ``launches_phase14`` counts every kernel in phase 14's cells, and K5 and
-K6 carry ``phase14_ms`` (each cell's median ms).
+K6 carry ``phase14_ms`` (each cell's median ms); the last two entries are
+K5-bf16 and K6-bf16 (phase 14's, at B = 256; ``ms_b1024`` at B = 1,024;
+they are left out when phase 14 is cut); ``launches_phase15`` counts
+every kernel in phase 15 (all 0).
 """
 
 from __future__ import annotations
@@ -529,10 +549,16 @@ def device_ms(fn, reps: int) -> float:
 
 
 def bits_equal(a, b) -> bool:
+    """Bit for bit, compared where both lie (on the host if they lie on
+    different devices)."""
     import torch
-    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
+    a, b = a.contiguous(), b.contiguous()
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
@@ -2550,14 +2576,16 @@ def phase_cells(mesh, arrs, idx, oracle, rng, blk, qs, res3) -> dict:
     shards = tuple(DTensor.from_local(t, mesh, arrs[0].placements,
                                       run_check=False) for t in blocked)
     ids_s, vals_s = fn_s(*shards, *table)
+    bf = bf16_cells_run(mesh, blocked, table, arrs[0].placements, rng)
     torch.cuda.synchronize()
     launches = {c.name: c.n for c in COUNTERS}
     print(f"[cells] launches over the cells' calls {launches}", flush=True)
-    for name in (k5.LAUNCHES.name, k2.LAUNCHES_DENSE.name):
+    path = (k5.LAUNCHES.name, k2.LAUNCHES_DENSE.name, k5.LAUNCHES_BF16.name,
+            k2.LAUNCHES_DENSE_BF16.name)
+    for name in path:
         check(launches[name] > 0, f"{name} launched in phase 14")
-    check(all(n == 0 for name, n in launches.items()
-              if name not in (k5.LAUNCHES.name, k2.LAUNCHES_DENSE.name)),
-          "phase 14 launches K5 and K6 only")
+    check(all(n == 0 for name, n in launches.items() if name not in path),
+          "phase 14 launches K5 and K6 (f32 and bf16) only")
 
     # -- where the blocked cell's time and memory go: its three parts on
     # its own operands, each the median of 5 after a warm-up (CUDA events;
@@ -2657,7 +2685,227 @@ def phase_cells(mesh, arrs, idx, oracle, rng, blk, qs, res3) -> dict:
     out.update(launches=launches, overflowed=int(over.sum()),
                under_budget=int(under.size), largest_block=largest,
                split_ms=split, memory=memory)
+    out["bf16"], out["bf16_kernels"] = bf16_cells_check(
+        bf, blocked, vals_b, ms_b, launches)
     return out
+
+
+def bf16_cells_run(mesh, blocked, table, placements, rng) -> dict:
+    """Phase 14's bf16 cells, their own calls (the counted path): the
+    hillclimb's ``topk2stage_bf16`` (``sharded_topk``, bf16 scores and
+    weights, B = 256, ``U_MAX``) and ``topk2stage_bf16_b1024`` (B =
+    1,024, ``u_max`` 4,096, 1,024 fresh queries of phase 3's generator),
+    through the port's cell functions on phase 10's one-rank mesh, on
+    phase 3's blocked layout with its scores in bf16; and the f32
+    ``sharded_topk`` cell at B = 1,024 (its board is the check's
+    reference). Each cell: its board, and the median ms of 5 calls after
+    a warm-up (CUDA events)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import bm25s
+    from repro_torch.core import pad_queries
+    from repro_torch.sparse.block_csr import pack_query_batch
+
+    bf = torch.bfloat16
+    dev = blocked[0].device
+    qs = zipf_queries(rng, BF16_WIDE["batch"], N_VOCAB)
+    toks, wts = pad_queries(qs, bm25s.Q_MAX)
+    uniq, weights = pack_query_batch(toks, wts, u_max=BF16_WIDE["u_max"])
+    wide = (torch.as_tensor(uniq, device=dev),
+            torch.as_tensor(weights, device=dev))
+    blocked16 = (*blocked[:2], blocked[2].to(bf))
+
+    def shards(ts):
+        return tuple(DTensor.from_local(t, mesh, placements, run_check=False)
+                     for t in ts)
+
+    out = {"blocked16": blocked16, "queries_b1024": len(qs),
+           "uniq_b1024": int((wide[0] < 2**31 - 1).sum())}
+    for name, kw, tab, dt in (
+            ("topk2stage_bf16", {}, table, bf),
+            ("topk2stage_bf16_b1024", BF16_WIDE, wide, bf),
+            ("topk2stage_b1024", BF16_WIDE, wide, torch.float32)):
+        fn, specs = bm25s._score_blocked_cell(
+            sharded_topk=True, score_dtype=dt, **kw).build(mesh)
+        args = (*shards(blocked16 if dt == bf else blocked), tab[0],
+                tab[1].to(dt))
+        for a, spec in zip(args, specs):
+            check(tuple(a.shape) == tuple(spec.shape)
+                  and a.dtype == spec.dtype, f"{name}: {tuple(a.shape)} "
+                  f"{a.dtype} as the cell's {tuple(spec.shape)} "
+                  f"{spec.dtype}")
+        ids, vals = fn(*args)
+        ms = median_ms(lambda: fn(*args))
+        out[name] = dict(ids=ids, vals=vals, ms=ms, table=tab,
+                         batch=kw.get("batch", bm25s.QUERY_BATCH))
+    return out
+
+
+def bf16_cells_check(bf, blocked, vals_b, ms_b, launches):
+    """The bf16 cells' checks and side timings (after the launch counts
+    were read). For each bf16 cell: its values bitwise ``torch.topk`` of
+    the bf16 K6 output laid out ``[B, n]``, each id carrying its value
+    there (ids tie-aware), distinct; each id's f32 score (f32 K6 on the
+    same operands) at least the f32 cell's 100th score less
+    ``BF16_SCORE_REL`` × the query's top f32 score; K6-bf16 bitwise its
+    CPU twin on the first ``BF16_TWIN_BLOCKS`` blocks, K5-bf16 on the
+    first ``BF16_TWIN_ROWS`` rows of the layout. Then K6-bf16 and K5-bf16
+    timed alone (K5 over all of the layout) in turns with their library
+    calls (``torch.sparse.mm`` of the doc × token CSR by the ``[V, B]``
+    weights, both bf16; ``torch.topk``), and their twins on the card; K5
+    on the layout made contiguous first, and the transposing copy that
+    K5's wrapper makes in the cell timed alone.
+    Returns the numbers and the kernels line's two entries (B = 256)."""
+    import torch
+
+    from repro_torch.configs import bm25s
+    from repro_torch.kernels import blockwise_topk as k5
+    from repro_torch.kernels import bm25_block_score as k2
+
+    blocked16 = bf["blocked16"]
+    bf16 = torch.bfloat16
+    dev = blocked[0].device
+    res, entries = {}, []
+    for name, f32_vals, f32_ms in (
+            ("topk2stage_bf16", vals_b, ms_b),
+            ("topk2stage_bf16_b1024", bf["topk2stage_b1024"]["vals"],
+             bf["topk2stage_b1024"]["ms"])):
+        r = bf[name]
+        ids, vals, b = r["ids"], r["vals"], r["batch"]
+        uniq, w32 = r["table"]
+        w16 = w32.to(bf16)
+        il = ids.long()
+        cols = torch.arange(b, device=dev)[:, None]
+        dense32 = k2.bm25_block_score(*blocked, uniq, w32,
+                                      block_size=bm25s.DOC_BLOCK)
+        s32 = dense32[il // bm25s.DOC_BLOCK, il % bm25s.DOC_BLOCK, cols]
+        del dense32
+        kth, top = f32_vals[:, -1:], f32_vals[:, :1].abs()
+        held = bool((s32 >= kth - BF16_SCORE_REL * top).all())
+        short = float(((kth - s32) / top).max())
+        dense16 = k2.bm25_block_score(*blocked16, uniq, w16,
+                                      block_size=bm25s.DOC_BLOCK)
+        flat16 = dense16.permute(2, 0, 1).reshape(b, -1)
+        tv, _ = torch.topk(flat16, bm25s.TOP_K, dim=1)
+        same_v = bits_equal(vals, tv)
+        carried = bits_equal(torch.gather(flat16, 1, il), vals)
+        distinct = positions_distinct(ids)
+        nb = BF16_TWIN_BLOCKS
+        twin6 = k2.bm25_block_score(*(t[:nb].cpu() for t in blocked16),
+                                    uniq.cpu(), w16.cpu(),
+                                    block_size=bm25s.DOC_BLOCK)
+        bit6 = bits_equal(dense16[:nb], twin6)
+        rows = flat16[:BF16_TWIN_ROWS]
+        kv, ki = k5.blockwise_topk(rows, k=bm25s.TOP_K, block=TOPK_BLOCK)
+        pv, pi = k5.blockwise_topk(rows.cpu(), k=bm25s.TOP_K,
+                                   block=TOPK_BLOCK)
+        bit5 = bits_equal(kv, pv) and bits_equal(ki, pi)
+        print(f"[cells] {name} (B = {b}, U = {uniq.numel()}): values "
+              f"bitwise torch.topk of the bf16 K6 output {same_v}, each id "
+              f"carrying its value {carried}, distinct {distinct}; every "
+              f"id's f32 score >= the f32 cell's 100th - 2^-6 x the top "
+              f"{held} (worst shortfall {short:.3g} of the top); K6-bf16 "
+              f"bitwise its CPU twin on {nb} blocks {bit6}, K5-bf16 on "
+              f"{BF16_TWIN_ROWS} rows {bit5}; {r['ms']:.3f} ms (median of "
+              f"5, CUDA events) against the f32 cell's {f32_ms:.3f} ms",
+              flush=True)
+        check(same_v and carried and distinct,
+              f"{name}: the board is torch.topk of K6-bf16's output")
+        check(held, f"{name}: every id within 2^-6 of the f32 100th score")
+        check(bit6 and bit5, f"{name}: K6-bf16 and K5-bf16 bitwise their "
+                             "twins")
+        # K5 alone on the laid-out rows (in the cell, K5's wrapper first
+        # makes the strided [B, n] view contiguous: a transposing copy)
+        flat16 = flat16.contiguous()
+        one = dict(ms=r["ms"], f32_ms=f32_ms, batch=b,
+                   u=int(uniq.numel()), worst_shortfall=short,
+                   k6_ms=median_ms(lambda: k2.bm25_block_score(
+                       *blocked16, uniq, w16, block_size=bm25s.DOC_BLOCK)),
+                   copy_ms=median_ms(lambda: dense16.permute(
+                       2, 0, 1).reshape(b, -1).contiguous()),
+                   k5_ms=median_ms(lambda: k5.blockwise_topk(
+                       flat16, k=bm25s.TOP_K, block=TOPK_BLOCK)))
+        print(f"[cells] {name}: K6-bf16 {one['k6_ms']:.3f} ms, the "
+              f"transposing copy {one['copy_ms']:.3f} ms, K5-bf16 "
+              f"{one['k5_ms']:.3f} ms over [{b}, {flat16.shape[1]}] "
+              f"contiguous (median of 5, CUDA events)", flush=True)
+        res[name] = one
+        if b != bm25s.QUERY_BATCH:
+            del dense16, flat16
+            continue
+        # -- the kernels line's entries, at B = 256 --------------------------
+        turns5 = [cuda_ms((lambda: torch.topk(flat16, bm25s.TOP_K, dim=1))
+                          if f == "lib" else (lambda: k5.blockwise_topk(
+                              flat16, k=bm25s.TOP_K, block=TOPK_BLOCK)),
+                          reps=3) for f in ("lib", "k5", "k5", "lib")]
+        plain5 = cuda_ms(lambda: k5.blockwise_topk_plain(
+            flat16, k=bm25s.TOP_K, block=TOPK_BLOCK))
+        n5 = flat16.numel()
+        entries.append(dict(
+            name=k5.LAUNCHES_BF16.name, route="cuda",
+            source="src/repro_torch/kernels/csrc/blockwise_topk.cu",
+            replaces="src/repro/kernels/blockwise_topk.py:61",
+            launches=launches[k5.LAUNCHES_BF16.name], max_abs_err=0.0
+            if bit5 else float((kv.float() - pv.to(dev).float()).abs()
+                               .nan_to_num(0.0).max()),
+            tolerance="bitwise vs the CPU twin", twin_bitwise=bit5,
+            twin_bitwise_at=(f"full width, the first {BF16_TWIN_ROWS} rows "
+                             f"of [{b}, {flat16.shape[1]}], CPU twin"),
+            ms=(turns5[1] + turns5[2]) / 2, plain_ms=plain5,
+            library_ms=(turns5[0] + turns5[3]) / 2,
+            library=f"torch.topk(bf16 [B, n], {bm25s.TOP_K}, dim=1)",
+            turns_ms=turns5, bytes=n5 * 2 + n5 // TOPK_BLOCK
+            * bm25s.TOP_K * 6, ops=float(n5)))
+        tok, loc, sc = blocked16
+        keep = tok >= 0
+        rows_g = (torch.arange(tok.shape[0], device=dev)[:, None]
+                  * bm25s.DOC_BLOCK + loc)[keep]
+        mat = torch.sparse_coo_tensor(
+            torch.stack([rows_g.long(), tok[keep].long()]), sc[keep],
+            size=(tok.shape[0] * bm25s.DOC_BLOCK, N_VOCAB)
+        ).coalesce().to_sparse_csr()
+        wv = torch.zeros((N_VOCAB, b), dtype=bf16, device=dev)
+        real = uniq < N_VOCAB
+        wv[uniq[real].long()] = w16[real]
+        lib6 = torch.sparse.mm(mat, wv)
+        lib_err = float((lib6.float() - dense16.reshape(-1, b).float())
+                        .abs().max())
+        del lib6
+        turns6 = [cuda_ms((lambda: torch.sparse.mm(mat, wv))
+                          if f == "lib" else (lambda: k2.bm25_block_score(
+                              *blocked16, uniq, w16,
+                              block_size=bm25s.DOC_BLOCK)), reps=3)
+                  for f in ("lib", "k6", "k6", "lib")]
+        del mat, wv
+        plain6 = cuda_ms(lambda: k2.block_accumulate(
+            tok, loc, sc.float(), uniq, w16.float(),
+            block_size=bm25s.DOC_BLOCK).to(bf16))
+        hits = int(torch.isin(tok, uniq).sum())
+        print(f"[cells] K6-bf16 and torch.sparse.mm (bf16) in turns "
+              f"(library, kernel, kernel, library): {turns6} ms; "
+              f"max |sparse.mm - K6-bf16| {lib_err:.3g}; twin on the card "
+              f"{plain6:.1f} ms; K5-bf16 and "
+              f"torch.topk in turns: "
+              + ", ".join(f"{t:.3f}" for t in turns5) + " ms", flush=True)
+        entries.append(dict(
+            name=k2.LAUNCHES_DENSE_BF16.name, route="cuda",
+            source="src/repro_torch/kernels/csrc/bm25_block_score.cu",
+            replaces="src/repro/kernels/bm25_block_score.py:146",
+            launches=launches[k2.LAUNCHES_DENSE_BF16.name],
+            max_abs_err=0.0 if bit6 else float(
+                (dense16[:nb].float() - twin6.to(dev).float()).abs().max()),
+            tolerance="bitwise vs the CPU twin", twin_bitwise=bit6,
+            twin_bitwise_at=(f"full width, the first {nb} blocks, all "
+                             f"{b} columns, CPU twin"),
+            ms=(turns6[1] + turns6[2]) / 2, plain_ms=plain6,
+            library_ms=(turns6[0] + turns6[3]) / 2,
+            library="torch.sparse.mm (bf16 doc x token CSR by bf16 [V, B] "
+                    "weights)", turns_ms=turns6,
+            bytes=tok.numel() * 10 + uniq.numel() * 4 + w16.numel() * 2
+            + dense16.numel() * 2, ops=2.0 * hits * b))
+        del dense16, flat16
+    return res, entries
 
 
 def recsys_inputs(cfg, specs, gen, *, serve: bool) -> dict:
@@ -2738,11 +2986,173 @@ def recsys_on_cpu(cfg, params, batch):
     return replace(cfg, vocab_sizes=tuple(sizes)), p, cpu
 
 
+# phase 14's bf16 cells (the hillclimb's topk2stage_bf16 variants)
+BF16_WIDE = dict(batch=1024, u_max=4096)   # topk2stage_bf16_b1024's
+BF16_SCORE_REL = 2.0 ** -6     # a bf16 board's id: its f32 score at least
+                               # the f32 100th less this x the query's top
+BF16_TWIN_BLOCKS = 64          # K6-bf16 against its CPU twin: these blocks
+BF16_TWIN_ROWS = 2             # K5-bf16 against its CPU twin: these rows
+
+
 def median_ms(fn) -> float:
     """Median CUDA-event milliseconds of ``RECSYS_REPS`` calls of ``fn``,
     after one untimed call."""
     fn()
     return float(np.median([cuda_ms(fn) for _ in range(RECSYS_REPS)]))
+
+
+def phase_partitioned(seed: int, mesh) -> dict:
+    """Phase 15: the LM path partitioned on DTensor placements over the
+    one-rank NCCL mesh, against the same cells on plain tensors.
+
+    gemma3-1b's ``decode_32k`` at full width (B = 128, 32,768 positions,
+    bf16 params drawn on the card, a bf16 cache filled from a seeded
+    generator) and phase 13's cut ``train_4k`` (``TRAIN_LM_BATCH``
+    sequences of 4,096, M = 2, f32): params, optimizer state, batch and
+    cache placed by each cell's ``shardings`` (``dist.sharding.
+    distribute``) and the cell's function run under ``dist.sharding.
+    partitioned``, then the same function on the plain tensors. Checks:
+    the decode logits and every cache layer, the train loss, new params
+    and moments bitwise equal to the plain run's (an op that differs is
+    named by its tensor and held within the card-against-CPU bounds of
+    phase 12 or 13). Prints each partitioned step's ms beside the plain
+    one's (CUDA events, the median of ``LM_REPS``; the train step one of
+    each). Returns the launch counts (0: no kernel on the path) and the
+    numbers."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.common import LM_SHAPES, lm_train_cell
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.train import init_train_state
+
+    dev = torch.device("cuda")
+    for c in COUNTERS:
+        c.reset()
+    res = {}
+
+    def local(x):
+        return x.to_local() if sharding.is_dtensor(x) else x
+
+    def compare(got, want, what, bound):
+        """Bitwise, leaf by leaf; a leaf that differs is named and held
+        within ``bound(got, want)``."""
+        diff = []
+        for (path, a), (_, b) in zip(tree_paths(got), tree_paths(want),
+                                     strict=True):
+            a = local(a)
+            if not bits_equal(a, b):
+                err = float((a.float() - b.float()).abs().max())
+                diff.append(("/".join(map(str, path)), err))
+                check(bound(a, b), f"{what} {path}: max |diff| {err} "
+                      "within the card-against-CPU bound")
+        print(f"[partitioned] {what}: "
+              + ("bitwise equal to the plain run" if not diff else
+                 f"differs in {diff} (within the bounds)"), flush=True)
+        return not diff
+
+    # -- gemma3-1b decode_32k at full width ---------------------------------
+    t0 = time.perf_counter()
+    cfg = configs.get_config(LM_ARCH)
+    (cell,) = [c for c in configs.get_cells(LM_ARCH)
+               if c.shape == "decode_32k"]
+    fn, (params_s, cache_s, tok_s) = cell.build(mesh)
+    specs = cell.shardings(mesh, (params_s, cache_s, tok_s))
+    gen = torch.Generator(device=dev).manual_seed(seed * 100 + 15)
+    params = lm_cast(cfg, params_s, gen)
+    b, seq = tok_s.shape[0], LM_SHAPES["decode_32k"]["seq_len"]
+    cache = transformer.init_decode_cache(cfg, b, seq, dtype=torch.bfloat16,
+                                          device=dev)
+    for t in cache["k"] + cache["v"]:
+        t.normal_(generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    part = tree_map(lambda t: t.clone(), cache)
+    d_params = sharding.distribute(params, specs[0], mesh)
+    d_cache = sharding.distribute(part, specs[1], mesh)
+    d_toks = sharding.distribute(toks, specs[2], mesh)
+    with sharding.partitioned(mesh):
+        d_logits, d_out = fn(d_params, d_cache, d_toks)
+    logits, out = fn(params, cache, toks)
+    top = float(logits.float().abs().max())
+    same = compare(
+        [d_logits] + d_out["k"] + d_out["v"], [logits] + out["k"] + out["v"],
+        f"{cell.key} logits and cache",
+        lambda a, b_: float((a.float() - b_.float()).abs().max())
+        <= (LM_BF16_LOGITS_REL if a.dim() == 2 else LM_BF16_KV_REL)
+        * max(top, float(b_.float().abs().max())))
+    check(int(local(d_out["pos"])) == int(out["pos"]) == seq + 1,
+          "both runs moved pos one step")
+
+    def part_step():
+        with sharding.partitioned(mesh):
+            return fn(d_params, d_cache, d_toks)[0]
+
+    plain_ms = float(np.median([cuda_ms(lambda: fn(params, cache, toks)[0])
+                                for _ in range(LM_REPS)]))
+    part_ms = float(np.median([cuda_ms(part_step) for _ in range(LM_REPS)]))
+    print(f"[partitioned] {cell.key}: partitioned step {part_ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms (median of {LM_REPS}, CUDA events; "
+          f"{time.perf_counter() - t0:.1f}s with the set-up)", flush=True)
+    res[cell.key] = dict(bitwise=same, ms=part_ms, plain_ms=plain_ms)
+    del params, cache, part, d_params, d_cache, out, d_out, logits, d_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 13's cut train_4k -------------------------------------------
+    t0 = time.perf_counter()
+    (full,) = [c for c in configs.get_cells(LM_ARCH) if c.kind == "train"]
+    seq = full.build(None)[1][2]["tokens"].shape[1]
+    m = configs.get_module(LM_ARCH).N_MICROBATCHES
+    tcell = lm_train_cell(LM_ARCH, cfg, global_batch=TRAIN_LM_BATCH,
+                          seq_len=seq, n_microbatches=m)
+    step, args_s = tcell.build(mesh)
+    tspecs = tcell.shardings(mesh, args_s)
+    opt = step_parts(step)["optimizer"]
+    params = transformer.init_params(
+        torch.Generator(device=dev).manual_seed(seed * 100 + 41), cfg,
+        device=dev)
+    state = init_train_state(params, opt)
+    nb = next(lm_batches(vocab_size=cfg.vocab_size, batch=TRAIN_LM_BATCH,
+                         seq_len=seq, seed=seed))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in nb.items()}
+    d_args = [sharding.distribute(a, sp, mesh)
+              for a, sp in zip((params, state, batch), tspecs)]
+    t1 = time.perf_counter()
+    with sharding.partitioned(mesh):
+        d_new = step(*d_args)
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t1
+    d_new = tree_map(lambda x: local(x).clone() if isinstance(
+        x, torch.Tensor) else x, d_new)
+    del d_args
+    t1 = time.perf_counter()
+    new = step(params, state, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    same_t = compare(
+        [d_new[2]["loss"], d_new[0], d_new[1]["m"], d_new[1]["v"]],
+        [new[2]["loss"], new[0], new[1]["m"], new[1]["v"]],
+        f"{full.key} (cut) loss, params, m and v",
+        lambda a, b_: bool(torch.allclose(
+            a.float(), b_.float(), rtol=TRAIN_LOSS_RTOL,
+            atol=TRAIN_PARAM_ATOL)))
+    print(f"[partitioned] {full.key} (cut to B = {TRAIN_LM_BATCH}, M = {m}):"
+          f" partitioned step {part_s * 1e3:.1f} ms, plain "
+          f"{plain_s * 1e3:.1f} ms (host clock, synchronized, one each; "
+          f"{time.perf_counter() - t0:.1f}s with the set-up)", flush=True)
+    res[full.key] = dict(bitwise=same_t, s=part_s, plain_s=plain_s)
+    del params, state, batch, new, d_new
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = {c.name: c.n for c in COUNTERS}
+    check(all(n == 0 for n in res["launches"].values()),
+          "the partitioned LM path launches no K1-K8 kernel")
+    return res
 
 
 def one_rank_mesh():
@@ -4530,6 +4940,14 @@ def phase_bm25(args) -> tuple[list, dict]:
         key: p14["split_ms"][key] for key in ("k5", "topk")}
     kernels[5]["phase14_split_ms"] = {                      # K6's share
         key: p14["split_ms"][key] for key in ("k6", "layout_copy")}
+    kernels += p14["bf16_kernels"]                   # K5-bf16, K6-bf16
+    for kd in kernels[-2:]:
+        kd["launches_frontend"] = fe_launches[kd["name"]]
+        kd["launches_phase9"] = p9["launches"][kd["name"]]
+        kd["phase14_ms"] = {key: p14["bf16"][key]["ms"] for key in (
+            "topk2stage_bf16", "topk2stage_bf16_b1024")}
+        kd["ms_b1024"] = p14["bf16"]["topk2stage_bf16_b1024"][
+            "k5_ms" if kd["name"].startswith("blockwise") else "k6_ms"]
     return kernels, p10["launches"], p14["launches"]
 
 
@@ -4610,6 +5028,12 @@ def main(argv=None) -> int:
         p13 = phase_train(args.seed, mesh, keep.pop("reddit", None))
         print(f"[train] phase 13 done in {time.perf_counter() - t0:.1f}s",
               flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p15 = phase_partitioned(args.seed, mesh)
+        print(f"[partitioned] phase 15 done in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
     finally:
         tdist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -4620,6 +5044,7 @@ def main(argv=None) -> int:
         kd["launches_phase11"] = p11["launches"][kd["name"]]
         kd["launches_phase12"] = p12["launches"][kd["name"]]
         kd["launches_phase13"] = p13["launches"][kd["name"]]
+        kd["launches_phase15"] = p15["launches"][kd["name"]]
         kd["launches_phase14"] = (None if p14_launches is None
                                   else p14_launches[kd["name"]])
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3

@@ -98,11 +98,22 @@ def _score_2m_cell() -> Cell:
                             "B · p_max a shard")
 
 
-def _score_blocked_cell(*, sharded_topk: bool = False) -> Cell:
-    """The blocked cell, at the module's constants as they stand when it
-    is made; ``sharded_topk=True`` is the reference's ``shard_map``
-    variant."""
-    doc_block, batch, u_max, k = DOC_BLOCK, QUERY_BATCH, U_MAX, TOP_K
+def _score_blocked_cell(*, doc_block: int | None = None,
+                        batch: int | None = None, u_max: int | None = None,
+                        score_dtype=torch.float32,
+                        sharded_topk: bool = False,
+                        note: str = "beyond-paper batched MXU path "
+                                    "(extra cell)") -> Cell:
+    """The blocked cell, with the reference's keywords and defaults:
+    ``doc_block``, ``batch`` and ``u_max`` default to the module's
+    ``DOC_BLOCK``, ``QUERY_BATCH`` and ``U_MAX`` as they stand when the
+    cell is made; ``score_dtype`` is the scores' and the ``[u_max,
+    batch]`` weights' dtype (float32 or bfloat16: K6 and K5 run in it);
+    ``sharded_topk=True`` is the reference's ``shard_map`` variant."""
+    doc_block = DOC_BLOCK if doc_block is None else doc_block
+    batch = QUERY_BATCH if batch is None else batch
+    u_max = U_MAX if u_max is None else u_max
+    k = TOP_K
     n_blocks = N_DOCS // doc_block
     nnz_pad = int(-(-AVG_UNIQUE_TOKENS * doc_block // 512) * 512)
 
@@ -118,9 +129,9 @@ def _score_blocked_cell(*, sharded_topk: bool = False) -> Cell:
 
         specs = (sds((n_blocks, nnz_pad), torch.int32),
                  sds((n_blocks, nnz_pad), torch.int32),
-                 sds((n_blocks, nnz_pad), torch.float32),
+                 sds((n_blocks, nnz_pad), score_dtype),
                  sds((u_max,), torch.int32),
-                 sds((u_max, batch), torch.float32))
+                 sds((u_max, batch), score_dtype))
         if not sharded_topk:
             def fn(token_ids, local_doc, scores, uniq, weights):
                 flat = scored(token_ids, local_doc, scores, uniq, weights)
@@ -153,8 +164,7 @@ def _score_blocked_cell(*, sharded_topk: bool = False) -> Cell:
     # useful work: one multiply-add per (posting, query) with avg df hit rate
     flops = 2.0 * batch * N_DOCS * AVG_UNIQUE_TOKENS * (Q_MAX / N_VOCAB)
     return Cell("bm25s", "score_blocked_2m", "retrieval", build, shardings,
-                flops, note="beyond-paper batched MXU path (extra cell)",
-                partitioned=sharded_topk)
+                flops, note=note, partitioned=sharded_topk)
 
 
 def cells() -> list[Cell]:

@@ -50,8 +50,10 @@ class Cell:
     note: str = ""
     remesh: Callable | None = None  # (mesh) -> mesh: logical re-mesh of the
                                     # SAME devices (perf variants only)
-    partitioned: bool = False       # the step is one rank's program over
-                                    # DTensor shards (it issues its own
+    partitioned: bool = False       # the step runs as one rank's program
+                                    # over DTensor shards (the LM cells:
+                                    # dist.sharding.partitioned; the bm25s
+                                    # sharded steps issue their own
                                     # collectives)
     count_bound: str = ""           # what a data-dependent size is counted
                                     # at by the dry run ("" = exact)
@@ -59,6 +61,28 @@ class Cell:
     @property
     def key(self) -> str:
         return f"{self.arch}/{self.shape}"
+
+
+def remesh_dp_tp(dp: int, tp: int) -> Callable:
+    """Re-map a mesh's ranks onto a (data=dp, model=tp) mesh.
+
+    Same ranks, a different logical axis split — the lever for models
+    whose TP collectives dominate (more DP, less TP). The "pod" axis is
+    folded into data. The ranks are taken in the mesh's order and laid
+    out row-major, as the reference lays out its devices: the mesh's
+    ``r``-th rank lands at ``(r // tp, r % tp)``. Every rank of the mesh
+    must call the returned function (a mesh's groups are made
+    collectively)."""
+    def fn(mesh):
+        from torch.distributed.device_mesh import DeviceMesh
+
+        ranks = mesh.mesh.reshape(-1)
+        if ranks.numel() != dp * tp:
+            raise ValueError(f"a {dp} x {tp} mesh needs {dp * tp} ranks, "
+                             f"the mesh has {ranks.numel()}")
+        return DeviceMesh(mesh.device_type, ranks.reshape(dp, tp),
+                          mesh_dim_names=("data", "model"))
+    return fn
 
 
 def params_shardings(mesh, params_shapes):
@@ -226,7 +250,7 @@ def lm_train_cell(arch: str, cfg: transformer.LMConfig, *,
     flops = 6.0 * lm_active_params(cfg) * tokens \
         + 3.0 * _lm_attn_flops(cfg, global_batch, seq_len, seq_len)
     return Cell(arch, f"train_{seq_len // 1024}k", "train", build, shardings,
-                flops, note=note, remesh=remesh)
+                flops, note=note, remesh=remesh, partitioned=True)
 
 
 def lm_prefill_cell(arch: str, cfg: transformer.LMConfig, *,
@@ -242,7 +266,8 @@ def lm_prefill_cell(arch: str, cfg: transformer.LMConfig, *,
 
     flops = 2.0 * lm_active_params(cfg) * batch * seq_len \
         + _lm_attn_flops(cfg, batch, seq_len, seq_len) / 2.0  # causal half
-    return Cell(arch, shape_name, "prefill", build, shardings, flops)
+    return Cell(arch, shape_name, "prefill", build, shardings, flops,
+                partitioned=True)
 
 
 def lm_decode_cell(arch: str, cfg: transformer.LMConfig, *,
@@ -288,7 +313,7 @@ def lm_decode_cell(arch: str, cfg: transformer.LMConfig, *,
     flops = 2.0 * lm_active_params(cfg) * batch \
         + _lm_attn_flops(cfg, batch, 1, seq_len)
     return Cell(arch, shape_name, "decode", build, shardings, flops,
-                note=note)
+                note=note, partitioned=True)
 
 
 LM_SHAPES = {

@@ -732,11 +732,13 @@ def _all_gather_merge(gidx, vals, over, group, n_shards: int, k: int):
     and ``[B]`` flags (when it has them), all-gathered in one int32 tensor
     over ``group``, then the top ``k`` of the ``[B, n_shards · kk]``
     candidates by :func:`rank_order` and the flags OR-ed (None for None).
-    The same on every rank."""
+    The same on every rank. bf16 scores travel as their exact f32
+    widening and come back bf16."""
     import torch.distributed as tdist
 
     b, kk = gidx.shape
-    cols = [gidx.to(torch.int32), vals.contiguous().view(torch.int32)]
+    dt = vals.dtype             # f32, or bf16 carried as its exact f32
+    cols = [gidx.to(torch.int32), vals.float().contiguous().view(torch.int32)]
     if over is not None:
         cols.append(over.to(torch.int32)[:, None])
     packed = torch.cat(cols, dim=1)
@@ -745,7 +747,7 @@ def _all_gather_merge(gidx, vals, over, group, n_shards: int, k: int):
     allp = torch.stack(parts, dim=1)              # [B, S, 2kk (+ 1)]
     alli = allp[..., :kk].reshape(b, -1)
     allv = allp[..., kk:2 * kk].contiguous().view(torch.float32
-                                                  ).reshape(b, -1)
+                                                  ).reshape(b, -1).to(dt)
     sel = rank_order(allv, alli)[:, :k]
     return (torch.gather(alli, 1, sel), torch.gather(allv, 1, sel),
             None if over is None else allp[..., -1].any(dim=1))

@@ -22,12 +22,25 @@ out of the mesh's order), ``Replicate()`` elsewhere;
 ``param_pspecs`` are the generic placement rules for cells that have no
 architecture-specific sharding (the LM family's are
 ``configs.common.lm_param_pspecs``).
+
+A partitioned step is one rank's program over ``DTensor`` operands:
+:func:`distribute` lays global tensors out by a cell's placements (each
+on :func:`execution_placements`), and the step runs under
+:func:`partitioned`, where :func:`constrain` redistributes and plain
+tensors the step makes count as replicated. The model code keeps its
+plain-tensor path and takes the ``DTensor`` one where its operands are
+``DTensor`` s inside such a block (:func:`is_partitioned`: outside every
+block, on the plain path, one look at the mesh stack); :func:`split_index`,
+:func:`as_dtensor`, :func:`replicated_local` and :func:`reduced_grad`
+serve its ``local_map`` programs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+
+import torch
 
 from ..models.common import tree_map
 
@@ -134,6 +147,130 @@ def spec_placements(mesh, *entries) -> list:
     return _placements(mesh, [
         () if e is None else (e,) if isinstance(e, str) else tuple(e)
         for e in entries])
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (a partitioned step's operand)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def is_partitioned(x) -> bool:
+    """Whether ``x`` is an operand of a partitioned step: a ``DTensor``
+    inside an :func:`activation_sharding` block (:func:`partitioned`
+    opens one). Outside every block it is False at the cost of one look
+    at the mesh stack, as :func:`constrain` makes, so the plain path
+    pays no type check an op."""
+    return bool(_MESH_STACK) and is_dtensor(x)
+
+
+def execution_placements(placements) -> list:
+    """The placements a partitioned step runs a tensor on: each
+    ``_StridedShard`` becomes the plain ``Shard`` of its dim, so a dim
+    that a spec splits over mesh dims out of their order (``("model",
+    "data")`` on a (data, model) mesh) is split in the mesh's order
+    instead. Every device holds the same number of bytes either way; the
+    spec's placements stay what :func:`spec_placements` gives."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    return [Shard(p.dim) if isinstance(p, _StridedShard) else p
+            for p in placements]
+
+
+def distribute(tree, placements, mesh):
+    """``tree`` (global tensors, the same on every rank) as ``DTensor``
+    leaves under ``placements`` (a tree of placement lists, as a cell's
+    ``shardings`` gives), each run on its :func:`execution_placements`;
+    every rank keeps its own shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(tree, torch.Tensor):
+        return distribute_tensor(tree, mesh,
+                                 execution_placements(placements))
+    if isinstance(tree, dict):
+        return {k: distribute(v, placements[k], mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute(v, p, mesh)
+                          for v, p in zip(tree, placements, strict=True))
+    return tree
+
+
+def as_dtensor(x, mesh):
+    """``x`` as a ``DTensor`` on ``mesh``: a plain tensor (the same on
+    every rank) is replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def replicated_local(x):
+    """A plain tensor holding all of ``x``: a ``DTensor`` is made
+    replicated (a no-op where it is) and its local tensor returned."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh,
+                          [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def split_index(mesh, placements, dim: int) -> tuple[int, int]:
+    """``(i, n)``: this rank holds the ``i``-th of ``n`` equal pieces of
+    tensor dim ``dim`` under ``placements`` (mesh dims that shard it,
+    major first in the mesh's order)."""
+    i, n = 0, 1
+    for m, p in enumerate(placements):
+        if p.is_shard(dim):
+            i = i * mesh.size(m) + mesh.get_local_rank(m)
+            n *= mesh.size(m)
+    return i, n
+
+
+def reduced_grad(x):
+    """``x`` itself, whose gradient is redistributed to ``x``'s own
+    placements before it flows back (a partial gradient is reduced
+    there), so that the op that made ``x`` runs its backward on each
+    rank's part instead of on every rank whole. A plain ``x`` is
+    returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local(grad_placements=x.placements),
+                              x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+@contextlib.contextmanager
+def partitioned(mesh):
+    """Run a step's code as one rank's program over ``DTensor`` operands
+    on ``mesh``: :func:`constrain` resolves against ``mesh``, and a plain
+    tensor the step makes counts as replicated where it meets a
+    ``DTensor`` (``implicit_replication``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with activation_sharding(mesh), implicit_replication():
+        yield mesh
+
+
+def serving_mode(tree):
+    """The context a serving step runs in: ``torch.inference_mode()``,
+    or ``torch.no_grad()`` where ``tree`` holds a partitioned step's
+    ``DTensor`` (DTensor refuses inference tensors). Neither records
+    autograd history; the arithmetic is the same. Outside every
+    :func:`activation_sharding` block the tree is not walked."""
+    if not _MESH_STACK:
+        return torch.inference_mode()
+    from torch.utils._pytree import tree_flatten
+
+    if any(is_dtensor(t) for t in tree_flatten(tree)[0]):
+        return torch.no_grad()
+    return torch.inference_mode()
 
 
 def constrain(x, *axes: str | None):

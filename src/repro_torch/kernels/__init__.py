@@ -12,9 +12,10 @@ Kernels:
                       host rung)
   bm25_block_score  — K2, fused full-scan score→top-k (full-scan regime),
                       and K6, the same scan's dense scores (the unfused
-                      path ``ops.topk(ops.bm25_score_blocked(...))``)
+                      path ``ops.topk(ops.bm25_score_blocked(...))``), f32
+                      and bf16
   blockwise_topk    — K5, per-segment top-k of a dense score matrix
-                      (stage 1 of ``ops.topk``)
+                      (stage 1 of ``ops.topk``), f32 and bf16
   block_segment_sum — K7, per-block scatter-add of the sparse substrate
                       (``ops.segment_sum_blocked``)
   embedding_bag     — K8, weighted gather-and-sum of table rows
@@ -41,7 +42,8 @@ COUNTERS = (bm25_gather_score.LAUNCHES, bm25_block_score.LAUNCHES,
             bm25_gather_score.LAUNCHES_PRUNED,
             bm25_gather_score.LAUNCHES_GATHER, blockwise_topk.LAUNCHES,
             bm25_block_score.LAUNCHES_DENSE, block_segment_sum.LAUNCHES,
-            _EMBEDDING_BAG_LAUNCHES)
+            _EMBEDDING_BAG_LAUNCHES, blockwise_topk.LAUNCHES_BF16,
+            bm25_block_score.LAUNCHES_DENSE_BF16)
 
 __all__ = ["COUNTERS", "bm25_retrieve_blocked", "bm25_retrieve_gathered",
            "bm25_retrieve_resident", "bm25_retrieve_resident_pruned",

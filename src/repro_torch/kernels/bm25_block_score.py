@@ -28,19 +28,21 @@ from .meta import MetaOp
 
 LAUNCHES = _build.LaunchCounter("bm25_block_score_topk")
 LAUNCHES_DENSE = _build.LaunchCounter("bm25_block_score")
+LAUNCHES_DENSE_BF16 = _build.LaunchCounter("bm25_block_score_bf16")
 
 _ROWS_PER_STEP = 1 << 18       # twin: accumulator rows / postings a step
 
 
 def _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
-                    block_size: int, k: int | None = None) -> None:
+                    block_size: int, k: int | None = None,
+                    score_dtype=torch.float32) -> None:
     nb, p = token_ids.shape
     u, _b = weights.shape
     for name, t, dt, shape in (("token_ids", token_ids, torch.int32, (nb, p)),
                                ("local_doc", local_doc, torch.int32, (nb, p)),
-                               ("scores", scores, torch.float32, (nb, p)),
+                               ("scores", scores, score_dtype, (nb, p)),
                                ("uniq_tokens", uniq_tokens, torch.int32, (u,)),
-                               ("weights", weights, torch.float32, None)):
+                               ("weights", weights, score_dtype, None)):
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if shape is not None and tuple(t.shape) != shape:
@@ -141,9 +143,10 @@ def _library(n_blocks: int):
         lib.bm25_block_score_topk_launch.restype = ctypes.c_int
         lib.bm25_block_score_topk_scratch.argtypes = [i]
         lib.bm25_block_score_topk_scratch.restype = ctypes.c_int
-        lib.bm25_block_score_launch.argtypes = [p, p, p, i, i, p, i, p, i,
-                                                i, p, p]
-        lib.bm25_block_score_launch.restype = ctypes.c_int
+        for f in (lib.bm25_block_score_launch,
+                  lib.bm25_block_score_bf16_launch):
+            f.argtypes = [p, p, p, i, i, p, i, p, i, i, p, p]
+            f.restype = ctypes.c_int
         lib.bm25_block_score_dense_smem.argtypes = [i]
         lib.bm25_block_score_dense_smem.restype = ctypes.c_longlong
     return lib
@@ -203,26 +206,39 @@ def _dense_fake(token_ids, local_doc, scores, uniq_tokens, weights,
 def dense_cost(tok_shape, loc_shape, sc_shape, uniq_shape, w_shape,
                block_size: int) -> tuple[float, float]:
     """K6's (operations, bytes) a call for the dry run, bounded by shapes:
-    every slot's token, row and score (12 bytes) read once, the table and
-    the weights read once, the ``[nb, block_size, B]`` f32 output written
+    every slot's token and row (8 bytes) and score read once, the table
+    and the weights read once, the ``[nb, block_size, B]`` output written
     once; ``2 · B`` operations a matched slot, counted for every slot
-    (``2 · nb · P · B``), since every slot may match."""
+    (``2 · nb · P · B``), since every slot may match. A score, a weight
+    and an output element take the weights' ``itemsize`` bytes where the
+    trace gives it (2 in bf16), else 4."""
     nb, p = tok_shape
     u, b = w_shape
+    e = getattr(w_shape, "itemsize", 4)
     return (2.0 * nb * p * b,
-            12.0 * nb * p + 4.0 * u + 4.0 * u * b + 4.0 * nb * block_size * b)
+            (8.0 + e) * nb * p + 4.0 * u + e * u * b
+            + e * nb * block_size * b)
 
 
 DENSE_META = MetaOp(
     "bm25_block_score",
     "(Tensor token_ids, Tensor local_doc, Tensor scores, Tensor uniq_tokens,"
-    " Tensor weights, int block_size) -> Tensor", _dense_fake, dense_cost)
+    " Tensor weights, int block_size) -> Tensor", _dense_fake, dense_cost,
+    compute_dtype="float32")
 
 
 def bm25_block_score(token_ids, local_doc, scores, uniq_tokens, weights, *,
                      block_size: int) -> torch.Tensor:
     """K6: blocked postings × ``[U, B]`` query table → dense
-    ``[nb, block_size, B]`` f32 sums (no masking of padding rows).
+    ``[nb, block_size, B]`` sums (no masking of padding rows), in the
+    weights' dtype, as the reference's kernel gives them.
+
+    The scores and the weights are both float32 or both bfloat16. The
+    bf16 instantiation reads them widened exactly to f32, forms each
+    product and sum in f32 in the f32 kernel's order and rounds once to
+    bf16 at the store: bitwise ``bf16(K6_f32(widen(scores),
+    widen(weights)))``, which is also its twin. A bf16 call never goes
+    through the f32 kernel.
 
     A CPU tensor runs the plain twin, :func:`block_accumulate` (bitwise the
     kernel's sums); a CUDA tensor launches the kernel (and raises if it
@@ -234,12 +250,17 @@ def bm25_block_score(token_ids, local_doc, scores, uniq_tokens, weights, *,
     The table may have any number of rows: the kernel searches it 2,048
     rows at a time.
     """
+    dt = weights.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"weights must be torch.float32 or torch.bfloat16, "
+                        f"got {dt}")
     _check_operands(token_ids, local_doc, scores, uniq_tokens, weights,
-                    block_size)
+                    block_size, score_dtype=dt)
     dev = token_ids.device
     if dev.type == "cpu":
-        return block_accumulate(token_ids, local_doc, scores, uniq_tokens,
-                                weights, block_size=block_size)
+        return block_accumulate(token_ids, local_doc, scores.float(),
+                                uniq_tokens, weights.float(),
+                                block_size=block_size).to(dt)
     if dev.type == "meta":
         return DENSE_META(token_ids, local_doc, scores, uniq_tokens, weights,
                           block_size)
@@ -254,13 +275,15 @@ def bm25_block_score(token_ids, local_doc, scores, uniq_tokens, weights, *,
                          "shared memory")
     ops = [t.contiguous() for t in (token_ids, local_doc, scores,
                                     uniq_tokens, weights)]
-    out = torch.empty((nb, block_size, b), dtype=torch.float32, device=dev)
+    out = torch.empty((nb, block_size, b), dtype=dt, device=dev)
+    launch = (lib.bm25_block_score_bf16_launch if dt == torch.bfloat16
+              else lib.bm25_block_score_launch)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bm25_block_score_launch(
+        err = launch(
             ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(), nb, p,
             ops[3].data_ptr(), u, ops[4].data_ptr(), b, block_size,
             out.data_ptr(), stream)
     _build.check(err, "bm25_block_score")
-    LAUNCHES_DENSE.add()
+    (LAUNCHES_DENSE_BF16 if dt == torch.bfloat16 else LAUNCHES_DENSE).add()
     return out

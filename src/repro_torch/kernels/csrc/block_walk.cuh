@@ -139,11 +139,14 @@ __device__ __forceinline__ bool tokens_ascend(const int* __restrict__ tb,
 // [0, rows) into s.acc, for the query columns col0 + 2 lane, col0 + 2 lane
 // + 1. s.counts must be zero on entry (it is again on return). Called by
 // the whole CTA; the accumulator is complete after the caller's next
-// barrier.
+// barrier. TS, TW: the scores' and the weights' element (float, or bf16:
+// each is widened exactly to f32 as it is read, and the products and sums
+// are the f32 walk's).
+template <typename TS, typename TW>
 __device__ __forceinline__ void walk_block(
     const int* __restrict__ tb, const int* __restrict__ lb,
-    const float* __restrict__ sb, int p_pad, int n_real, bool sorted,
-    const int* __restrict__ uniq, int n_uniq, const float* __restrict__ w,
+    const TS* __restrict__ sb, int p_pad, int n_real, bool sorted,
+    const int* __restrict__ uniq, int n_uniq, const TW* __restrict__ w,
     int n_cols, int col0, int row0, int rows, const WalkSmem& s) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -229,8 +232,9 @@ __device__ __forceinline__ void walk_block(
           const int i = tid + j * kRoundThreads;
           const int c = col0 + (i % kRoundCols);
           wreg[j] = r0 + i / kRoundCols < r_end && c < n_cols
-                        ? w[static_cast<size_t>(run_u[r0 + i / kRoundCols])
-                                * n_cols + c]
+                        ? to_f32(w[static_cast<size_t>(
+                                       run_u[r0 + i / kRoundCols])
+                                   * n_cols + c])
                         : 0.f;
         }
 #pragma unroll
@@ -263,7 +267,8 @@ __device__ __forceinline__ void walk_block(
       for (int j = 0; j < kRoundPer; ++j)
         ent[j] = pos[j] >= 0
                      ? make_int4(lb[pos[j]] - row0,
-                                 __float_as_int(sb[pos[j]]), slot[j], 0)
+                                 __float_as_int(to_f32(sb[pos[j]])),
+                                 slot[j], 0)
                      : make_int4(-1, 0, slot[j], 0);
       if (sorted) {
 #pragma unroll

@@ -61,6 +61,7 @@
 //   and the k best written at their ranks. Positions are distinct by
 //   construction, also in rows of -inf.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -93,9 +94,27 @@ __device__ __forceinline__ unsigned cta_sum(unsigned v, unsigned* s_tmp) {
   return t;
 }
 
+// An input element widened exactly to f32 (order kept), and -inf as T.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T neg_inf();
+template <> __device__ __forceinline__ float neg_inf<float>() {
+  return -INFINITY;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 neg_inf<__nv_bfloat16>() {
+  return __float2bfloat16_rn(-INFINITY);
+}
+
+// T: x's and the values' element, float or bf16. The bf16 instantiation
+// compares the exact f32 widening of each entry (the f32 kernel's keys)
+// and writes back the entries themselves: its values are the f32
+// kernel's on the widened row, narrowed back, and its positions the same.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) blockwise_topk_kernel(
-    const float* __restrict__ x, int n, int block, int nb, int k, int per,
-    int cap, float* __restrict__ out_v, int* __restrict__ out_i) {
+    const T* __restrict__ x, int n, int block, int nb, int k, int per,
+    int cap, T* __restrict__ out_v, int* __restrict__ out_i) {
   extern __shared__ unsigned long long smem_u64[];
   unsigned long long* cand = smem_u64;           // [cap] candidates
   unsigned* keys = reinterpret_cast<unsigned*>(cand + cap);  // [256*per]
@@ -110,7 +129,7 @@ __global__ void __launch_bounds__(kThreads) blockwise_topk_kernel(
   const long long row = seg / nb;
   const int j = static_cast<int>(seg % nb);
   const int len = min(block, n - j * block);
-  const float* src = x + row * n + static_cast<long long>(j) * block;
+  const T* src = x + row * n + static_cast<long long>(j) * block;
   const int base = warp * 32 * per + lane;       // my first position
   const unsigned lt = (1u << lane) - 1u;         // lanes before mine
 
@@ -119,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) blockwise_topk_kernel(
 #pragma unroll 4
   for (int i = 0; i < per; ++i) {
     const int p = base + i * 32;
-    const unsigned key = p < len ? order_key(src[p]) : 0u;
+    const unsigned key = p < len ? order_key(widen(src[p])) : 0u;
     keys[p] = key;
     tmax = max(tmax, key);
   }
@@ -283,7 +302,7 @@ __global__ void __launch_bounds__(kThreads) blockwise_topk_kernel(
   }
   for (int i = n_cand + tid; i < k; i += kThreads) {
     const size_t o = static_cast<size_t>(seg) * k + i;
-    out_v[o] = -INFINITY;
+    out_v[o] = neg_inf<T>();
     out_i[o] = -1;
   }
 }
@@ -302,23 +321,41 @@ extern "C" long long blockwise_topk_smem(int block, int k) {
          + per * kThreads * 4;
 }
 
-// Launch on `stream`; returns the CUDA error code (0 on success).
-extern "C" int blockwise_topk_launch(const void* x, long long n_rows, int n,
-                                     int block, int k, void* out_v,
-                                     void* out_i, void* stream) {
+namespace {
+
+template <typename T>
+int topk_launch(const void* x, long long n_rows, int n, int block, int k,
+                void* out_v, void* out_i, void* stream) {
   const long long smem = blockwise_topk_smem(block, k);
   cudaError_t err = cudaFuncSetAttribute(
-      blockwise_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      blockwise_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nb = (n + block - 1) / block;
   const long long grid = n_rows * nb;
   const int per = (block + kThreads - 1) / kThreads;
-  blockwise_topk_kernel<<<static_cast<unsigned>(grid), kThreads,
-                          static_cast<size_t>(smem),
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), n, block, nb, k, per,
-      blockwise_topk_cap(k), static_cast<float*>(out_v),
-      static_cast<int*>(out_i));
+  blockwise_topk_kernel<T><<<static_cast<unsigned>(grid), kThreads,
+                             static_cast<size_t>(smem),
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), n, block, nb, k, per, blockwise_topk_cap(k),
+      static_cast<T*>(out_v), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch on `stream`; returns the CUDA error code (0 on success).
+extern "C" int blockwise_topk_launch(const void* x, long long n_rows, int n,
+                                     int block, int k, void* out_v,
+                                     void* out_i, void* stream) {
+  return topk_launch<float>(x, n_rows, n, block, k, out_v, out_i, stream);
+}
+
+// The bf16 instantiation: bf16 x and values, i32 positions.
+extern "C" int blockwise_topk_bf16_launch(const void* x, long long n_rows,
+                                          int n, int block, int k,
+                                          void* out_v, void* out_i,
+                                          void* stream) {
+  return topk_launch<__nv_bfloat16>(x, n_rows, n, block, k, out_v, out_i,
+                                    stream);
 }

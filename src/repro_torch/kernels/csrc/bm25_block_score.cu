@@ -142,11 +142,24 @@ __global__ void __launch_bounds__(kThreads, 1) block_score_topk_kernel(
 
 // -- K6 ------------------------------------------------------------------
 
+// The sum's f32 value stored as T: a float as it is; bf16 rounded once,
+// to nearest even (torch's float -> bfloat16 cast).
+__device__ __forceinline__ void store_as(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+// T: the scores', the weights' and the output's element, float or bf16.
+// The bf16 instantiation widens each score and weight exactly as it reads
+// them, forms each product in f32 (exact for bf16 x bf16: 16 significant
+// bits of 24), sums in the f32 kernel's order and rounds once at the
+// store: its output is bf16(K6_f32(widen(scores), widen(weights))).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) dense_score_kernel(
     const int* __restrict__ tok, const int* __restrict__ loc,
-    const float* __restrict__ sc, int p_pad, const int* __restrict__ uniq,
-    int n_uniq, const float* __restrict__ w, int n_cols, int block_size,
-    float* __restrict__ out) {
+    const T* __restrict__ sc, int p_pad, const int* __restrict__ uniq,
+    int n_uniq, const T* __restrict__ w, int n_cols, int block_size,
+    T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ unsigned long long s_scan[kWarps];
   __shared__ int s_seg[kWarps + 1];
@@ -172,11 +185,11 @@ __global__ void __launch_bounds__(kThreads, 1) dense_score_kernel(
 
   // every row written, a lane per column: 128 contiguous bytes a store
   for (int row = warp; row < block_size; row += kWarps) {
-    float* o = out + (blk * block_size + row) * n_cols + col0;
+    T* o = out + (blk * block_size + row) * n_cols + col0;
 #pragma unroll
     for (int h = 0; h < kCols; h += 32) {
       if (col0 + h + lane < n_cols)
-        o[h + lane] = s.acc[row * kCols + h + lane];
+        store_as(o + h + lane, s.acc[row * kCols + h + lane]);
     }
   }
 }
@@ -225,22 +238,46 @@ extern "C" long long bm25_block_score_dense_smem(int block_size) {
          + bm25::kWalkScratchBytes;
 }
 
+namespace {
+
+template <typename T>
+int dense_launch(const void* tok, const void* loc, const void* sc,
+                 int n_blocks, int p_pad, const void* uniq, int n_uniq,
+                 const void* w, int n_cols, int block_size, void* out,
+                 void* stream) {
+  const long long smem = bm25_block_score_dense_smem(block_size);
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_score_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_cols + kCols - 1) / kCols, n_blocks);
+  dense_score_kernel<T><<<grid, kThreads, static_cast<size_t>(smem),
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(tok), static_cast<const int*>(loc),
+      static_cast<const T*>(sc), p_pad, static_cast<const int*>(uniq),
+      n_uniq, static_cast<const T*>(w), n_cols, block_size,
+      static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // Launch K6 on `stream`; returns the CUDA error code (0 on success).
 extern "C" int bm25_block_score_launch(
     const void* tok, const void* loc, const void* sc, int n_blocks,
     int p_pad, const void* uniq, int n_uniq, const void* w, int n_cols,
     int block_size, void* out, void* stream) {
-  const long long smem = bm25_block_score_dense_smem(block_size);
-  cudaError_t err = cudaFuncSetAttribute(
-      dense_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_cols + kCols - 1) / kCols, n_blocks);
-  dense_score_kernel<<<grid, kThreads, static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(tok), static_cast<const int*>(loc),
-      static_cast<const float*>(sc), p_pad, static_cast<const int*>(uniq),
-      n_uniq, static_cast<const float*>(w), n_cols, block_size,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return dense_launch<float>(tok, loc, sc, n_blocks, p_pad, uniq, n_uniq, w,
+                             n_cols, block_size, out, stream);
+}
+
+// K6's bf16 instantiation: bf16 scores, weights and output, the same
+// grid, shared memory and walk.
+extern "C" int bm25_block_score_bf16_launch(
+    const void* tok, const void* loc, const void* sc, int n_blocks,
+    int p_pad, const void* uniq, int n_uniq, const void* w, int n_cols,
+    int block_size, void* out, void* stream) {
+  return dense_launch<__nv_bfloat16>(tok, loc, sc, n_blocks, p_pad, uniq,
+                                     n_uniq, w, n_cols, block_size, out,
+                                     stream);
 }

@@ -16,9 +16,17 @@
 // in one weight slot.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace bm25 {
+
+// An element of scores or weights in f32: a float as it is, a bf16
+// widened exactly (so the f32 instantiations read what they always read).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 constexpr int kRoundThreads = 512;
 constexpr int kRoundWarps = kRoundThreads / 32;  // row owners: row % 16
@@ -64,9 +72,11 @@ __device__ __forceinline__ unsigned long long cta_scan(
 // ([kRoundCounts]) must be zero on entry and is zero again on return;
 // `stage` holds kRoundStage entries, s_scan kRoundWarps values and s_seg
 // kRoundWarps + 1. Ends with a barrier: stage, wst and counts are free.
+// TW: the global table's element (float, or bf16 read widened to f32).
+template <typename TW>
 __device__ __forceinline__ void owner_round(
     const int4 (&ent)[kRoundPer], int block_size, bool staged_w,
-    const float* wst, const float* __restrict__ w, int n_cols, int col,
+    const float* wst, const TW* __restrict__ w, int n_cols, int col,
     float* acc, int4* stage, int* counts, unsigned long long* s_scan,
     int* s_seg) {
   const int tid = threadIdx.x;
@@ -130,9 +140,9 @@ __device__ __forceinline__ void owner_round(
         if (staged_w) {
           wc = wst2[cur * (kRoundCols / 2) + lane];
         } else {
-          const float* wr = w + static_cast<size_t>(cur) * n_cols;
-          wc.x = col < n_cols ? wr[col] : 0.f;
-          wc.y = col + 1 < n_cols ? wr[col + 1] : 0.f;
+          const TW* wr = w + static_cast<size_t>(cur) * n_cols;
+          wc.x = col < n_cols ? to_f32(wr[col]) : 0.f;
+          wc.y = col + 1 < n_cols ? to_f32(wr[col + 1]) : 0.f;
         }
       }
       wv[g] = wc;

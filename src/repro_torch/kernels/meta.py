@@ -20,8 +20,13 @@ from typing import Callable
 import torch
 
 # op overload packet -> cost(*shapes and ints of the op's arguments) ->
-# (flops, bytes); tensors are passed as their shapes
+# (flops, bytes); tensors are passed as their shapes (``launch.costs.Shape``:
+# a tuple whose ``itemsize`` is the element's bytes)
 COSTS: dict = {}
+# op overload packet -> the dtype (by name) its arithmetic runs in, where
+# that is not its first floating-point input's (the bf16 instantiations of
+# K5 and K6 compare and sum in f32)
+COMPUTE_DTYPES: dict = {}
 
 _lock = threading.Lock()
 
@@ -29,12 +34,15 @@ _lock = threading.Lock()
 class MetaOp:
     """``torch.ops.repro_torch.<name>``, defined by ``schema`` (the
     arguments and results, e.g. ``"(Tensor x, int k) -> Tensor"``), with
-    ``fake`` as its ``Meta`` kernel and ``cost`` as its cost formula."""
+    ``fake`` as its ``Meta`` kernel and ``cost`` as its cost formula;
+    ``compute_dtype`` names the dtype its arithmetic runs in where that is
+    not its first floating-point input's."""
 
     def __init__(self, name: str, schema: str, fake: Callable,
-                 cost: Callable):
+                 cost: Callable, compute_dtype: str | None = None):
         self.name, self.schema, self.fake, self.cost = (name, schema, fake,
                                                         cost)
+        self.compute_dtype = compute_dtype
         self._lib = None
 
     def op(self):
@@ -54,6 +62,8 @@ class MetaOp:
 
                 register_flop_formula(packet)(flops)
                 COSTS[packet] = cost
+                if self.compute_dtype is not None:
+                    COMPUTE_DTYPES[packet] = self.compute_dtype
                 self._lib = lib          # keeps the registration alive
         return getattr(torch.ops.repro_torch, self.name)
 

@@ -32,8 +32,10 @@ step (a ``partitioned`` cell) is traced on one rank and its count
 multiplied by the number of shards, the reference's ``shard_map_factor``.
 
 Each op's FLOPs are also filed under its compute dtype (its first
-floating-point input's, else its first output's), so that the roofline can
-divide each share by the card's rate for that type.
+floating-point input's, else its first output's; a kernel's ``meta`` op
+may name another: K5's and K6's bf16 instantiations compute in f32), so
+that the roofline can divide each share by the card's rate for that
+type.
 
 Collectives (``c10d`` ops and the functional ones, seen in the same trace)
 are counted per op: the count, the payload (the result's bytes) and the
@@ -121,11 +123,20 @@ def _nbytes(t) -> float:
     return float(t.numel()) * t.element_size()
 
 
+class Shape(tuple):
+    """A tensor's shape, with its element size in bytes (``itemsize``)."""
+
+    itemsize: int = 4
+
+
 def _shapes(tree):
-    """``tree`` with each tensor replaced by its shape (the kernels'
-    cost formulas take shapes)."""
+    """``tree`` with each tensor replaced by its :class:`Shape` (the
+    kernels' cost formulas take shapes, and their bytes from
+    ``itemsize``)."""
     if isinstance(tree, torch.Tensor):
-        return tuple(tree.shape)
+        s = Shape(tree.shape)
+        s.itemsize = tree.element_size()
+        return s
     if isinstance(tree, (list, tuple)):
         return type(tree)(_shapes(x) for x in tree)
     return tree
@@ -193,6 +204,28 @@ def collective_payload(func, args, out) -> tuple[str, float] | None:
     return kind, sum(_nbytes(t) for t in _tensors(res))
 
 
+def _DTensor():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _FakeTensor():
+    from torch._subclasses.fake_tensor import FakeTensor
+    return FakeTensor
+
+
+def _any_of(cls, tree) -> bool:
+    """Is ``tree`` (an op's arguments or results: tensors, scalars and
+    lists, tuples and dicts of them) or a leaf of it a ``cls``?"""
+    if isinstance(tree, cls):
+        return True
+    if isinstance(tree, (list, tuple)):
+        return any(_any_of(cls, x) for x in tree)
+    if isinstance(tree, dict):
+        return any(_any_of(cls, x) for x in tree.values())
+    return False
+
+
 class CostMode(TorchDispatchMode):
     """Counts every op dispatched while it is on: FLOPs and bytes by
     :func:`op_cost` (in total, by op name, and the FLOPs by
@@ -210,14 +243,24 @@ class CostMode(TorchDispatchMode):
         self.track_live = track_live
         self.peak_live_b = 0.0
         self._skip = {_storage_key(t) for t in _tensors(exclude)}
-        self._live: dict[int, tuple[float, list]] = {}
+        # storage -> [its bytes, the trace's tensors alive on it]
+        self._live: dict[int, list] = {}
+        self._live_b = 0.0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.utils.flop_counter import flop_registry
 
-        from ..kernels.meta import COSTS
+        from ..kernels.meta import COMPUTE_DTYPES, COSTS
 
         kwargs = kwargs or {}
+        if _any_of(_DTensor(), (args, kwargs)):
+            # a partitioned step's op: DTensor's own dispatch runs the
+            # redistributions and the local op, which come back here
+            return NotImplemented
+        if _any_of(_FakeTensor(), (args, kwargs)):
+            # DTensor's shape propagation (global shapes, no data): not an
+            # op of the step
+            return func(*args, **kwargs)
         if func.overloadpacket not in flop_registry and (
                 func.overloadpacket not in COSTS):
             # a composite op (``einsum``, ``matmul``, ``softmax`` under
@@ -228,6 +271,8 @@ class CostMode(TorchDispatchMode):
             if out is not NotImplemented:
                 return out
         out = func(*args, **kwargs)
+        if _any_of(_FakeTensor(), out):
+            return out
         coll = collective_payload(func, args, out)
         if coll is not None:
             kind, payload = coll
@@ -241,7 +286,8 @@ class CostMode(TorchDispatchMode):
         self.flops += flops
         self.bytes += nbytes
         if flops:
-            key = compute_dtype(args, out)
+            key = COMPUTE_DTYPES.get(func.overloadpacket) or compute_dtype(
+                args, out)
             self.flops_by_dtype[key] = (self.flops_by_dtype.get(key, 0.0)
                                         + flops)
         d = self.by_op.setdefault(str(func.overloadpacket),
@@ -258,15 +304,25 @@ class CostMode(TorchDispatchMode):
             key = _storage_key(t)
             if key in self._skip:
                 continue
-            local = getattr(t, "_local_tensor", t)
-            size, refs = self._live.setdefault(
-                key, (float(local.untyped_storage().nbytes()), []))
-            refs.append(weakref.ref(t))
-        for key in [k for k, (_, refs) in self._live.items()
-                    if all(r() is None for r in refs)]:
-            del self._live[key]
-        self.peak_live_b = max(self.peak_live_b, sum(
-            size for size, _ in self._live.values()))
+            entry = self._live.get(key)
+            if entry is None:
+                local = getattr(t, "_local_tensor", t)
+                entry = self._live[key] = [
+                    float(local.untyped_storage().nbytes()), 0]
+                self._live_b += entry[0]
+            entry[1] += 1
+            weakref.finalize(t, self._drop, key)
+        self.peak_live_b = max(self.peak_live_b, self._live_b)
+
+    def _drop(self, key) -> None:
+        """A tensor on storage ``key`` died; the storage leaves the live
+        set with its last one."""
+        entry = self._live.get(key)
+        if entry is not None:
+            entry[1] -= 1
+            if entry[1] == 0:
+                self._live_b -= entry[0]
+                del self._live[key]
 
 
 def trace(fn, args, *, track_live: bool = False) -> dict:

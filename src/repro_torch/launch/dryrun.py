@@ -12,17 +12,20 @@ variable and starts no group. For each cell:
     placements = cell.shardings(mesh, args)
     costs.trace(fn, args)                        # one run under CostMode
 
-A ``partitioned`` cell (``bm25s/score_2m``; the blocked cell's
-``sharded_topk`` variant) is one rank's program over ``DTensor`` shards:
-its arguments are laid out by their placements (``DTensor`` over ``meta``
-shards), rank 0's run is traced, its count is multiplied by the mesh's
-size, and its collectives and its peak of live temporaries are read from
-that trace. Every other cell — the LM, recsys and EGNN cells and the
-default blocked cell — has no partitioned counterpart in the port yet
-(the reference leaves its partitioning to XLA's SPMD partitioner, which
-the port does not have): its global step is traced, its collectives,
-their wire bytes and time and its temporaries are ``null`` (never 0),
-and ``partitioned: false`` carries a note naming the slice they wait for.
+A ``partitioned`` cell (the LM cells, ``bm25s/score_2m``, the blocked
+cell's ``sharded_topk`` variant) is one rank's program over ``DTensor``
+shards: its arguments are laid out by their placements (``DTensor`` over
+``meta`` shards, each on ``dist.sharding.execution_placements``), rank
+0's run is traced under ``dist.sharding.partitioned`` (DTensor's own
+dispatch runs each op's redistributions and its local op, which the cost
+counter sees), its count is multiplied by the mesh's size, and its
+collectives and its peak of live temporaries are read from that trace.
+Every other cell — the recsys and EGNN cells and the default blocked cell
+— has no partitioned counterpart in the port yet (the reference leaves
+its partitioning to XLA's SPMD partitioner, which the port does not
+have): its global step is traced, its collectives, their wire bytes and
+time and its temporaries are ``null`` (never 0), and ``partitioned:
+false`` carries a note naming the slice they wait for.
 
 Record keys differ from the reference's where the port measures something
 else: ``trace_s`` (the build and trace, host seconds) replaces
@@ -68,9 +71,10 @@ HBM_BW = 3.35e12               # B/s, HBM3
 LINK_BW = 50e9                 # B/s a GPU, NDR InfiniBand 400 Gb/s
 
 UNPARTITIONED_NOTE = (
-    "no partitioned counterpart in the port: the global step is traced; "
-    "collectives and per-device temporaries wait for partitioned execution "
-    "of the model cells on DTensor placements (ROADMAP §1, the next slice)")
+    "no partitioned counterpart in the port yet: the global step is traced; "
+    "collectives and per-device temporaries of the recsys and EGNN cells "
+    "and of the default blocked cell wait for their partitioned execution "
+    "on DTensor placements (ROADMAP §1, the next slice)")
 
 
 def peak_flops(dtype: str) -> float:
@@ -159,9 +163,12 @@ def lay_out(args, places, mesh):
     are): what rank 0 of a partitioned step receives."""
     from torch.distributed.tensor import DTensor
 
+    from ..dist.sharding import execution_placements
+
     if isinstance(args, torch.Tensor):
         if all(p.is_replicate() for p in places):
             return args
+        places = execution_placements(places)
         local = torch.empty(local_shape(args.shape, places, mesh),
                             dtype=args.dtype, device="meta")
         return DTensor.from_local(local, mesh, places, run_check=False,
@@ -177,7 +184,11 @@ def run_cell(cell, mesh, *, verbose: bool = True) -> dict:
     """Build, lay out and trace one cell on ``mesh``; the record.
 
     ``trace_s`` is the host seconds of the build and the trace (nothing is
-    lowered or compiled)."""
+    lowered or compiled). A train step's ``microbatches`` are its
+    configured count and the count it runs on the laid-out batch
+    (``train.step.microbatch_count``); other cells' are None."""
+    from ..dist.sharding import partitioned
+    from ..train.step import microbatch_count
     from .costs import trace
 
     t0 = time.perf_counter()
@@ -188,8 +199,14 @@ def run_cell(cell, mesh, *, verbose: bool = True) -> dict:
     n_chips = mesh.size()
     memory = {"argument_size_b": argument_bytes(args, places, mesh),
               "temp_size_b": None}
+    n_mb = getattr(fn, "n_microbatches", None)
+    mb = None if n_mb is None else {"configured": n_mb, "run": n_mb}
     if cell.partitioned:
-        t = trace(fn, lay_out(args, places, mesh), track_live=True)
+        laid = lay_out(args, places, mesh)
+        if mb is not None:
+            mb["run"] = microbatch_count(laid[-1], n_mb)
+        with partitioned(mesh):
+            t = trace(fn, laid, track_live=True)
         flops, nbytes = n_chips * t["flops"], n_chips * t["bytes"]
         by_dtype = {k: n_chips * v for k, v in t["flops_by_dtype"].items()}
         colls, wire = t["collectives"], t["wire_bytes"]
@@ -210,7 +227,7 @@ def run_cell(cell, mesh, *, verbose: bool = True) -> dict:
         "partitioned": cell.partitioned,
         "partition_note": None if cell.partitioned else UNPARTITIONED_NOTE,
         "count_bound": cell.count_bound or None,
-        "memory": memory, "collectives": colls,
+        "memory": memory, "microbatches": mb, "collectives": colls,
         "flops": flops, "bytes": nbytes,
         **roof,
         "device": DEVICE,

@@ -35,8 +35,14 @@ def cosine_schedule(*, peak_lr: float, warmup_steps: int, total_steps: int,
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    """The f32 norm of every leaf together. Over ``DTensor`` leaves (a
+    partitioned step's) the sums are reduced over the mesh and the norm
+    comes back a plain tensor, the same on every rank."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for _, x in tree_paths(tree)))
+    if hasattr(norm, "full_tensor"):
+        norm = norm.full_tensor()
+    return norm
 
 
 def clip_by_global_norm(tree, max_norm: float):

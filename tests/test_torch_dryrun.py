@@ -39,7 +39,7 @@ KEYS = {"arch", "shape", "kind", "mesh", "axes", "n_chips", "trace_s",
         "bytes_per_device", "collective_wire_bytes_per_device",
         "compute_s", "memory_s", "collective_s", "bottleneck",
         "flops_by_dtype", "peak_flops", "model_flops", "useful_flops_ratio", "step_time_bound_s",
-        "roofline_fraction", "device", "note", "ok"}
+        "roofline_fraction", "device", "note", "ok", "microbatches"}
 
 SCRIPT = textwrap.dedent("""
     import json, sys
@@ -88,6 +88,8 @@ def results(tmp_path_factory):
 def test_cell_traces_and_produces_roofline(results, key):
     r = results[0][key]
     assert set(r) == KEYS
+    mb = r["microbatches"]          # a train step's; unpartitioned: as made
+    assert mb is None or mb["run"] == mb["configured"] >= 1
     assert r["ok"] and r["flops"] > 0 and r["flops_per_device"] > 0
     assert r["bottleneck"] in ("compute", "memory", "collective")
     assert r["memory"]["argument_size_b"] > 0
