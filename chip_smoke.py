@@ -67,9 +67,9 @@ Phases (any failure exits non-zero; nothing is caught):
    beside the host ``fragment_plan`` (tables byte-equal) and profiled
    with ``torch.profiler``, ``torch.cummax`` and ``torch.cumsum`` timed
    over a stream of the planner's size, the host survivor estimate
-   timed; each kernel bitwise equal to its CPU twin on the first 64 query
-   columns (every lane of the first CTA's column group; every column is
-   scored on its own), K1, K2 and K4 also timed at k = 1 and k = 200
+   timed; each kernel bitwise equal to its CPU twin on 32 of the first 64
+   query columns (one a lane of the first CTA's column group; every
+   column is scored on its own), K1, K2 and K4 also timed at k = 1 and k = 200
    beside k = 100 (the fold's share; K2 and K4 select k = 200 in two
    passes) and K1 on the first 32 columns (the split), timed with
    CUDA events beside its twin on the card (atomics there, so values agree
@@ -85,7 +85,7 @@ Phases (any failure exits non-zero; nothing is caught):
    4,096]`` segments, then the merge), through ``score_batch`` +
    ``ops.topk`` on the eager scorer's ``DeviceIndex`` with
    ``suggest_p_max``, and ``BM25Retriever`` end to end from texts (the
-   Zipf corpus rendered as words, cut to 50,000 documents: tokenizing
+   Zipf corpus rendered as words, cut to 25,000 documents: tokenizing
    the full 2,097,152 in Python would take most of the time budget; a
    ragged last K5 segment), the launch counts read around the three. The
    unfused board's values bitwise equal the fused K2 board's, its ids
@@ -100,9 +100,10 @@ Phases (any failure exits non-zero; nothing is caught):
    with ``device="cpu"``; the fused batch's merge of K2's 409,600
    candidates a query through ``ops.topk`` (K5, then the rank merge)
    bitwise equal, ids and values, to a full ``rank_order`` sort of them,
-   both timed; K6 bitwise equal to its CPU twin on 128
-   columns, 32 of each 64-column CTA (one a lane), and K5 to its twin on
-   the card; K6 and K5 timed with CUDA events
+   both timed; K6 bitwise equal to its CPU twin on 64 columns, 16 of
+   each 64-column CTA (every lane twice, once at each of its two
+   columns), and K5 to its twin on the card; K6 and K5 timed with CUDA
+   events
    in turns with ``torch.sparse.mm`` of the doc × token CSR by the
    ``[V, 256]`` weights (K6's library call) and ``torch.topk(dense, 100,
    dim=1)`` (K5's): library, kernel, kernel, library; their twins on the
@@ -308,13 +309,23 @@ Phases (any failure exits non-zero; nothing is caught):
    f32 cell's, K6-bf16's and K5-bf16's alone, and in turns with
    ``torch.sparse.mm`` (bf16 CSR) and ``torch.topk``. The launch counts
    are read around the cells' own calls (K5 and K6, f32 and bf16, must
-   launch, nothing else);
-15. the LM path partitioned on DTensor placements over the one-rank
-   NCCL mesh (``dist.sharding.partitioned``, after phase 13): one
-   gemma3-1b ``decode_32k`` step at full width and one step of phase
-   13's cut ``train_4k``, each bitwise equal to the same cell's function
-   on plain tensors (logits and every cache layer; loss, params and
-   moments), each partitioned step timed beside the plain one.
+   launch, nothing else). The default ``score_blocked_2m`` also runs
+   partitioned, its function over ``DTensor`` blocks under
+   ``dist.sharding.partitioned`` (K6 on the rank's blocks, K5 on its
+   segments, one all-gather of the candidates, the merge): its board
+   bitwise the plain cell's, its median ms beside the plain one's;
+15. the cells partitioned on DTensor placements over the one-rank NCCL
+   mesh (``dist.sharding.partitioned``, after phase 13): one gemma3-1b
+   ``decode_32k`` step at full width and one step of phase 13's cut
+   ``train_4k``; the four recsys archs' ``serve_p99`` and
+   ``retrieval_cand`` at phase 11's widths (K5 over the rank's
+   candidates); DLRM's ``train_batch`` step at phase 13's size; the
+   EGNN step of Cora's shape and of 128 molecules (each train step twice,
+   the first timed cold, the second warm and compared). Each is bitwise
+   equal to the same cell's function on plain tensors (logits and every
+   cache layer; boards; loss, params and moments), or its differing
+   tensor is named and held within the card-against-CPU bounds; each
+   partitioned call is timed beside the plain one.
 
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
@@ -342,7 +353,8 @@ cells (K5 alone launches there), and K5 carries ``phase11_ms``
 K6 carry ``phase14_ms`` (each cell's median ms); the last two entries are
 K5-bf16 and K6-bf16 (phase 14's, at B = 256; ``ms_b1024`` at B = 1,024;
 they are left out when phase 14 is cut); ``launches_phase15`` counts
-every kernel in phase 15 (all 0).
+every kernel in phase 15's partitioned calls (K5 alone, in the
+partitioned ``retrieval_cand``).
 """
 
 from __future__ import annotations
@@ -374,15 +386,19 @@ FP32_OPS_PER_S = 67e12         # CUDA-core FP32 (FMA counted as 2)
 EXACT_ATOL = 1e-4              # boards vs ScipyBM25 (different sum order)
 ATOL, RTOL = 1e-4, 1e-6        # kernel vs twin on the card (atomics there)
 # K1-K4's query columns held bitwise at full width: a CTA takes a group of
-# 64 columns, a lane two of them
-GROUP_TWIN_COLS = tuple(range(64))
-# K6's: a CTA takes 64 columns, a lane two of them; 32 of each CTA's, one
-# a lane (its first in even CTAs, its second in odd ones)
-K6_TWIN_COLS = tuple(64 * c + 2 * j + c % 2 for c in range(4)
-                     for j in range(32))
+# 64 columns, a lane two of them; one a lane of the first group, its first
+# in even lanes and its second in odd ones (cut from all 64: the CPU twin's
+# time is the host's)
+GROUP_TWIN_COLS = tuple(2 * j + j % 2 for j in range(32))
+# K6's: a CTA takes 64 columns, a lane two of them; 16 of each CTA's: the
+# even lanes' first column in CTA 0, the odd lanes' in CTA 1, their second
+# columns in CTAs 2 and 3 (every lane and both its columns, every CTA; the
+# CPU twin's time is the host's)
+K6_TWIN_COLS = tuple(64 * c + 2 * j + c // 2 for c in range(4)
+                     for j in range(c % 2, 32, 2))
 TOPK_BLOCK = 4096              # ops.topk's segment: K5's block
 TOPK_ROW = 9000                # phase 2's K5 rows: ragged for 512 and 4096
-TEXT_DOCS = 50_000             # BM25Retriever's text corpus (phase 6 cut)
+TEXT_DOCS = 25_000             # BM25Retriever's text corpus (phase 6 cut)
 WORD_LETTERS = "bcdfghjklmnpqrstvwxz"   # token id -> a word (phase 6)
 REGIMES = ("auto", "gathered", "blocked", "pruned")
 N_SHARDS = 4                   # engine shards on the one card (phase 4)
@@ -1404,9 +1420,11 @@ def phase_dense(dr, idx, oracle, rng) -> list:
         launches=launches[k2.LAUNCHES_DENSE.name], max_abs_err=err6,
         tolerance=f"atol {ATOL} + rtol {RTOL} vs the twin on the card "
                   "(atomics there)", twin_bitwise=bitwise6,
-        twin_bitwise_at=("full width, query columns 64c + 2j + c % 2 "
-                         "(c < 4, j < 32: every lane of every column-CTA),"
-                         " CPU twin; phase 2: all columns, 20,011 docs, "
+        twin_bitwise_at=("full width, query columns 64c + 2j + c // 2 "
+                         "(c < 4, j < 32, j % 2 = c % 2: every lane at "
+                         "both its columns, every column-CTA), CPU twin; "
+                         "phase 2: all columns, "
+                         "20,011 docs, "
                          "B 8, 64, 100 and 256, U up to 8,192"),
         ms=ms6, plain_ms=plain6_ms, library_ms=lib6_ms,
         library="torch.sparse.mm (doc x token CSR by [V, B] weights)",
@@ -2308,6 +2326,7 @@ def phase_sharded(idx, oracle, rng, phase3, phase14=None) -> dict:
     from repro_torch.core import pad_queries, query_posting_budget
     from repro_torch.core import retrieval as rmod
     from repro_torch.core.scoring import batch_posting_budget, bucket_pow2
+    from repro_torch.dist import sharding
     from repro_torch.kernels import COUNTERS
     from repro_torch.kernels import blockwise_topk as k5
     from repro_torch.launch.mesh import make_mesh_from
@@ -2419,7 +2438,7 @@ def phase_sharded(idx, oracle, rng, phase3, phase14=None) -> dict:
         check(adaptive.trail == [steps["p_used", last]],
               "steady traffic runs one bucket a call")
         ids, vals, over = steps["board", last]
-        group = rmod._shard_group(mesh, SHARD_AXES)
+        group = sharding.flat_group(mesh, SHARD_AXES)
         times["merge"] = cuda_ms(lambda: rmod._all_gather_merge(
             ids, vals, over, group, 1, TOP_K), reps=10)
         launches = {c.name: c.n for c in COUNTERS}
@@ -2485,7 +2504,9 @@ def phase_cells(mesh, arrs, idx, oracle, rng, blk, qs, res3) -> dict:
     batch's table padded to ``U_MAX``; K6 then K5 (``ops.topk``); sampled
     queries exact against ``ScipyBM25``, the board tie-aware equal to
     phase 3's blocked board of the batch; ``sharded_topk=True`` at world
-    size 1 bitwise equal to it. Each cell: the median ms of 5 calls after
+    size 1 bitwise equal to it, and so the default cell partitioned (its
+    function over ``DTensor`` blocks under ``dist.sharding.partitioned``,
+    timed beside the plain one). Each cell: the median ms of 5 calls after
     a warm-up (CUDA events) and the peak device memory, split into the
     resident bytes by what holds them and the call's temporaries. The
     launch counts are read around the cells' own calls (K5 and K6; the
@@ -2503,6 +2524,7 @@ def phase_cells(mesh, arrs, idx, oracle, rng, blk, qs, res3) -> dict:
     from repro_torch.core.retrieval import topk_numpy
     from repro_torch.core.scoring import DeviceIndex as ScoringIndex
     from repro_torch.core.scoring import score_batch
+    from repro_torch.dist import sharding
     from repro_torch.kernels import COUNTERS, ops
     from repro_torch.kernels import blockwise_topk as k5
     from repro_torch.kernels import bm25_block_score as k2
@@ -2576,6 +2598,12 @@ def phase_cells(mesh, arrs, idx, oracle, rng, blk, qs, res3) -> dict:
     shards = tuple(DTensor.from_local(t, mesh, arrs[0].placements,
                                       run_check=False) for t in blocked)
     ids_s, vals_s = fn_s(*shards, *table)
+    # the default cell partitioned: its own function over DTensor blocks
+    # (K6 on the rank's blocks, K5 on its segments, one all-gather of the
+    # candidates, the merge), after its plain calls
+    with sharding.partitioned(mesh):
+        ids_p, vals_p = fn_b(*shards, *table)
+        ms_p = median_ms(lambda: fn_b(*shards, *table))
     bf = bf16_cells_run(mesh, blocked, table, arrs[0].placements, rng)
     torch.cuda.synchronize()
     launches = {c.name: c.n for c in COUNTERS}
@@ -2674,14 +2702,21 @@ def phase_cells(mesh, arrs, idx, oracle, rng, blk, qs, res3) -> dict:
     same3 = boards_tie_equal(ids_b.cpu().numpy(), vals_b.cpu().numpy(),
                              res3.ids, res3.scores)
     same_s = bits_equal(ids_s, ids_b) and bits_equal(vals_s, vals_b)
+    same_p = bits_equal(ids_p, ids_b) and bits_equal(vals_p, vals_b)
     print(f"[cells] score_blocked_2m: {SHARD_SAMPLES} sampled queries exact "
           f"against ScipyBM25, max |score - oracle| {worst_b:.3g}; "
           f"tie-aware equal to phase 3's blocked board {same3}; "
           f"sharded_topk at world size 1 bitwise equal {same_s}; "
           f"{ms_b:.3f} ms (median of 5, CUDA events), peak "
           f"{peak_b / 1e9:.2f} GB", flush=True)
+    print(f"[cells] score_blocked_2m partitioned (DTensor blocks on the "
+          f"one-rank mesh): board bitwise the plain cell's {same_p}; "
+          f"{ms_p:.3f} ms against the plain cell's {ms_b:.3f} ms (median "
+          f"of 5, CUDA events)", flush=True)
     check(same3, "score_blocked_2m tie-aware equal to phase 3's board")
     check(same_s, "sharded_topk at world size 1 == the default variant")
+    check(same_p, "the partitioned score_blocked_2m == the plain cell")
+    out["score_blocked_2m_partitioned"] = dict(ms=ms_p, bitwise=same_p)
     out.update(launches=launches, overflowed=int(over.sum()),
                under_budget=int(under.size), largest_block=largest,
                split_ms=split, memory=memory)
@@ -3002,8 +3037,9 @@ def median_ms(fn) -> float:
 
 
 def phase_partitioned(seed: int, mesh) -> dict:
-    """Phase 15: the LM path partitioned on DTensor placements over the
-    one-rank NCCL mesh, against the same cells on plain tensors.
+    """Phase 15: the cells partitioned on DTensor placements over the
+    one-rank NCCL mesh, against the same cells on plain tensors: the LM
+    path here, then the recsys and EGNN cells (:func:`partitioned_cells`).
 
     gemma3-1b's ``decode_32k`` at full width (B = 128, 32,768 positions,
     bf16 params drawn on the card, a bf16 cache filled from a seeded
@@ -3017,8 +3053,9 @@ def phase_partitioned(seed: int, mesh) -> dict:
     named by its tensor and held within the card-against-CPU bounds of
     phase 12 or 13). Prints each partitioned step's ms beside the plain
     one's (CUDA events, the median of ``LM_REPS``; the train step one of
-    each). Returns the launch counts (0: no kernel on the path) and the
-    numbers."""
+    each). Returns the numbers and the launch counts of the partitioned
+    calls (the LM path launches no kernel; K5 runs in the partitioned
+    ``retrieval_cand``)."""
     import torch
 
     from repro_torch import configs
@@ -3149,10 +3186,232 @@ def phase_partitioned(seed: int, mesh) -> dict:
     del params, state, batch, new, d_new
     gc.collect()
     torch.cuda.empty_cache()
-    res["launches"] = {c.name: c.n for c in COUNTERS}
-    check(all(n == 0 for n in res["launches"].values()),
+    lm = {c.name: c.n for c in COUNTERS}
+    check(all(n == 0 for n in lm.values()),
           "the partitioned LM path launches no K1-K8 kernel")
+    cells, res["launches"] = partitioned_cells(seed, mesh, compare)
+    res.update(cells)
     return res
+
+
+def one_rank_dtensors(tree, specs, mesh):
+    """``tree`` as ``DTensor`` s under the cell's placements ``specs`` on
+    the one-rank ``mesh``: each rank's shard is the whole tensor, so the
+    tensors are taken as they are (no copy of a table)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import execution_placements
+    check(mesh.size() == 1, "a one-rank mesh")
+    if isinstance(tree, dict):
+        return {k: one_rank_dtensors(v, specs[k], mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(one_rank_dtensors(v, sp, mesh)
+                          for v, sp in zip(tree, specs, strict=True))
+    return DTensor.from_local(tree, mesh, execution_placements(specs),
+                              run_check=False)
+
+
+def partitioned_cells(seed: int, mesh, compare) -> tuple[dict, dict]:
+    """Phase 15's recsys and EGNN cells partitioned on the one-rank NCCL
+    mesh, each against the same function on plain tensors (the plain call
+    first, then the partitioned one, only their outputs kept).
+
+    The four recsys archs' ``serve_p99`` (B = 512) and ``retrieval_cand``
+    (2^20 candidates: K5 over the rank's segments, one all-gather, the
+    merge) at phase 11's widths (DLRM's table cut to ``DLRM_ROW_CAP``
+    rows a field); DLRM's ``train_batch`` step at phase 13's size (B =
+    65,536, ``DLRM_TRAIN_ROW_CAP`` rows a field); the EGNN step of
+    ``full_graph_sm`` (Cora's shape) and of ``molecule`` (128 graphs),
+    each step run twice from the same params and state. The
+    arguments take each cell's placements. Checks: logits, boards, the
+    loss, params and moments bitwise the plain run's (an op that differs
+    is named by its tensor and held within phase 11's or 13's
+    card-against-CPU bounds). Prints each partitioned ms beside the plain
+    one's (CUDA events: the median of ``RECSYS_REPS`` after a warm-up for
+    serving; for training the first step (cold) and the second (warm),
+    whose results are compared). Returns the numbers and the
+    launch counts of the partitioned calls alone (K5 in
+    ``retrieval_cand``)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import egnn as egnn_cfg
+    from repro_torch.configs.common import gnn_train_cell, recsys_cells
+    from repro_torch.data.graphs import batched_molecules
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.kernels import blockwise_topk as k5
+    from repro_torch.models import egnn, recsys
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import init_train_state
+
+    dev = torch.device("cuda")
+    res, launches = {}, {c.name: 0 for c in COUNTERS}
+
+    def drive(run):
+        """The partitioned calls, counted (phase 11's ``drive``)."""
+        for c in COUNTERS:
+            c.reset()
+        with sharding.partitioned(mesh):
+            out = run()
+        torch.cuda.synchronize()
+        for c in COUNTERS:
+            launches[c.name] += c.n
+        return out
+
+    def close(rtol, atol):
+        return lambda a, b_: bool(torch.allclose(
+            a.float(), b_.float(), rtol=rtol, atol=atol))
+
+    # -- recsys serving: serve_p99 and retrieval_cand -----------------------
+    for a, arch in enumerate(RECSYS_ARCHS):
+        t0 = time.perf_counter()
+        cfg = configs.get_config(arch)
+        if arch == "dlrm-mlperf":
+            cfg = replace(cfg, vocab_sizes=tuple(
+                min(v, DLRM_ROW_CAP) for v in cfg.vocab_sizes))
+        cells = {c.shape: c for c in recsys_cells(arch, cfg)}
+        gen = torch.Generator(device=dev).manual_seed(seed * 100 + 150 + a)
+        params = recsys.init_params(gen, cfg, device=dev)
+        for shape in ("serve_p99", "retrieval_cand"):
+            cell = cells[shape]
+            fn, args = cell.build(mesh)
+            specs = cell.shardings(mesh, args)
+            batch = recsys_inputs(cfg, args[1], gen,
+                                  serve=shape == "serve_p99")
+            call = [params, batch]
+            if shape == "retrieval_cand":
+                call.append(recsys_candidates(cfg, args[2].shape[0], gen))
+            d_call = one_rank_dtensors(call, list(specs), mesh)
+            plain_ms = median_ms(lambda: fn(*call))
+            want = fn(*call)
+            part_ms, got = drive(lambda: (median_ms(lambda: fn(*d_call)),
+                                          fn(*d_call)))
+            if shape == "serve_p99":
+                same = compare([got], [want], f"{cell.key} logits",
+                               close(RECSYS_RTOL, RECSYS_ATOL))
+            else:
+                same = all(bits_equal(x, y) for x, y in zip(got, want))
+                tie = same or boards_tie_equal(
+                    *(t.cpu().numpy() for t in (*got, *want)))
+                print(f"[partitioned] {cell.key} board: "
+                      + ("bitwise equal to the plain run" if same else
+                         f"differs; tie-aware equal {tie}"), flush=True)
+                check(tie, f"{cell.key}: the partitioned board tie-aware "
+                      "equal to the plain run's")
+            print(f"[partitioned] {cell.key}: partitioned {part_ms:.3f} ms,"
+                  f" plain {plain_ms:.3f} ms (median of {RECSYS_REPS}, "
+                  f"CUDA events)", flush=True)
+            res[cell.key] = dict(bitwise=same, ms=part_ms,
+                                 plain_ms=plain_ms)
+            del batch, call, d_call, want, got
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[partitioned] {arch} serving done in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def timed(fn):
+        """``fn()``'s result and its CUDA-event ms."""
+        t1 = torch.cuda.Event(enable_timing=True)
+        t2 = torch.cuda.Event(enable_timing=True)
+        t1.record()
+        out = fn()
+        t2.record()
+        torch.cuda.synchronize()
+        return t1.elapsed_time(t2), out
+
+    def train_one(key, cell, init, cfg, batch, s):
+        """Two steps of ``cell`` partitioned, then two on plain tensors,
+        each from the same params and state (the step makes new ones),
+        keeping the second's result: the second steps bitwise equal, or
+        within phase 13's bounds (card against CPU); each first (cold)
+        and second (warm) step timed."""
+        step, args = cell.build(mesh)
+        specs = cell.shardings(mesh, args)
+        opt = step_parts(step)["optimizer"]
+        params = init(torch.Generator(device=dev).manual_seed(s), cfg,
+                      device=dev)
+        state = init_train_state(params, opt)
+        d_args = one_rank_dtensors([params, state, batch], list(specs),
+                                   mesh)
+        cold_ms = timed(lambda: drive(lambda: step(*d_args)))[0]
+        part_ms, d_new = timed(lambda: drive(lambda: step(*d_args)))
+        d_new = tree_map(lambda x: x.to_local() if sharding.is_dtensor(x)
+                         else x, d_new)
+        del d_args
+        plain_cold_ms = timed(lambda: step(params, state, batch))[0]
+        plain_ms, plain = timed(lambda: step(params, state, batch))
+        same = compare(
+            [d_new[2]["loss"], d_new[0], d_new[1]["m"], d_new[1]["v"]],
+            [plain[2]["loss"], plain[0], plain[1]["m"], plain[1]["v"]],
+            f"{key} loss, params, m and v",
+            close(TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL))
+        print(f"[partitioned] {key}: partitioned step {part_ms:.3f} ms "
+              f"warm, {cold_ms:.3f} ms cold; plain {plain_ms:.3f} ms warm, "
+              f"{plain_cold_ms:.3f} ms cold (the second and the first "
+              "step, CUDA events)", flush=True)
+        res[key] = dict(bitwise=same, ms=part_ms, cold_ms=cold_ms,
+                        plain_ms=plain_ms, plain_cold_ms=plain_cold_ms)
+        del plain
+        del params, state, d_new
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- one DLRM train_batch step at phase 13's size ----------------------
+    t0 = time.perf_counter()
+    arch = "dlrm-mlperf"
+    rcfg = configs.get_config(arch)
+    rcfg = replace(rcfg, vocab_sizes=tuple(
+        min(v, DLRM_TRAIN_ROW_CAP) for v in rcfg.vocab_sizes))
+    (cell,) = [c for c in recsys_cells(arch, rcfg, train_microbatches=1)
+               if c.kind == "train"]
+    gen = torch.Generator(device=dev).manual_seed(seed * 100 + 160)
+    batch = recsys_inputs(rcfg, cell.build(mesh)[1][2], gen, serve=False)
+    train_one(cell.key, cell, recsys.init_params, rcfg, batch,
+              seed * 100 + 161)
+    del batch
+    print(f"[partitioned] {cell.key} (cut) done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- EGNN: Cora's shape and 128 molecules ------------------------------
+    for i, shape in enumerate(("full_graph_sm", "molecule")):
+        t0 = time.perf_counter()
+        d = egnn_cfg.SHAPE_DEFS[shape]
+        ecfg = egnn_cfg.shape_config(shape)
+        cell = gnn_train_cell("egnn", ecfg, shape, n_nodes=d["n_nodes"],
+                              n_edges=d["n_edges"],
+                              n_graphs=d.get("n_graphs"))
+        bspec = cell.build(mesh)[1][2]
+        n_pad = bspec["edges"].shape[0]
+        gen = torch.Generator(device=dev).manual_seed(seed * 100 + 170 + i)
+        if shape == "molecule":
+            mb = batched_molecules(d["n_graphs"], n_nodes=30, n_edges=64,
+                                   d_feat=ecfg.d_feat, seed=seed)
+            mb.pop("n_graphs")
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in mb.items()}
+        else:
+            batch = egnn_batch_on_card(ecfg, d["n_nodes"], d["n_edges"],
+                                       n_pad, gen)
+        check(all(tuple(batch[k].shape) == tuple(bspec[k].shape)
+                  for k in bspec), f"{cell.key}: the batch as its spec")
+        train_one(cell.key, cell, egnn.init_params, ecfg, batch,
+                  seed * 100 + 180 + i)
+        del batch
+        print(f"[partitioned] {cell.key} done in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[partitioned] launches of the partitioned cells {launches}",
+          flush=True)
+    check(launches[k5.LAUNCHES.name] > 0,
+          "K5 launched in the partitioned retrieval_cand")
+    check(all(n == 0 for name, n in launches.items()
+              if name != k5.LAUNCHES.name),
+          "the partitioned cells launch K5 alone")
+    return res, launches
 
 
 def one_rank_mesh():
@@ -4637,9 +4896,9 @@ def phase_bm25(args) -> tuple[list, dict]:
     dev = dr.device
     kernels = []
     tol = f"atol {ATOL} + rtol {RTOL} vs the twin on the card"
-    group_at = (f"full width, query columns 0-{len(GROUP_TWIN_COLS) - 1} "
-                "(the first CTA column group, every lane), CPU twin; phase "
-                "2: all columns, 100,003 docs, B 8 and 64")
+    group_at = (f"full width, {len(GROUP_TWIN_COLS)} query columns of "
+                "0-63 (the first CTA column group, one a lane), CPU twin; "
+                "phase 2: all columns, 100,003 docs, B 8 and 64")
     # every kernel on the last batch's operands (served under each regime)
     pk = dr.pack_batch(served[-1][2])
     n_u = pk.uniq_batch.size
@@ -4877,10 +5136,11 @@ def phase_bm25(args) -> tuple[list, dict]:
         replaces="src/repro/kernels/bm25_gather_score.py:177",
         launches=ladder_launches["bm25_gather_score_topk"],
         max_abs_err=err, tolerance=tol, twin_bitwise=bitwise,
-        twin_bitwise_at=(f"shard 0's host-rung gather, query columns "
-                         f"0-{len(GROUP_TWIN_COLS) - 1} (the first CTA "
-                         "column group, every lane), CPU twin; phase 2: "
-                         "all columns, 100,003 docs, B 8 and 64"),
+        twin_bitwise_at=(f"shard 0's host-rung gather, "
+                         f"{len(GROUP_TWIN_COLS)} query columns of 0-63 "
+                         "(the first CTA column group, one a lane), CPU "
+                         "twin; phase 2: all columns, 100,003 docs, B 8 "
+                         "and 64"),
         n_chunks=gp.n_chunks, p_pad=gp.p_pad, sum_df=gp.sum_df,
         gather_ms=gather_ms, ms=ms, plain_ms=plain_ms, split_ms=cuts4,
         bytes=nbytes, ops=nops))
@@ -4935,7 +5195,7 @@ def phase_bm25(args) -> tuple[list, dict]:
         return kernels, p10["launches"], None
     for kd in kernels[4:6]:                                 # K5, K6
         kd["phase14_ms"] = {key: p14[key]["ms"] for key in (
-            "score_2m", "score_blocked_2m")}
+            "score_2m", "score_blocked_2m", "score_blocked_2m_partitioned")}
     kernels[4]["phase14_split_ms"] = {                      # K5's share
         key: p14["split_ms"][key] for key in ("k5", "topk")}
     kernels[5]["phase14_split_ms"] = {                      # K6's share

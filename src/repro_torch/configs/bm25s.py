@@ -15,13 +15,19 @@ Two cells (extra, beyond the 39 assigned ones):
                       ``DTensor`` shards.
   score_blocked_2m  — beyond-paper batched path: the block-bucketed layout
                       streamed once for the whole query batch. The reference
-                      lowers it from its jnp oracles so that GSPMD can shard
-                      the HLO; the port's function is one device's, K6
-                      (``bm25_block_score``) and K5 (``ops.topk``). With
+                      lowers it from its jnp oracles and leaves its
+                      partitioning to GSPMD, which gathers the full [C, B]
+                      scores to every chip; the port's function is K6
+                      (``bm25_block_score``) and K5 (``ops.topk``). On
+                      ``DTensor`` blocks it is one rank's program: K6 over
+                      the rank's blocks, K5 over its 4,096-doc segments, one
+                      all-gather of the candidate boards, the rank merge
+                      (the scores are never gathered). With
                       ``sharded_topk=True`` it is the reference's
                       ``shard_map`` variant: a top-k a rank over its own
-                      blocks, global ids from the shard id, one all-gather,
-                      a merge by ``rank_order``.
+                      blocks (merged before the gather), global ids from
+                      the shard id, one all-gather, a merge by
+                      ``rank_order``.
 
 ``kernels.ref.bm25_block_score_ref`` and ``core.retrieval.blockwise_topk``
 are the plain versions of the blocked cell, for the tests only: at full
@@ -35,6 +41,7 @@ import math
 import torch
 
 from ..core.variants import BM25Params
+from ..dist import sharding
 from ..dist.sharding import spec_placements
 from .common import Cell, sds
 
@@ -92,7 +99,6 @@ def _score_2m_cell() -> Cell:
     flops = 2.0 * QUERY_BATCH * P_MAX * 1.0
     return Cell("bm25s", "score_2m", "retrieval", build, shardings, flops,
                 note="paper-faithful gather+segment_sum (extra cell)",
-                partitioned=True,
                 count_bound="score_batch's slots at their bound: every "
                             "query gathers its whole p_max budget, "
                             "B · p_max a shard")
@@ -124,6 +130,23 @@ def _score_blocked_cell(*, doc_block: int | None = None,
                                block_size=doc_block)
         return out.permute(2, 0, 1).reshape(batch, -1)
 
+    def rank_scored(token_ids, local_doc, scores, uniq, weights):
+        """:func:`scored` over each rank's own blocks (``DTensor`` blocks
+        split on dim 0, the table replicated): the ``[B, n]`` scores split
+        on dim 1 as the blocks are, never gathered."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        local = scored(*(t.to_local() for t in (token_ids, local_doc,
+                                                scores)),
+                       *(sharding.replicated_local(t) for t in (uniq,
+                                                                weights)))
+        n = n_blocks * doc_block
+        return DTensor.from_local(
+            local, token_ids.device_mesh,
+            [Shard(1) if p.is_shard() else Replicate()
+             for p in token_ids.placements], run_check=False,
+            shape=(batch, n), stride=(n, 1))
+
     def build(mesh):
         from ..kernels import ops
 
@@ -134,7 +157,12 @@ def _score_blocked_cell(*, doc_block: int | None = None,
                  sds((u_max, batch), score_dtype))
         if not sharded_topk:
             def fn(token_ids, local_doc, scores, uniq, weights):
-                flat = scored(token_ids, local_doc, scores, uniq, weights)
+                if sharding.is_partitioned(token_ids):
+                    flat = rank_scored(token_ids, local_doc, scores, uniq,
+                                       weights)
+                else:
+                    flat = scored(token_ids, local_doc, scores, uniq,
+                                  weights)
                 vals, idx = ops.topk(flat, k, block=4096)
                 return idx, vals
 
@@ -164,7 +192,7 @@ def _score_blocked_cell(*, doc_block: int | None = None,
     # useful work: one multiply-add per (posting, query) with avg df hit rate
     flops = 2.0 * batch * N_DOCS * AVG_UNIQUE_TOKENS * (Q_MAX / N_VOCAB)
     return Cell("bm25s", "score_blocked_2m", "retrieval", build, shardings,
-                flops, note=note, partitioned=sharded_topk)
+                flops, note=note)
 
 
 def cells() -> list[Cell]:

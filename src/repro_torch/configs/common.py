@@ -7,6 +7,11 @@ built — plus how to give placements for a mesh (DTensor placement lists,
 one a tensor, by ``dist.sharding``'s rules) and a MODEL_FLOPS estimate for
 the roofline's useful-compute ratio.
 
+Every cell's function is also its partitioned step: given its arguments
+laid out by its placements (``dist.sharding.distribute``) and run under
+``dist.sharding.partitioned``, it runs as one rank's program over the
+``DTensor`` shards, with its collectives.
+
 It holds the LM family's cells (``train_4k``, ``prefill_32k``,
 ``decode_32k``, ``long_500k``), the GNN family's train cells and the
 recsys family's (``train_batch``, ``serve_p99``, ``serve_bulk``,
@@ -50,11 +55,6 @@ class Cell:
     note: str = ""
     remesh: Callable | None = None  # (mesh) -> mesh: logical re-mesh of the
                                     # SAME devices (perf variants only)
-    partitioned: bool = False       # the step runs as one rank's program
-                                    # over DTensor shards (the LM cells:
-                                    # dist.sharding.partitioned; the bm25s
-                                    # sharded steps issue their own
-                                    # collectives)
     count_bound: str = ""           # what a data-dependent size is counted
                                     # at by the dry run ("" = exact)
 
@@ -250,7 +250,7 @@ def lm_train_cell(arch: str, cfg: transformer.LMConfig, *,
     flops = 6.0 * lm_active_params(cfg) * tokens \
         + 3.0 * _lm_attn_flops(cfg, global_batch, seq_len, seq_len)
     return Cell(arch, f"train_{seq_len // 1024}k", "train", build, shardings,
-                flops, note=note, remesh=remesh, partitioned=True)
+                flops, note=note, remesh=remesh)
 
 
 def lm_prefill_cell(arch: str, cfg: transformer.LMConfig, *,
@@ -266,8 +266,7 @@ def lm_prefill_cell(arch: str, cfg: transformer.LMConfig, *,
 
     flops = 2.0 * lm_active_params(cfg) * batch * seq_len \
         + _lm_attn_flops(cfg, batch, seq_len, seq_len) / 2.0  # causal half
-    return Cell(arch, shape_name, "prefill", build, shardings, flops,
-                partitioned=True)
+    return Cell(arch, shape_name, "prefill", build, shardings, flops)
 
 
 def lm_decode_cell(arch: str, cfg: transformer.LMConfig, *,
@@ -313,7 +312,7 @@ def lm_decode_cell(arch: str, cfg: transformer.LMConfig, *,
     flops = 2.0 * lm_active_params(cfg) * batch \
         + _lm_attn_flops(cfg, batch, 1, seq_len)
     return Cell(arch, shape_name, "decode", build, shardings, flops,
-                note=note, partitioned=True)
+                note=note)
 
 
 LM_SHAPES = {
@@ -484,7 +483,9 @@ def recsys_retrieval_cell(arch: str, cfg: recsys.RecsysConfig, *,
     card, K5's twin on the CPU, in the port's tie order (value desc, then
     index asc). The reference selects here with its plain two-stage
     top-k (``lax.top_k`` twice); K5 is the port's choice, with the same
-    tie rule.
+    tie rule. Partitioned, each rank scores its own candidates and
+    ``ops.topk`` runs K5 over them, one all-gather of the winners and the
+    merge (a rank's candidates may end inside a segment of 4,096).
     """
     def build(mesh):
         def fn(params, batch, candidates):

@@ -19,7 +19,6 @@ every kernel, twin and merge follows it.
 from __future__ import annotations
 
 import math
-import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -545,10 +544,6 @@ def _device_gathered_topk(indptr, doc_ids, scores, nonocc, q_tokens,
             torch.tensor(total > p_max, device=dev))
 
 
-# the flattened groups of several shard axes, created once a mesh
-_SHARD_GROUPS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
-
-
 def _mesh_sizes(mesh, shard_axes: tuple[str, ...]) -> list[int]:
     names = tuple(mesh.mesh_dim_names or ())
     missing = [a for a in shard_axes if a not in names]
@@ -559,35 +554,6 @@ def _mesh_sizes(mesh, shard_axes: tuple[str, ...]) -> list[int]:
         raise ValueError(f"list the shard axes {shard_axes} in the mesh's "
                          f"order {names}")
     return [int(mesh.shape[names.index(a)]) for a in shard_axes]
-
-
-def _shard_group(mesh, shard_axes: tuple[str, ...]):
-    """The flattened group of several ``shard_axes`` that holds this rank.
-
-    Created here the first time for a mesh: every rank of the default
-    group creates every such group, in the same order (a collective), and
-    keeps the one it belongs to (None on a rank outside the mesh). One
-    axis needs no new group: None, and the step takes the mesh's own
-    group for that axis.
-    """
-    import torch.distributed as tdist
-
-    if len(shard_axes) == 1:
-        return None                   # resolved on a member at call time
-    groups = _SHARD_GROUPS.setdefault(mesh, {})
-    if shard_axes not in groups:
-        names = tuple(mesh.mesh_dim_names)
-        grid = mesh.mesh
-        dims = [names.index(a) for a in shard_axes]
-        rest = [d for d in range(grid.dim()) if d not in dims]
-        n = math.prod(int(grid.shape[d]) for d in dims)
-        me, mine = tdist.get_rank(), None
-        for row in grid.permute(*rest, *dims).reshape(-1, n).tolist():
-            g = tdist.new_group(sorted(row))
-            if me in row:
-                mine = g
-        groups[shard_axes] = mine
-    return groups[shard_axes]
 
 
 def _local(x) -> torch.Tensor:
@@ -631,12 +597,13 @@ def sharded_topk_step(mesh, shard_axes: tuple[str, ...], local_topk, *,
     """
     from torch.utils._pytree import tree_map
 
+    from ..dist import sharding
     from ..launch.mesh import check_mesh_backend
 
     shard_axes = tuple(shard_axes)
     n_shards = math.prod(_mesh_sizes(mesh, shard_axes))
     check_mesh_backend(mesh.device_type)
-    flat_group = _shard_group(mesh, shard_axes)
+    flat_group = sharding.flat_group(mesh, shard_axes)
 
     def step(*args):
         gidx, vals, over = local_topk(shard_id(mesh, shard_axes),

@@ -31,14 +31,18 @@ tensors the step makes count as replicated. The model code keeps its
 plain-tensor path and takes the ``DTensor`` one where its operands are
 ``DTensor`` s inside such a block (:func:`is_partitioned`: outside every
 block, on the plain path, one look at the mesh stack); :func:`split_index`,
-:func:`as_dtensor`, :func:`replicated_local` and :func:`reduced_grad`
-serve its ``local_map`` programs.
+:func:`as_dtensor`, :func:`replicated_local`, :func:`reduced_grad` and
+:func:`gathered_over_data` serve its ``local_map`` programs, whose
+collectives are written out over :func:`axes_group`'s groups with
+:func:`gather_over`, :func:`scatter_sum`, :func:`sum_over` and
+:func:`copy_to`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 
 import torch
 
@@ -229,6 +233,169 @@ def split_index(mesh, placements, dim: int) -> tuple[int, int]:
             i = i * mesh.size(m) + mesh.get_local_rank(m)
             n *= mesh.size(m)
     return i, n
+
+
+def gathered_over_data(w):
+    """``w`` gathered over the mesh's data axes (the FSDP/ZeRO gather of a
+    weight before its use; its backward reduce-scatters the gradient),
+    keeping its other placements. A plain ``w`` is returned as it is."""
+    if not is_partitioned(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    mesh = w.device_mesh
+    dp = data_axes(mesh)
+    return w.redistribute(mesh, [
+        Replicate() if n in dp else p
+        for n, p in zip(mesh.mesh_dim_names, w.placements)])
+
+
+# the flattened groups of several mesh axes, created once a mesh
+_FLAT_GROUPS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def flat_group(mesh, axes: tuple[str, ...]):
+    """The flattened group of several mesh ``axes`` that holds this rank.
+
+    Created here the first time for a mesh: every rank of the default
+    group creates every such group, in the same order (a collective), and
+    keeps the one it belongs to (None on a rank outside the mesh). One
+    axis needs no new group: None (the mesh's own group for that axis,
+    :func:`axes_group`, resolved on a member at call time).
+    """
+    import torch.distributed as tdist
+
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return None
+    groups = _FLAT_GROUPS.setdefault(mesh, {})
+    if axes not in groups:
+        names = tuple(mesh.mesh_dim_names)
+        grid = mesh.mesh
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(grid.dim()) if d not in dims]
+        n = math.prod(int(grid.shape[d]) for d in dims)
+        me, mine = tdist.get_rank(), None
+        for row in grid.permute(*rest, *dims).reshape(-1, n).tolist():
+            g = tdist.new_group(sorted(row))
+            if me in row:
+                mine = g
+        groups[axes] = mine
+    return groups[axes]
+
+
+def axes_group(mesh, axes: tuple[str, ...]):
+    """The process group over the mesh ``axes`` (in the mesh's order) that
+    holds this rank, or None where those axes hold one rank: a collective
+    over it would move nothing."""
+    axes = tuple(axes)
+    if not axes or math.prod(_sizes(mesh)[a] for a in axes) == 1:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return flat_group(mesh, axes)
+
+
+def _waited(y):
+    from torch.distributed import _functional_collectives as funcol
+
+    return y.wait() if isinstance(y, funcol.AsyncCollectiveTensor) else y
+
+
+def _all_reduce(x, group):
+    from torch.distributed import _functional_collectives as funcol
+
+    return _waited(funcol.all_reduce(x, "sum", group))
+
+
+def gather_over(x, group):
+    """The ranks' ``x`` of ``group`` (a process group, or ``(mesh,
+    mesh_dim)``) concatenated on dim 0, in the group's rank order; no
+    gradient."""
+    from torch.distributed import _functional_collectives as funcol
+
+    return _waited(funcol.all_gather_tensor(x.contiguous(), 0, group))
+
+
+def _scatter_rows(x, group):
+    from torch.distributed import _functional_collectives as funcol
+
+    return _waited(funcol.reduce_scatter_tensor(x.contiguous(), "sum", 0,
+                                                group))
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Reduce-scatter on dim 0; the backward all-gathers the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _scatter_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_over(grad, ctx.group), None
+
+
+def scatter_sum(x, group):
+    """The sum over ``group``'s ranks of ``x``, each rank keeping its own
+    block of dim 0 (the inverse of :func:`gather_over`): one
+    reduce-scatter, whose backward all-gathers the gradient."""
+    return _ScatterSum.apply(x, group)
+
+
+class _SumOver(torch.autograd.Function):
+    """Tensors of partial sums, all-reduced over ``group`` in one
+    collective; the backward passes each gradient on as it is (it is the
+    same on every rank: what follows the sum is replicated), and none for
+    a sum the loss does not read."""
+
+    @staticmethod
+    def forward(ctx, group, *parts):
+        ctx.set_materialize_grads(False)
+        widths = [p[0].numel() for p in parts]
+        packed = torch.cat([p.reshape(p.shape[0], -1) for p in parts], 1)
+        whole = _all_reduce(packed, group)
+        return tuple(c.reshape(p.shape).clone() for c, p in zip(
+            whole.split(widths, dim=1), parts))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *grads)
+
+
+def sum_over(parts, group):
+    """The sums over ``group``'s ranks of each of ``parts`` (tensors of one
+    leading size, each rank's partial sums): one all-reduce. The reverse
+    of :func:`copy_to` in a ``local_map`` program whose ranks each take
+    a share of the work and whose result is replicated."""
+    return list(_SumOver.apply(group, *parts))
+
+
+class _CopyTo(torch.autograd.Function):
+    """Tensors as they are; their gradients all-reduced over ``group`` in
+    one collective."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = [g.reshape(-1) for g in grads]
+        whole = _all_reduce(torch.cat(flat), ctx.group)
+        return (None, *(c.view(g.shape) for c, g in zip(
+            whole.split([f.numel() for f in flat]), grads)))
+
+
+def copy_to(xs, group):
+    """Tensors ``xs`` (each the same on every rank of ``group``) handed to
+    work that the ranks share out: their values as they are, their
+    gradients (each rank's share) summed over ``group``, all of them in
+    one all-reduce once the last has come back. The reverse of
+    :func:`sum_over`."""
+    return list(_CopyTo.apply(group, *xs))
 
 
 def reduced_grad(x):

@@ -13,8 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core.retrieval import (missing_doc_ids, rank_order,
-                              splice_default_docs, topk_torch)
+from ..core.retrieval import (_all_gather_merge, missing_doc_ids,
+                              rank_order, splice_default_docs, topk_torch)
+from ..dist import sharding
 from .block_segment_sum import block_segment_sum
 from .blockwise_topk import blockwise_topk
 from .bm25_block_score import bm25_block_score, bm25_block_score_topk
@@ -58,28 +59,92 @@ def topk(x, k: int, *, block: int = 4096
     :func:`~repro_torch.core.retrieval.rank_order` — lossless, since every
     global winner wins its own segment. ``n <= block`` is ranked directly
     with the same order. ``k > n`` raises ``ValueError``.
+
+    On a ``DTensor`` ``x`` whose last dim is split over mesh dims (a
+    partitioned step's scores) stage 1 runs on each rank's own entries
+    (:func:`_partitioned_topk`); the result is then the same plain
+    tensors on every rank.
     """
+    if sharding.is_partitioned(x):
+        return _partitioned_topk(x, k, block)
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None]
-    bsz, n = x.shape
+    n = x.shape[1]
     if not 0 <= k <= n:
         raise ValueError(f"need 0 <= k <= n, got k={k}, n={n}")
     if n <= block or k == 0:
         idx, vals = topk_torch(x, k)
         idx = idx.to(torch.int32)
     else:
-        kb = min(k, block)
-        bvals, bpos = blockwise_topk(x, k=kb, block=block)
-        nb = bvals.shape[0] // bsz
-        base = (torch.arange(nb, dtype=torch.int32, device=x.device)
-                * block)[None, :, None]
-        gidx = torch.where(bpos.view(bsz, nb, kb) >= 0,
-                           bpos.view(bsz, nb, kb) + base, n
-                           ).view(bsz, nb * kb)
-        bvals = bvals.view(bsz, nb * kb)
-        sel = rank_order(bvals, gidx)[:, :k]
-        vals, idx = torch.gather(bvals, 1, sel), torch.gather(gidx, 1, sel)
+        vals, idx = _merge(*_segment_winners(x, k, block), k)
+    if squeeze:
+        return vals[0], idx[0]
+    return vals, idx
+
+
+def _segment_winners(x, k: int, block: int, *, first: int = 0,
+                     n: int | None = None):
+    """Stage 1 of :func:`topk`: K5 over the ``ceil(m / block)`` segments of
+    each row of ``x`` ``[B, m]``, ``kb = min(k, block)`` winners each, as
+    ``[B, nb·kb]`` values and ids: ``first`` + the position in the row,
+    or ``n`` (default ``m``) where a ragged segment has no entry."""
+    bsz, m = x.shape
+    kb = min(k, block)
+    bvals, bpos = blockwise_topk(x, k=kb, block=block)
+    nb = bvals.shape[0] // bsz
+    base = (torch.arange(nb, dtype=torch.int32, device=x.device)
+            * block)[None, :, None]
+    if first:
+        base = base + first
+    gidx = torch.where(bpos.view(bsz, nb, kb) >= 0,
+                       bpos.view(bsz, nb, kb) + base, m if n is None else n
+                       ).view(bsz, nb * kb)
+    return bvals.view(bsz, nb * kb), gidx
+
+
+def _merge(vals, ids, k: int):
+    """Stage 2 of :func:`topk`: the first ``k`` of each row's candidates
+    ``[B, m]`` in :func:`~repro_torch.core.retrieval.rank_order`'s order
+    (value desc, id asc), as ``(values, ids)``."""
+    sel = rank_order(vals, ids)[:, :k]
+    return torch.gather(vals, 1, sel), torch.gather(ids, 1, sel)
+
+
+def _partitioned_topk(x, k: int, block: int):
+    """:func:`topk` of a ``DTensor`` ``x`` (``[n]`` or ``[B, n]``) whose
+    last dim is split evenly over mesh dims (the others replicated): stage
+    1, K5 over the segments of each rank's own ``n / shards`` entries (a
+    segment may then hold part of a global one: still lossless, since
+    every global winner wins its own piece, and ties go by index), then
+    one all-gather of the ``[B, nb·kb]`` candidates over the splitting
+    dims and the rank merge (``core.retrieval._all_gather_merge``, the
+    sharded steps' own). Returns plain tensors, the same on every rank;
+    on one rank, :func:`topk`'s own board."""
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    if any(p.is_partial() or (p.is_shard() and not p.is_shard(last))
+           for p in x.placements):
+        raise ValueError(f"topk takes a tensor split on its last dim, got "
+                         f"{list(x.placements)}")
+    local = x.to_local()
+    squeeze = local.dim() == 1
+    if squeeze:
+        local = local[None]
+    n = x.shape[-1]
+    part, shards = sharding.split_index(mesh, x.placements, last)
+    if n % shards or not 0 < k <= n:
+        raise ValueError(f"need an even split and 0 < k <= n, got n={n} "
+                         f"over {shards} shards, k={k}")
+    vals, gidx = _segment_winners(local, k, block,
+                                  first=part * local.shape[1], n=n)
+    group = sharding.axes_group(mesh, tuple(
+        name for name, p in zip(mesh.mesh_dim_names, x.placements)
+        if p.is_shard()))
+    if group is not None:
+        idx, vals, _ = _all_gather_merge(gidx, vals, None, group, shards, k)
+    else:                                         # one rank holds them all
+        vals, idx = _merge(vals, gidx, k)
     if squeeze:
         return vals[0], idx[0]
     return vals, idx

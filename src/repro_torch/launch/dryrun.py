@@ -12,20 +12,14 @@ variable and starts no group. For each cell:
     placements = cell.shardings(mesh, args)
     costs.trace(fn, args)                        # one run under CostMode
 
-A ``partitioned`` cell (the LM cells, ``bm25s/score_2m``, the blocked
-cell's ``sharded_topk`` variant) is one rank's program over ``DTensor``
-shards: its arguments are laid out by their placements (``DTensor`` over
-``meta`` shards, each on ``dist.sharding.execution_placements``), rank
-0's run is traced under ``dist.sharding.partitioned`` (DTensor's own
-dispatch runs each op's redistributions and its local op, which the cost
-counter sees), its count is multiplied by the mesh's size, and its
-collectives and its peak of live temporaries are read from that trace.
-Every other cell — the recsys and EGNN cells and the default blocked cell
-— has no partitioned counterpart in the port yet (the reference leaves
-its partitioning to XLA's SPMD partitioner, which the port does not
-have): its global step is traced, its collectives, their wire bytes and
-time and its temporaries are ``null`` (never 0), and ``partitioned:
-false`` carries a note naming the slice they wait for.
+Every cell is one rank's program over ``DTensor`` shards: its arguments
+are laid out by their placements (``DTensor`` over ``meta`` shards, each
+on ``dist.sharding.execution_placements``), rank 0's run is traced under
+``dist.sharding.partitioned`` (DTensor's own dispatch runs each op's
+redistributions and its local op, and the cells' ``local_map`` programs
+their written-out collectives, all of which the cost counter sees), its
+count is multiplied by the mesh's size, and its collectives and its peak
+of live temporaries are read from that trace.
 
 Record keys differ from the reference's where the port measures something
 else: ``trace_s`` (the build and trace, host seconds) replaces
@@ -70,12 +64,6 @@ PEAK_FLOPS_F32 = 67e12         # FLOP/s, float32 and every other type
 HBM_BW = 3.35e12               # B/s, HBM3
 LINK_BW = 50e9                 # B/s a GPU, NDR InfiniBand 400 Gb/s
 
-UNPARTITIONED_NOTE = (
-    "no partitioned counterpart in the port yet: the global step is traced; "
-    "collectives and per-device temporaries of the recsys and EGNN cells "
-    "and of the default blocked cell wait for their partitioned execution "
-    "on DTensor placements (ROADMAP §1, the next slice)")
-
 
 def peak_flops(dtype: str) -> float:
     """The card's FLOP/s for an op that computes in ``dtype``."""
@@ -83,10 +71,10 @@ def peak_flops(dtype: str) -> float:
 
 
 def roofline(flops_by_dtype: dict, bytes_global: float,
-             coll_wire_dev: float | None, n_chips: int,
+             coll_wire_dev: float, n_chips: int,
              model_flops: float) -> dict:
-    """The roofline terms (seconds) over the terms that exist, the
-    bottleneck and the useful-compute ratio.
+    """The roofline terms (seconds), the bottleneck and the
+    useful-compute ratio.
 
     ``flops_by_dtype`` (FLOPs by compute dtype) and ``bytes_global`` are
     the traced step's (all devices); per device = ``/ n_chips`` under the
@@ -94,8 +82,7 @@ def roofline(flops_by_dtype: dict, bytes_global: float,
     :func:`peak_flops` of it; ``peak_flops`` in the record is the rate
     that share-weighted sum comes to (the float32 rate for a step with
     no FLOPs), and ``roofline_fraction`` reads ``model_flops`` against it.
-    ``coll_wire_dev`` is one device's wire bytes, or None where the step
-    is not partitioned (then ``collective_s`` is None and takes no part).
+    ``coll_wire_dev`` is one device's wire bytes.
     """
     flops_global = float(sum(flops_by_dtype.values()))
     flops_dev = flops_global / n_chips
@@ -105,11 +92,9 @@ def roofline(flops_by_dtype: dict, bytes_global: float,
     peak = flops_dev / compute_s if compute_s else PEAK_FLOPS_F32
     terms = {"compute_s": compute_s,
              "memory_s": bytes_dev / HBM_BW,
-             "collective_s": (None if coll_wire_dev is None
-                              else coll_wire_dev / LINK_BW)}
-    present = {k: v for k, v in terms.items() if v is not None}
-    bottleneck = max(present, key=present.get)
-    bound = max(present.values())
+             "collective_s": coll_wire_dev / LINK_BW}
+    bottleneck = max(terms, key=terms.get)
+    bound = max(terms.values())
     return {
         "flops_per_device": flops_dev,
         "bytes_per_device": bytes_dev,
@@ -197,25 +182,17 @@ def run_cell(cell, mesh, *, verbose: bool = True) -> dict:
     fn, args = cell.build(mesh)
     places = cell.shardings(mesh, args)
     n_chips = mesh.size()
-    memory = {"argument_size_b": argument_bytes(args, places, mesh),
-              "temp_size_b": None}
+    laid = lay_out(args, places, mesh)
     n_mb = getattr(fn, "n_microbatches", None)
-    mb = None if n_mb is None else {"configured": n_mb, "run": n_mb}
-    if cell.partitioned:
-        laid = lay_out(args, places, mesh)
-        if mb is not None:
-            mb["run"] = microbatch_count(laid[-1], n_mb)
-        with partitioned(mesh):
-            t = trace(fn, laid, track_live=True)
-        flops, nbytes = n_chips * t["flops"], n_chips * t["bytes"]
-        by_dtype = {k: n_chips * v for k, v in t["flops_by_dtype"].items()}
-        colls, wire = t["collectives"], t["wire_bytes"]
-        memory["temp_size_b"] = int(t["peak_live_b"])
-    else:
-        t = trace(fn, args)
-        flops, nbytes = t["flops"], t["bytes"]
-        by_dtype = t["flops_by_dtype"]
-        colls = wire = None
+    mb = None if n_mb is None else {
+        "configured": n_mb, "run": microbatch_count(laid[-1], n_mb)}
+    with partitioned(mesh):
+        t = trace(fn, laid, track_live=True)
+    flops, nbytes = n_chips * t["flops"], n_chips * t["bytes"]
+    by_dtype = {k: n_chips * v for k, v in t["flops_by_dtype"].items()}
+    colls, wire = t["collectives"], t["wire_bytes"]
+    memory = {"argument_size_b": argument_bytes(args, places, mesh),
+              "temp_size_b": int(t["peak_live_b"])}
     t_trace = time.perf_counter() - t0
     roof = roofline(by_dtype, nbytes, wire, n_chips, cell.model_flops)
     names = tuple(mesh.mesh_dim_names)
@@ -224,8 +201,6 @@ def run_cell(cell, mesh, *, verbose: bool = True) -> dict:
         "mesh": "x".join(str(s) for s in mesh.shape),
         "axes": list(names), "n_chips": n_chips,
         "trace_s": round(t_trace, 2),
-        "partitioned": cell.partitioned,
-        "partition_note": None if cell.partitioned else UNPARTITIONED_NOTE,
         "count_bound": cell.count_bound or None,
         "memory": memory, "microbatches": mb, "collectives": colls,
         "flops": flops, "bytes": nbytes,
@@ -234,13 +209,12 @@ def run_cell(cell, mesh, *, verbose: bool = True) -> dict:
         "note": cell.note, "ok": True,
     }
     if verbose:
-        temp = memory["temp_size_b"] or 0
         print(f"[dryrun] {cell.key:42s} mesh={rec['mesh']:9s} "
               f"bottleneck={rec['bottleneck']:10s} "
               f"t_bound={rec['step_time_bound_s']:.3e}s "
               f"args/dev={memory['argument_size_b'] / 2**30:.2f}GiB "
-              f"temp/dev={temp / 2**30:.2f}GiB "
-              f"partitioned={cell.partitioned} (trace {t_trace:.1f}s)",
+              f"temp/dev={memory['temp_size_b'] / 2**30:.2f}GiB "
+              f"(trace {t_trace:.1f}s)",
               flush=True)
     return rec
 

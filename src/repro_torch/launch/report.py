@@ -1,10 +1,7 @@
 """Tables over the dry run's JSON (``launch/dryrun.py``).
 
 The port's counterpart of ``repro.launch.report``: the roofline table of
-one mesh, the dry-run table of every record, and a summary. A term the
-dry run could not give (``null``: the collectives of a step that is not
-partitioned) prints as "—"; the summary counts bottlenecks only over the
-cells that have all three terms.
+one mesh, the dry-run table of every record, and a summary.
 
     PYTHONPATH=src python -m repro_torch.launch.report \\
         [--json build/dryrun_torch.json] [--mode roofline|dryrun|summary]
@@ -15,26 +12,16 @@ from __future__ import annotations
 import argparse
 import json
 
-TERMS = ("compute_s", "memory_s", "collective_s")
-NONE = "—"
+def fmt_bytes(b: float) -> str:
+    return f"{b / 2**30:.2f}"
 
 
-def fmt_bytes(b: float | None) -> str:
-    return NONE if b is None else f"{b / 2**30:.2f}"
-
-
-def fmt_s(x: float | None) -> str:
-    if x is None:
-        return NONE
+def fmt_s(x: float) -> str:
     if x >= 0.1:
         return f"{x:.2f}"
     if x >= 1e-3:
         return f"{1e3 * x:.1f}m"
     return f"{1e6 * x:.0f}u"
-
-
-def _complete(r: dict) -> bool:
-    return all(r.get(t) is not None for t in TERMS)
 
 
 def roofline_table(results: dict, mesh: str) -> str:
@@ -65,11 +52,8 @@ def dryrun_table(results: dict) -> str:
         r = results[key]
         if not r.get("ok"):
             continue
-        if r["collectives"] is None:
-            colls = NONE
-        else:
-            colls = ", ".join(f"{op}:{d['count']}" for op, d in
-                              sorted(r["collectives"].items())) or "-"
+        colls = ", ".join(f"{op}:{d['count']}" for op, d in
+                          sorted(r["collectives"].items())) or "-"
         rows.append(
             f"| {r['arch']}/{r['shape']} | {r['mesh']} | {r['trace_s']:.1f}"
             f" | {r['flops_per_device'] / 1e9:.1f}"
@@ -84,11 +68,9 @@ def summarize(results: dict) -> dict:
     per_mesh = {}
     for mesh in ("16x16", "2x16x16"):
         sub = [r for r in ok if r["mesh"] == mesh]
-        full = [r for r in sub if _complete(r)]
         per_mesh[mesh] = {
             "cells": len(sub),
-            "cells_with_all_terms": len(full),
-            "bottlenecks": {b: sum(1 for r in full if r["bottleneck"] == b)
+            "bottlenecks": {b: sum(1 for r in sub if r["bottleneck"] == b)
                             for b in ("compute", "memory", "collective")},
             "worst_fraction": sorted(
                 ((r["roofline_fraction"], f"{r['arch']}/{r['shape']}")
@@ -96,7 +78,7 @@ def summarize(results: dict) -> dict:
             "most_collective_bound": sorted(
                 ((r["collective_s"] / max(r["step_time_bound_s"], 1e-30),
                   r["collective_s"], f"{r['arch']}/{r['shape']}")
-                 for r in full), reverse=True)[:5],
+                 for r in sub), reverse=True)[:5],
         }
     return per_mesh
 

@@ -20,6 +20,18 @@ static ``n_graphs``. Each layer runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
 messages are recomputed in the backward. The segment plans of the
 destinations and sources are made once a forward and serve every layer.
+
+A partitioned step (``configs.common.gnn_train_cell`` on ``DTensor``
+placements under ``dist.sharding.partitioned``: the edges split over
+every mesh axis, the params and node tensors replicated) runs the
+forward and the loss as one rank's program: each rank plans, gathers
+and sums its own edges, and each layer all-reduces its node sums, the
+mean's sum and its count in one collective (the reference's psum of the
+aggregated messages) before the division; the node MLPs and the readout
+run whole on every rank. The node tensors and the edge MLPs' params
+enter the edge work through ``sharding.copy_to``: their gradients from
+the ranks' edges are summed over the ranks (the edge MLPs' in one
+all-reduce for every layer), so every gradient comes back replicated.
 """
 
 from __future__ import annotations
@@ -33,8 +45,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..sparse.segment_ops import (gather_rows, segment_mean, segment_plan,
-                                  segment_sum)
+from ..dist import sharding
+from ..sparse.segment_ops import gather_rows, segment_plan, segment_sum
 from .common import normal_init, split_keys
 
 
@@ -94,12 +106,15 @@ def init_params(gen: torch.Generator, cfg: EGNNConfig, *,
 
 
 def _layer(cfg: EGNNConfig, lp: dict, h, x, src, dst, edge_attr, valid,
-           n_nodes: int, plans: dict):
-    """One EGNN layer over the (padded) directed edge list."""
-    hi = gather_rows(h, dst, plan=plans["dst"])   # messages flow src -> dst
-    hj = gather_rows(h, src, plan=plans["src"])
-    xi = gather_rows(x, dst, plan=plans["dst"])
-    xj = gather_rows(x, src, plan=plans["src"])
+           n_nodes: int, plans: dict, group=None):
+    """One EGNN layer over the (padded) directed edge list; with a
+    ``group``, over this rank's share of the edges, its node sums summed
+    over the group's ranks."""
+    he, xe = (h, x) if group is None else sharding.copy_to([h, x], group)
+    hi = gather_rows(he, dst, plan=plans["dst"])  # messages flow src -> dst
+    hj = gather_rows(he, src, plan=plans["src"])
+    xi = gather_rows(xe, dst, plan=plans["dst"])
+    xj = gather_rows(xe, src, plan=plans["src"])
     diff = xi - xj                                # [E, 3]
     dist2 = torch.sum(diff * diff, dim=-1, keepdim=True)
     feats = [hi, hj, dist2]
@@ -112,10 +127,12 @@ def _layer(cfg: EGNNConfig, lp: dict, h, x, src, dst, edge_attr, valid,
     coef = _mlp(lp["phi_x"], m)                   # [E, 1]
     upd = diff * coef * valid[:, None]
     seg = plans["seg"]                            # padding -> sentinel
-    x = x + segment_mean(upd, seg.ids, n_nodes, plan=seg)
-
-    # invariant feature update (sum aggregation)
-    agg = segment_sum(m, seg.ids, n_nodes, plan=seg)
+    # the mean's sum and count, and the messages' sum (invariant update)
+    s, cnt, agg = (segment_sum(v, seg.ids, n_nodes, plan=seg)
+                   for v in (upd, upd.new_ones(upd.shape[:1]), m))
+    if group is not None:                         # the ranks' edges: psum
+        s, cnt, agg = sharding.sum_over([s, cnt, agg], group)
+    x = x + s / cnt.clamp_min(1e-9)[:, None]      # segment_mean's
     h = h + _mlp(lp["phi_h"], torch.cat([h, agg], dim=-1))
     return h, x
 
@@ -125,6 +142,49 @@ def forward(cfg: EGNNConfig, params: dict, batch: dict
     """batch: node_feat [N,F], coords [N,3], edges [E,2] (-1 pad),
     optional edge_attr [E,De], optional graph_ids [N] and ``n_graphs``
     (an int: graph readout). Returns (predictions, final coords)."""
+    if sharding.is_partitioned(batch["edges"]):
+        return _rank_program(_forward, cfg, params, batch)
+    return _forward(cfg, params, batch)
+
+
+_EDGE_MLPS = ("phi_e", "phi_x")
+_EDGE_KEYS = ("edges", "edge_attr")
+
+
+def _rank_program(fn, cfg: EGNNConfig, params: dict, batch: dict):
+    """``fn(cfg, params, batch, group)`` (:func:`_forward` or
+    :func:`_loss`) on ``DTensor`` edges split over mesh dims, as one
+    rank's program over its own edges (the module docstring): the params
+    and node tensors taken whole, the results replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from .common import tree_map
+
+    edges = batch["edges"]
+    mesh = edges.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    group = sharding.axes_group(mesh, tuple(
+        n for n, p in zip(mesh.mesh_dim_names, edges.placements)
+        if p.is_shard()))
+    p = tree_map(lambda t: sharding.as_dtensor(t, mesh).redistribute(
+        mesh, rep).to_local(grad_placements=rep), params)
+    b = {k: v.to_local() if k in _EDGE_KEYS else sharding.replicated_local(v)
+         for k, v in batch.items()}
+    if group is not None:
+        mlps = [{k: lp[k] for k in _EDGE_MLPS} for lp in p["layers"]]
+        leaves = []
+        tree_map(leaves.append, mlps)
+        shared = iter(sharding.copy_to(leaves, group))
+        mlps = tree_map(lambda _: next(shared), mlps)
+        p = dict(p, layers=[dict(lp, **m)
+                            for lp, m in zip(p["layers"], mlps)])
+    return tree_map(lambda t: DTensor.from_local(t, mesh, rep,
+                                                 run_check=False)
+                    if isinstance(t, torch.Tensor) else t,
+                    fn(cfg, p, b, group))
+
+
+def _forward(cfg: EGNNConfig, params: dict, batch: dict, group=None):
     nf = batch["node_feat"].to(cfg.dtype)
     x = batch["coords"].to(cfg.dtype)
     edges = batch["edges"]
@@ -143,7 +203,7 @@ def forward(cfg: EGNNConfig, params: dict, batch: dict
 
     def layer(lp, h, x):
         return _layer(cfg, lp, h, x, src, dst, edge_attr, valid, n_nodes,
-                      plans)
+                      plans, group)
 
     for lp in params["layers"]:
         # remat: messages recomputed in backward
@@ -159,7 +219,13 @@ def forward(cfg: EGNNConfig, params: dict, batch: dict
 
 def loss_fn(cfg: EGNNConfig, params: dict, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    pred, _ = forward(cfg, params, batch)
+    if sharding.is_partitioned(batch["edges"]):
+        return _rank_program(_loss, cfg, params, batch)
+    return _loss(cfg, params, batch)
+
+
+def _loss(cfg: EGNNConfig, params: dict, batch: dict, group=None):
+    pred, _ = _forward(cfg, params, batch, group)
     if cfg.readout == "graph":
         target = batch["targets"]                          # [G, n_out]
         loss = torch.mean((pred - target) ** 2)

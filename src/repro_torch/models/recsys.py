@@ -20,6 +20,17 @@ adds each row's gradients into the table in a fixed order
 adds with atomics on CUDA). The products are
 ``torch.matmul`` / ``einsum`` in f32, as the reference computes them
 outside any kernel.
+
+A partitioned step (the recsys cells on ``DTensor`` placements under
+``dist.sharding.partitioned``: tables row-sharded and the other weights
+split on a dim over the data axes, the batch over the data axes, or
+``retrieval_cand``'s candidates over every axis) runs the model as one
+rank's program on its own rows (:func:`_local_forward`): every weight but
+the tables gathered over the data axes first (FSDP), a lookup gathering
+the ids a rank's rows serve and reduce-scattering the rows
+(:class:`_RowShards`); a CTR model scores each rank's own candidates
+(:func:`retrieval_scores`). Which path runs is decided once an entry
+point (``sharding.is_partitioned``).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..dist import sharding
 from ..sparse.segment_ops import gather_rows
 from .common import normal_init, split_keys
 
@@ -81,14 +93,108 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     Ids are clamped before the gather (so no id faults) and the rows of
     out-of-range ids are filled in place afterwards. The gather is
     :func:`gather_rows`: ``index_select``'s rows, with a backward that sums
-    each table row's gradients in input order.
+    each table row's gradients in input order. A partitioned step's table
+    (:class:`_RowShards`, or a ``DTensor``) takes the row program of
+    :meth:`_RowShards.take`.
     """
+    if isinstance(table, _RowShards):
+        return table.take(ids)
+    if sharding.is_partitioned(table) or sharding.is_partitioned(ids):
+        return _partitioned_take(table, ids)
     n = table.shape[0]
     ids = torch.where(ids < 0, ids + n, ids)
     bad = (ids < 0) | (ids >= n)
     rows = gather_rows(table, ids.clamp(0, n - 1).reshape(-1))
     rows = rows.view(*ids.shape, table.shape[1])
     return rows.masked_fill_(bad[..., None], float("nan"))
+
+
+def _rows_in(t: torch.Tensor, ids: torch.Tensor, off: int) -> torch.Tensor:
+    """Rows ``ids`` of a table of which ``t`` holds rows ``[off, off +
+    len(t))``: :func:`gather_rows`'s rows, a zero row for an id outside
+    them."""
+    loc = ids.reshape(-1) - off
+    inside = (loc >= 0) & (loc < t.shape[0])
+    rows = gather_rows(t, loc.clamp(0, t.shape[0] - 1))
+    return torch.where(inside[:, None], rows, rows.new_zeros(()))
+
+
+class _RowShards:
+    """A rank's shard ``local`` of a table whose rows are split over mesh
+    dims (placements ``tp``), looked up by ids placed ``ip`` (each split
+    on dim 0 or replicated), inside one rank's program.
+
+    :meth:`take` is the row program: over each mesh dim that splits both
+    the rows and the ids, the ids are all-gathered; each rank gathers the
+    rows it holds (zeros for the rest); the pieces are summed back,
+    reduce-scattered over those dims (each rank keeps its own ids' rows)
+    and all-reduced over the dims that split the rows alone, one nonzero
+    term a row, so the rows come out exact. The NaN rule reads the global
+    row count: an id outside the whole table gives one NaN row. The
+    backward of each rank's gather sums the gradients of its own rows in
+    a fixed order (``gather_rows``). Where no dim of more than one rank
+    splits the rows, it is the plain gather."""
+
+    def __init__(self, local, mesh, tp, ip, n_rows: int):
+        if any(p.is_shard() and not p.is_shard(0) for p in [*tp, *ip]):
+            raise ValueError(f"a table split on rows and ids split on dim "
+                             f"0, got {tp} and {ip}")
+        self.local, self.mesh = local, mesh
+        self.shape, self.device = (n_rows, local.shape[1]), local.device
+        split = [m for m, p in enumerate(tp)
+                 if p.is_shard() and mesh.size(m) > 1]
+        self.gather = [m for m in split if ip[m].is_shard()]
+        self.sum_group = sharding.axes_group(mesh, tuple(
+            mesh.mesh_dim_names[m] for m in split if not ip[m].is_shard()))
+        part, n_part = sharding.split_index(mesh, tp, 0)
+        self.off = part * -(-n_rows // n_part) if split else None
+
+    def take(self, ids):
+        n = self.shape[0]
+        ids = torch.where(ids < 0, ids + n, ids)
+        bad = (ids < 0) | (ids >= n)
+        i = ids.clamp(0, n - 1).reshape(-1)
+        if self.off is None:
+            r = gather_rows(self.local, i)
+        else:
+            for m in self.gather:
+                i = sharding.gather_over(i, (self.mesh, m))
+            r = _rows_in(self.local, i, self.off)
+            for m in reversed(self.gather):
+                r = sharding.scatter_sum(r, (self.mesh, m))
+            if self.sum_group is not None:
+                (r,) = sharding.sum_over([r], self.sum_group)
+        r = r.view(*ids.shape, self.shape[1])
+        return r.masked_fill(bad[..., None], float("nan"))
+
+
+def _row_grads(tp, ip) -> list:
+    """The placements of a row-split table's gradient as a rank's program
+    leaves it: its own where the rows are split, ``Partial`` where they
+    are not but the ids are (each rank's ids add to every row), else
+    replicated."""
+    from torch.distributed.tensor import Partial
+
+    return [t if t.is_shard() else Partial() if i.is_shard() else t
+            for t, i in zip(tp, ip)]
+
+
+def _partitioned_take(table, ids):
+    """:func:`take_rows` on a ``DTensor`` table or ids: the row program
+    (:class:`_RowShards`) under ``local_map``, the rows placed as their
+    ids."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = (table if sharding.is_dtensor(table) else ids).device_mesh
+    table, ids = (sharding.as_dtensor(t, mesh) for t in (table, ids))
+    tp, ip = list(table.placements), list(ids.placements)
+
+    def rows(t, i):
+        return _RowShards(t, mesh, tp, ip, table.shape[0]).take(i)
+
+    return local_map(rows, out_placements=ip, in_placements=(tp, ip),
+                     in_grad_placements=(_row_grads(tp, ip), ip),
+                     device_mesh=mesh, redistribute_inputs=True)(table, ids)
 
 
 def _mlp_init(gen, dims, *, device):
@@ -357,8 +463,56 @@ def init_params(gen: torch.Generator, cfg: RecsysConfig, *,
     return _INIT[cfg.model](gen, cfg, device=dev)
 
 
+_TABLES = ("table", "item_emb")
+
+
+def _partitioned(params: dict, batch: dict) -> bool:
+    table = next(params[k] for k in _TABLES if k in params)
+    return sharding.is_partitioned(table) or any(
+        sharding.is_partitioned(v) for v in batch.values())
+
+
+def _local_forward(fn, cfg: RecsysConfig, params: dict, batch: dict):
+    """``fn(cfg, params, batch)`` on ``DTensor`` params and batch as one
+    rank's program on its own rows of the batch (every leaf split alike on
+    dim 0, or replicated): every weight but the tables is gathered over
+    the data axes first (FSDP; its gradient, each rank's rows' share,
+    leaves ``Partial`` over the dims that split the batch and is
+    reduce-scattered back), each table is a :class:`_RowShards`, and the
+    result is split as the batch is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from .common import tree_map
+
+    mesh = next(v for v in (*params.values(), *batch.values())
+                if sharding.is_dtensor(v)).device_mesh
+    bp = next((list(v.placements) for v in batch.values()
+               if sharding.is_dtensor(v)), [Replicate()] * mesh.ndim)
+    wgrad = [Partial() if p.is_shard() else Replicate() for p in bp]
+
+    def weight(w):
+        return sharding.gathered_over_data(sharding.as_dtensor(
+            w, mesh)).to_local(grad_placements=wgrad)
+
+    local = {}
+    for k, v in params.items():
+        if k in _TABLES:
+            t = sharding.as_dtensor(v, mesh)
+            tp = list(t.placements)
+            local[k] = _RowShards(t.to_local(grad_placements=_row_grads(
+                tp, bp)), mesh, tp, bp, t.shape[0])
+        else:
+            local[k] = tree_map(weight, v)
+    out = fn(cfg, local, {k: v.to_local() if sharding.is_dtensor(v) else v
+                          for k, v in batch.items()})
+    return DTensor.from_local(out, mesh, bp, run_check=False)
+
+
 def forward(cfg: RecsysConfig, params: dict, batch: dict) -> torch.Tensor:
-    return _FORWARD[cfg.model](cfg, params, batch)
+    fn = _FORWARD[cfg.model]
+    if _partitioned(params, batch):
+        return _local_forward(fn, cfg, params, batch)
+    return fn(cfg, params, batch)
 
 
 def loss_fn(cfg: RecsysConfig, params: dict, batch: dict
@@ -384,25 +538,72 @@ def _bce(logits, labels):
 
 def retrieval_scores(cfg: RecsysConfig, params: dict, batch: dict,
                      candidates: torch.Tensor) -> torch.Tensor:
-    """Score a query-user against [Nc] candidate items (batched dot)."""
-    if cfg.model == "sasrec":
-        h = sasrec_hidden(cfg, params, batch["history"])[:, -1]   # [B, D]
+    """Score a query-user against [Nc] candidate items (batched dot).
+
+    On ``DTensor`` candidates each rank scores its own: a sequence model's
+    dot takes the rank's candidate rows, a CTR model runs its forward on
+    the rank's ``b × nc_local`` rows; the scores are split on dim 1 as the
+    candidates are on dim 0."""
+    if cfg.model in ("sasrec", "mind"):
+        # the user tower: [B, D] (SASRec's last state) or [B, K, D]
+        tower = _TOWER[cfg.model]
+        if _partitioned(params, batch):
+            u = _local_forward(tower, cfg, params, batch)
+        else:
+            u = tower(cfg, params, batch)
         cand = take_rows(params["item_emb"], candidates)          # [Nc, D]
-        return h @ cand.T                                         # [B, Nc]
-    if cfg.model == "mind":
-        v = mind_interests(cfg, params, batch["history"])         # [B, K, D]
-        cand = take_rows(params["item_emb"], candidates)
-        return torch.einsum("bkd,nd->bkn", v, cand).amax(dim=1)   # max-interest
-    # CTR models: candidate id occupies the item field (field 0 by
-    # convention), whatever that field's vocabulary
-    b = batch["sparse"].shape[0]
-    nc = candidates.shape[0]
-    sparse = batch["sparse"].repeat_interleave(nc, dim=0)         # a copy
-    sparse[:, 0] = candidates.repeat(b)
-    rep = {"sparse": sparse}
-    if cfg.n_dense:
-        rep["dense"] = batch["dense"].repeat_interleave(nc, dim=0)
-    return forward(cfg, params, rep).reshape(b, nc)
+        if cfg.model == "sasrec":
+            return u @ cand.T                                     # [B, Nc]
+        return torch.einsum("bkd,nd->bkn", u, cand).amax(dim=1)   # max-interest
+    if sharding.is_partitioned(candidates):
+        return _partitioned_ctr_scores(cfg, params, batch, candidates)
+    rep = _ctr_rows(batch["sparse"], batch["dense"] if cfg.n_dense else None,
+                    candidates)
+    return forward(cfg, params, rep).reshape(batch["sparse"].shape[0],
+                                             candidates.shape[0])
+
+
+def _ctr_rows(sparse, dense, cand):
+    """A CTR model's ``retrieval_scores`` batch: each of the ``b`` users'
+    rows once a candidate (``b × nc`` rows, user-major), the candidate id
+    in the item field (field 0 by convention, whatever that field's
+    vocabulary); ``dense`` None where the model has no dense features."""
+    nc = cand.shape[0]
+    rows = sparse.repeat_interleave(nc, dim=0)                    # a copy
+    rows[:, 0] = cand.repeat(sparse.shape[0])
+    rep = {"sparse": rows}
+    if dense is not None:
+        rep["dense"] = dense.repeat_interleave(nc, dim=0)
+    return rep
+
+
+_TOWER = {
+    "sasrec": lambda cfg, p, b: sasrec_hidden(cfg, p, b["history"])[:, -1],
+    "mind": lambda cfg, p, b: mind_interests(cfg, p, b["history"])}
+
+
+def _partitioned_ctr_scores(cfg, params, batch, candidates):
+    """A CTR model's ``retrieval_scores`` on ``DTensor`` candidates: each
+    rank builds the ``b × nc_local`` rows of its own candidates (the
+    batch, replicated, taken whole) and runs the forward on them as a
+    batch split like the candidates; its ``[b, nc_local]`` logits are its
+    block of the scores' dim 1."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = candidates.device_mesh
+    cp = list(candidates.placements)
+    local = candidates.to_local()
+    b, nc = batch["sparse"].shape[0], local.shape[0]
+    rep = _ctr_rows(sharding.replicated_local(batch["sparse"]),
+                    sharding.replicated_local(batch["dense"])
+                    if cfg.n_dense else None, local)
+    rep = {key: DTensor.from_local(x, mesh, cp, run_check=False)
+           for key, x in rep.items()}
+    logits = forward(cfg, params, rep).to_local().reshape(b, nc)
+    return DTensor.from_local(
+        logits, mesh, [Shard(1) if p.is_shard() else p for p in cp],
+        run_check=False, shape=(b, candidates.shape[0]),
+        stride=(candidates.shape[0], 1))
 
 
 def reduced(cfg: RecsysConfig, **overrides) -> RecsysConfig:

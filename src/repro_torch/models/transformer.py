@@ -252,16 +252,7 @@ def _w(lp: dict, name: str, dt) -> torch.Tensor:
     the reference's partitioner does it; its backward reduce-scatters the
     gradient) and keeps its "model" split, so the product runs on the
     Megatron layout."""
-    w = lp[name].to(dt)
-    if not sharding.is_partitioned(w):
-        return w
-    from torch.distributed.tensor import Replicate
-
-    mesh = w.device_mesh
-    dp = sharding.data_axes(mesh)
-    return w.redistribute(mesh, [
-        Replicate() if n in dp else p
-        for n, p in zip(mesh.mesh_dim_names, w.placements)])
+    return sharding.gathered_over_data(lp[name].to(dt))
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

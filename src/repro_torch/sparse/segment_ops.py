@@ -82,15 +82,19 @@ def plan_sum(plan: SegmentPlan, values) -> torch.Tensor:
 
 class _SegmentSum(torch.autograd.Function):
     """:func:`plan_sum` whose backward is the gather of the output's
-    gradient by id (zero for a dropped row): no sum, so no order."""
+    gradient by id (zero for a dropped row): no sum, so no order. A sum
+    that reaches the loss on no path passes no gradient back."""
 
     @staticmethod
     def forward(ctx, values, plan):
         ctx.plan = plan
+        ctx.set_materialize_grads(False)
         return plan_sum(plan, values)
 
     @staticmethod
     def backward(ctx, grad):
+        if grad is None:
+            return None, None
         plan = ctx.plan
         pad = grad.new_zeros((1, *grad.shape[1:]))
         return torch.cat([grad, pad]).index_select(0, plan.ids), None

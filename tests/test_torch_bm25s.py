@@ -73,9 +73,7 @@ def test_cells_equal_the_reference():
         assert (c.kind, c.model_flops, c.note) == (r.kind, r.model_flops,
                                                    r.note)
         assert c.remesh is None and r.remesh is None
-    assert [c.partitioned for c in cells] == [True, False]
     assert "p_max" in cells[0].count_bound and not cells[1].count_bound
-    assert bm25s._score_blocked_cell(sharded_topk=True).partitioned
 
 
 def test_blocked_arguments_equal_the_reference_at_full_width():

@@ -11,9 +11,9 @@ file; ``launch.report``'s three tables run over that file. The records
 carry their keys, ``flops > 0``, a bottleneck in {compute, memory,
 collective}, ``compute_s`` at the f32 rate for these f32 cells (and the
 roofline divides each dtype's FLOPs by its own rate); ``score_2m`` its one all-gather of S · B · (2 · kk + 1) · 4
-bytes and a peak of live temporaries; the unpartitioned cells ``null``
-collectives (never 0) with ``partitioned: false`` and its note. No TPU
-figure stands in ``launch/``.
+bytes and a peak of live temporaries; every record a partitioned step's:
+a ``collectives`` dict, temporaries, and on a mesh whose data axis holds
+two ranks or more wire bytes. No TPU figure stands in ``launch/``.
 """
 
 import json
@@ -34,7 +34,7 @@ CELLS = [("egnn", "molecule"), ("sasrec", "serve_p99"),
          ("mind", "retrieval_cand"), ("bm25s", "score_2m"),
          ("bm25s", "score_blocked_2m")]
 KEYS = {"arch", "shape", "kind", "mesh", "axes", "n_chips", "trace_s",
-        "partitioned", "partition_note", "count_bound", "memory",
+        "count_bound", "memory",
         "collectives", "flops", "bytes", "flops_per_device",
         "bytes_per_device", "collective_wire_bytes_per_device",
         "compute_s", "memory_s", "collective_s", "bottleneck",
@@ -94,8 +94,7 @@ def test_cell_traces_and_produces_roofline(results, key):
     assert r["bottleneck"] in ("compute", "memory", "collective")
     assert r["memory"]["argument_size_b"] > 0
     assert r["step_time_bound_s"] == max(
-        r[t] for t in ("compute_s", "memory_s", "collective_s")
-        if r[t] is not None)
+        r[t] for t in ("compute_s", "memory_s", "collective_s"))
     assert r["device"] == "NVIDIA H100 80GB HBM3, 700 W"
     # every one of these cells computes in f32: the f32 rate, not bf16's
     assert sum(r["flops_by_dtype"].values()) == pytest.approx(r["flops"])
@@ -106,13 +105,13 @@ def test_cell_traces_and_produces_roofline(results, key):
 
 def test_roofline_divides_each_dtype_by_its_peak():
     r = dryrun.roofline({"bfloat16": 8 * 989.4e12, "float32": 8 * 67e12},
-                        0.0, None, 8, 8 * 989.4e12)
+                        0.0, 0.0, 8, 8 * 989.4e12)
     assert r["compute_s"] == pytest.approx(2.0)
-    assert r["bottleneck"] == "compute" and r["collective_s"] is None
+    assert r["bottleneck"] == "compute" and r["collective_s"] == 0.0
     assert r["peak_flops"] == pytest.approx((989.4e12 + 67e12) / 2)
     assert r["roofline_fraction"] == pytest.approx(989.4e12 / 2 / (
         (989.4e12 + 67e12) / 2))
-    bf16 = dryrun.roofline({"bfloat16": 989.4e12}, 0.0, None, 1, 0.0)
+    bf16 = dryrun.roofline({"bfloat16": 989.4e12}, 0.0, 0.0, 1, 0.0)
     assert bf16["compute_s"] == pytest.approx(1.0)
     assert bf16["peak_flops"] == pytest.approx(989.4e12)
 
@@ -122,7 +121,6 @@ def test_score_2m_gathers_its_candidates_once(results, mesh, n):
     r = results[0][f"bm25s/score_2m@{mesh}"]
     kk = min(bm25s.TOP_K, bm25s.N_DOCS // n)
     payload = n * bm25s.QUERY_BATCH * (2 * kk + 1) * 4
-    assert r["partitioned"] and r["partition_note"] is None
     assert r["collectives"] == {"all-gather": {
         "count": 1, "bytes": payload, "wire_bytes": payload}}
     assert r["collective_wire_bytes_per_device"] == payload
@@ -134,15 +132,28 @@ def test_score_2m_gathers_its_candidates_once(results, mesh, n):
 @pytest.mark.parametrize("key", ["egnn/molecule@1x8", "sasrec/serve_p99@1x8",
                                  "mind/retrieval_cand@1x8",
                                  "bm25s/score_blocked_2m@1x8"])
-def test_unpartitioned_cells_have_null_collectives(results, key):
+def test_every_cell_is_traced_partitioned(results, key):
+    """The recsys, EGNN and default blocked cells run as one rank's
+    program like every other: a ``collectives`` dict (counts, payload and
+    wire bytes), temporaries, and wire bytes on a mesh whose data axis
+    holds two ranks or more (on the (1, 8) mesh only EGNN's edges, the
+    candidates and the blocks, split over every axis, cross ranks); their
+    records again on the production meshes (``main``'s file)."""
     r = results[0][key]
-    assert r["partitioned"] is False and "next slice" in r[
-        "partition_note"]
-    for field in ("collectives", "collective_wire_bytes_per_device",
-                  "collective_s"):
-        assert r[field] is None, field
-    assert r["memory"]["temp_size_b"] is None
-    assert r["bottleneck"] in ("compute", "memory")
+    assert isinstance(r["collectives"], dict)
+    assert r["collective_wire_bytes_per_device"] == sum(
+        d["wire_bytes"] for d in r["collectives"].values())
+    assert r["collective_s"] == pytest.approx(
+        r["collective_wire_bytes_per_device"] / dryrun.LINK_BW)
+    assert r["memory"]["temp_size_b"] > 0
+    if not key.startswith("sasrec"):
+        assert r["collective_wire_bytes_per_device"] > 0
+    if key.startswith("bm25s"):
+        for mesh in ("16x16", "2x16x16"):
+            big = results[1][f"bm25s/score_blocked_2m@{mesh}"]
+            assert big["collective_wire_bytes_per_device"] > 0
+            assert big["memory"]["temp_size_b"] > 0
+            assert list(big["collectives"]) == ["all-gather"]
 
 
 def test_argument_bytes_are_one_devices(results):
@@ -165,14 +176,12 @@ def test_main_writes_both_meshes_and_the_report_reads_them(results):
     assert saved["bm25s/score_2m@2x16x16"]["n_chips"] == 512
     table = report.roofline_table(saved, "16x16")
     assert table.count("\n") == 3
-    blocked = [ln for ln in table.splitlines() if "score_blocked" in ln][0]
-    assert "| — |" in blocked                 # no collective term
-    assert "—" in report.dryrun_table(saved)
+    assert "all-gather:1" in report.dryrun_table(saved)
     summary = report.summarize(saved)
     for mesh in ("16x16", "2x16x16"):
         s = summary[mesh]
-        assert s["cells"] == 2 and s["cells_with_all_terms"] == 1
-        assert sum(s["bottlenecks"].values()) == 1
+        assert s["cells"] == 2
+        assert sum(s["bottlenecks"].values()) == 2
 
 
 def test_a_fake_group_serves_any_mesh(results):
@@ -182,9 +191,10 @@ def test_a_fake_group_serves_any_mesh(results):
     assert results[0]["fake_serves"] == ["cuda", "cpu"]
 
 
-def test_report_prints_null_terms_as_a_dash():
-    assert report.fmt_s(None) == report.fmt_bytes(None) == "—"
+def test_report_formats_seconds_and_gib():
     assert report.fmt_s(0.25) == "0.25" and report.fmt_s(2e-3) == "2.0m"
+    assert report.fmt_s(3e-6) == "3u"
+    assert report.fmt_bytes(3 * 2**29) == "1.50"
 
 
 def test_no_tpu_figure_in_launch():

@@ -144,7 +144,7 @@ def test_main_runs_the_bm25s_variants_on_a_fake_group(runs, variant):
     saved = runs[1]
     rec = saved[f"bm25s/score_blocked_2m#{variant}@1x8"]
     assert rec["ok"] and rec["variant"] == variant
-    assert rec["partitioned"] and rec["n_chips"] == 8
+    assert rec["n_chips"] == 8
     assert rec["flops"] > 0 and rec["collectives"]
     assert rec["memory"]["temp_size_b"] > 0
     # K6 and K5 compute in f32 in either instantiation
