@@ -67,9 +67,10 @@ Phases (any failure exits non-zero; nothing is caught):
    beside the host ``fragment_plan`` (tables byte-equal) and profiled
    with ``torch.profiler``, ``torch.cummax`` and ``torch.cumsum`` timed
    over a stream of the planner's size, the host survivor estimate
-   timed; each kernel bitwise equal to its CPU twin on 32 of the first 64
-   query columns (one a lane of the first CTA's column group; every
-   column is scored on its own), K1, K2 and K4 also timed at k = 1 and k = 200
+   timed; each kernel bitwise equal to its CPU twin on the first 64 query
+   columns (the first CTA's column group, every lane at both its columns;
+   every column is scored on its own), K1, K2 and K4 also timed at k = 1
+   and k = 200
    beside k = 100 (the fold's share; K2 and K4 select k = 200 in two
    passes) and K1 on the first 32 columns (the split), timed with
    CUDA events beside its twin on the card (atomics there, so values agree
@@ -100,10 +101,10 @@ Phases (any failure exits non-zero; nothing is caught):
    with ``device="cpu"``; the fused batch's merge of K2's 409,600
    candidates a query through ``ops.topk`` (K5, then the rank merge)
    bitwise equal, ids and values, to a full ``rank_order`` sort of them,
-   both timed; K6 bitwise equal to its CPU twin on 64 columns, 16 of
-   each 64-column CTA (every lane twice, once at each of its two
-   columns), and K5 to its twin on the card; K6 and K5 timed with CUDA
-   events
+   both timed; K6 bitwise equal to its CPU twin on 128 columns, 32 of
+   each 64-column CTA (every lane, its first column in CTAs 0 and 2 and
+   its second in 1 and 3), and K5 to its twin on the card; K6 and K5
+   timed with CUDA events
    in turns with ``torch.sparse.mm`` of the doc × token CSR by the
    ``[V, 256]`` weights (K6's library call) and ``torch.topk(dense, 100,
    dim=1)`` (K5's): library, kernel, kernel, library; their twins on the
@@ -192,10 +193,18 @@ Phases (any failure exits non-zero; nothing is caught):
    ``ScipyBM25`` on 10 sampled queries and tie-aware equal to phase 3's
    gathered board of its batch, the gathered board to the classic one;
    CUDA-event times of both steps and of the all-gather + merge; K5 must
-   launch. Then ``python -m repro_torch.launch.serve`` on the card at the
-   reference's defaults (20,000 docs, 4 shards, 100 queries, k = 10; it
-   must print ``degraded 0/100``) and with ``--rescale 2``, each exiting
-   0.
+   launch. The CPU twins of phases 5, 6 and 9 (K1-K4, K6, K1/K3 at 1,024
+   rows) run in a pool of ``TWIN_WORKERS`` processes at the lowest CPU
+   priority behind the card work that follows them and are joined after
+   phase 14: each verdict is printed and checked then, and a miss fails
+   the run as before. Then ``python -m repro_torch.launch.serve`` on the
+   card at the reference's defaults (20,000 docs, 4 shards, 100 queries,
+   k = 10; it must print ``degraded 0/100``) and with ``--rescale 2``,
+   each exiting 0. Phase 7's two graphs are drawn on a host thread from
+   the start of phase 10 on. A ``[background]`` line at the start of
+   phase 10, of phase 14 and of the launcher says how many twin jobs are
+   still pending and whether the graphs are drawn, so that each host-timed
+   number says what it shared the CPU with.
 11. after phase 7, every earlier tensor freed: the recsys serving family
    at its configs' widths (``repro_torch.configs``: DLRM-MLPerf, AutoInt,
    SASRec, MIND). DLRM is **cut**: its concatenated table is 96.1 GB in
@@ -271,7 +280,9 @@ Phases (any failure exits non-zero; nothing is caught):
    a fixed batch (the loss must fall), then through ``train.loop.
    run_training`` half of them into a checkpoint (bitwise equal to the
    straight run there) and the rest resumed from it (bitwise equal to the
-   straight run's end), the other microbatch count (LM and recsys: the
+   straight run's end; ``train_4k``'s round trip **cut** to
+   ``LM_RESUME_LAYERS`` layers at full width, its loop run without a save
+   at full depth), the other microbatch count (LM and recsys: the
    clipped grads within the dtype's tolerance, the params as above) and
    one step with int8 compression (the same loss, finite params). Each
    prints its step's ms (CUDA events, the median after the first),
@@ -325,7 +336,15 @@ Phases (any failure exits non-zero; nothing is caught):
    equal to the same cell's function on plain tensors (logits and every
    cache layer; boards; loss, params and moments), or its differing
    tensor is named and held within the card-against-CPU bounds; each
-   partitioned call is timed beside the plain one.
+   partitioned call is timed beside the plain one. Then the partitioned
+   ``ops.topk`` on uneven splits (``f4_partitioned_topk``): the ranks'
+   stage, ``ops.rank_candidates`` (K5), for every virtual rank of a
+   3-way, a 4-way and a 2 x 2 split of 2^20 + 12,345 columns (B = 256, k
+   = 100; then 250 columns, pieces shorter than k, and 5, an empty
+   piece), f32 and bf16, at the offsets ``dist.sharding.shard_extent``
+   gives, merged by ``core.retrieval._all_gather_merge``: bitwise the
+   plain ``ops.topk`` on the card; ``k = 0`` through the ``DTensor``
+   entry gives the plain empty boards.
 
 With ``--save-board-operands DIR`` phase 5 also writes K2's and K4's
 operands and keyword arguments there (``torch.save``, ~3.5 GB at full
@@ -354,12 +373,17 @@ K6 carry ``phase14_ms`` (each cell's median ms); the last two entries are
 K5-bf16 and K6-bf16 (phase 14's, at B = 256; ``ms_b1024`` at B = 1,024;
 they are left out when phase 14 is cut); ``launches_phase15`` counts
 every kernel in phase 15's partitioned calls (K5 alone, in the
-partitioned ``retrieval_cand``).
+partitioned ``retrieval_cand``), and K5 and K5-bf16 carry
+``launches_phase15_f4`` (the F4 check's ranks' stages) and
+``f4_bitwise``. Before them a ``[seconds]`` line gives each phase's host
+seconds (set-up: corpus, index, device build) as one JSON object, and a
+``[twins]`` line the CPU twins' seconds and how long their join waited.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import subprocess
@@ -386,16 +410,16 @@ FP32_OPS_PER_S = 67e12         # CUDA-core FP32 (FMA counted as 2)
 EXACT_ATOL = 1e-4              # boards vs ScipyBM25 (different sum order)
 ATOL, RTOL = 1e-4, 1e-6        # kernel vs twin on the card (atomics there)
 # K1-K4's query columns held bitwise at full width: a CTA takes a group of
-# 64 columns, a lane two of them; one a lane of the first group, its first
-# in even lanes and its second in odd ones (cut from all 64: the CPU twin's
-# time is the host's)
-GROUP_TWIN_COLS = tuple(2 * j + j % 2 for j in range(32))
-# K6's: a CTA takes 64 columns, a lane two of them; 16 of each CTA's: the
-# even lanes' first column in CTA 0, the odd lanes' in CTA 1, their second
-# columns in CTAs 2 and 3 (every lane and both its columns, every CTA; the
-# CPU twin's time is the host's)
-K6_TWIN_COLS = tuple(64 * c + 2 * j + c // 2 for c in range(4)
-                     for j in range(c % 2, 32, 2))
+# 64 columns, a lane two of them; the whole first group, every lane at
+# both its columns
+GROUP_TWIN_COLS = tuple(range(64))
+# K6's: a CTA takes 64 columns, a lane two of them; 32 of each CTA's, one
+# a lane (its first in even CTAs, its second in odd ones)
+K6_TWIN_COLS = tuple(64 * c + 2 * j + c % 2 for c in range(4)
+                     for j in range(32))
+TWIN_WORKERS = 4               # processes that run CPU twins behind the card
+TWIN_THREADS = 2               # threads a twin process
+TWIN_CHUNK = 16                # query columns a twin job scores
 TOPK_BLOCK = 4096              # ops.topk's segment: K5's block
 TOPK_ROW = 9000                # phase 2's K5 rows: ragged for 512 and 4096
 TEXT_DOCS = 25_000             # BM25Retriever's text corpus (phase 6 cut)
@@ -496,6 +520,7 @@ MOE_RTOL = MOE_ATOL = 1e-4     # moe_block vs the per-token formula, f32
 # phase 13: training at full width (train/, the three families' train cells)
 TRAIN_STEPS = 4                # straight steps on a fixed batch (2 + 2 resumed)
 TRAIN_LM_BATCH = 4             # train_4k's global batch (cut from 256)
+LM_RESUME_LAYERS = 2           # train_4k's checkpoint round trip (cut: 26)
 DLRM_TRAIN_ROW_CAP = 2 ** 19   # rows a DLRM field keeps in training (cut)
 PRODUCTS_TRAIN_EDGES = 2 ** 23  # ogb_products' edges in training (cut)
 EGNN_BYTES_PER_EDGE = 4_800    # one EGNN layer's recompute + backward, f32
@@ -984,26 +1009,184 @@ def boards_equal(a, b) -> bool:
                                b.scores.view(np.int32)))
 
 
-def twin_bitwise(fn, ops, col_at, got, kw, what: str,
-                 cols=GROUP_TWIN_COLS) -> bool:
-    """The kernel's query columns ``cols`` against the wrapper on CPU
-    copies of the same operands (so its twin runs) with only those columns
-    of the operands at ``col_at`` (weights, bounds): bit for bit, the one
-    output of a dense kernel, or a board's values and ids."""
+def _lowest_priority() -> None:
+    """Give this thread (and the threads it starts, which inherit it) the
+    lowest CPU priority of its process."""
+    import os
+    import threading
+    try:
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+    except (AttributeError, OSError):
+        pass
+
+
+def _twin_worker() -> None:
+    """A twin worker process's set-up: no card, the lowest CPU priority,
+    ``TWIN_THREADS`` threads."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.nice(19)
     import torch
+    torch.set_num_threads(TWIN_THREADS)
+
+
+def twin_job(fn, kw, paths, col_at, cols, outs, lo) -> tuple[bool, float]:
+    """One twin job in a worker: the wrapper ``fn`` (keywords ``kw``) on
+    the CPU operands at ``paths`` (``.npy``), with only the query columns
+    ``cols`` of those at ``col_at``, held bit for bit against the kernel's
+    outputs at ``outs`` (their columns ``lo`` on; every column is scored
+    on its own, so its bits do not depend on the others in the job).
+    Returns the verdict and its seconds."""
+    import torch
+
+    def load(path):
+        return torch.from_numpy(np.load(path))
+
+    def same(a, b):
+        if a.dtype == torch.float32 and b.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and bool(torch.equal(a, b))
+
     t0 = time.perf_counter()
-    cols = [c for c in cols if c < ops[col_at[0]].shape[1]]
-    cpu = [t.cpu() for t in ops]
+    ops = [load(p) for p in paths]
     for i in col_at:
-        cpu[i] = cpu[i][:, cols].contiguous()
-    ref = fn(*cpu, **kw)
-    pairs = ([(got, ref)] if isinstance(got, torch.Tensor)
-             else [(got[0], ref[0]), (got[1], ref[1])])
-    ok = all(bits_equal(g[..., cols], r) for g, r in pairs)
-    print(f"[kernels] {what}: {len(cols)} columns in {cols[0]}-{cols[-1]} "
-          f"bitwise equal to the CPU twin: {ok} "
-          f"({time.perf_counter() - t0:.1f}s)", flush=True)
-    return ok
+        ops[i] = ops[i][:, cols].contiguous()
+    ref = fn(*ops, **kw)
+    refs = [ref] if isinstance(ref, torch.Tensor) else list(ref[:2])
+    ok = all(same(load(p)[..., lo:lo + len(cols)].contiguous(), r)
+             for p, r in zip(outs, refs))
+    return ok, time.perf_counter() - t0
+
+
+class TwinChecks:
+    """Kernel-against-CPU-twin checks in worker processes.
+
+    A process pool of ``TWIN_WORKERS`` (:func:`_twin_worker`: no card, the
+    lowest CPU priority, ``TWIN_THREADS`` threads each) runs the twins
+    (:func:`twin_job`) behind the card work that follows their
+    submission; in processes of their own they take neither the GIL nor
+    the cores the phases' own host work needs. The operands and the
+    kernel's outputs cross as ``.npy`` files in a temporary directory,
+    each card tensor once. A check is cut into jobs of ``TWIN_CHUNK``
+    query columns; :meth:`join` waits for every job, prints each check's
+    verdict and fails the run on a miss, however late, then stops the
+    workers and removes the files."""
+
+    def __init__(self, workers: int):
+        self.workers = workers
+        self.pool, self.dir, self.files, self.n_files = None, None, {}, 0
+        self.checks, self.first = [], None
+
+    def save(self, t) -> str:
+        """``t`` (a card tensor) as a file, written once while it lives."""
+        import weakref
+        key = id(t)
+        hit = self.files.get(key)
+        if hit is not None and hit[0]() is t:
+            return hit[1]
+        self.n_files += 1
+        path = f"{self.dir}/{self.n_files}.npy"
+        np.save(path, t.cpu().numpy())
+        self.files[key] = (weakref.ref(t), path)
+        return path
+
+    def start(self) -> None:
+        """The temporary directory and the pool, once."""
+        import multiprocessing
+        import tempfile
+        from concurrent.futures import ProcessPoolExecutor
+        if self.pool is not None:
+            return
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-twins-")
+        self.pool = ProcessPoolExecutor(
+            self.workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_twin_worker)
+
+    def submit(self, what: str, jobs: list, detail: str) -> dict:
+        """Queue ``jobs`` (:func:`twin_job`'s keywords); returns the
+        check's record, whose ``ok`` the join fills in."""
+        self.first = self.first or time.perf_counter()
+        rec = dict(what=what, detail=detail, ok=None, futures=[
+            self.pool.submit(twin_job, **job) for job in jobs])
+        self.checks.append(rec)
+        return rec
+
+    def pending(self) -> str:
+        """How many of the queued twin jobs have not finished yet."""
+        futures = [f for rec in self.checks for f in rec["futures"]]
+        return (f"{sum(not f.done() for f in futures)} of {len(futures)} "
+                f"twin jobs pending")
+
+    def join(self) -> dict:
+        """Wait for every queued job, print and check each verdict, stop
+        the workers; returns the seconds of twin work, of the wait here and
+        from the first submission to the join's end."""
+        from concurrent.futures import wait
+        t0 = time.perf_counter()
+        wait([f for rec in self.checks for f in rec["futures"]])
+        waited = time.perf_counter() - t0
+        work = 0.0
+        for rec in self.checks:
+            errors = [repr(f.exception()) for f in rec["futures"]
+                      if f.exception() is not None]
+            res = [f.result() for f in rec["futures"]
+                   if f.exception() is None]
+            rec["ok"] = not errors and all(ok for ok, _ in res)
+            secs = sum(t for _, t in res)
+            work += secs
+            print(f"[kernels] {rec['what']}: {rec['detail']} bitwise equal "
+                  f"to the CPU twin: {rec['ok']} ({secs:.1f}s of twin work "
+                  f"in {len(rec['futures'])} jobs"
+                  f"{'; ' + errors[0] if errors else ''})", flush=True)
+        span = time.perf_counter() - (self.first or t0)
+        print(f"[twins] {len(self.checks)} checks joined: {work:.1f}s of "
+              f"CPU twin work in {self.workers} processes, "
+              f"{span:.1f}s from the first submission to the join; the join "
+              f"waited {waited:.1f}s", flush=True)
+        checks, self.checks, self.first = self.checks, [], None
+        self.close()
+        for rec in checks:
+            check(rec["ok"], f"{rec['what']} bitwise equal to its CPU twin")
+        return dict(work=work, waited=waited, span=span)
+
+    def close(self) -> None:
+        """Stop the workers and remove the files (also on a failed run)."""
+        import shutil
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+            self.pool = None
+        self.files = {}
+        if self.dir is not None:
+            shutil.rmtree(self.dir, ignore_errors=True)
+            self.dir = None
+
+
+TWINS = TwinChecks(TWIN_WORKERS)
+atexit.register(TWINS.close)
+SECONDS: dict = {}             # host seconds of each phase, one line at the end
+
+
+def twin_bitwise(fn, ops, col_at, got, kw, what: str,
+                 cols=GROUP_TWIN_COLS) -> dict:
+    """Queue the check of the kernel's query columns ``cols`` against the
+    wrapper ``fn`` on CPU copies of the same operands (so its twin runs),
+    with only those columns of the operands at ``col_at`` (weights,
+    bounds): bit for bit, the one output of a dense kernel, or a board's
+    values and ids. The copies are written here, on this thread
+    (:meth:`TwinChecks.save`: a card tensor that two checks share is
+    written once), so the card's tensors may be freed once this returns.
+    Returns the check's record (:meth:`TwinChecks.submit`)."""
+    import torch
+    TWINS.start()
+    cols = [c for c in cols if c < ops[col_at[0]].shape[1]]
+    paths = [TWINS.save(t) for t in ops]
+    outs = [got] if isinstance(got, torch.Tensor) else list(got[:2])
+    outs = [TWINS.save(g[..., cols].contiguous()) for g in outs]
+    jobs = [dict(fn=fn, kw=kw, paths=paths, col_at=list(col_at),
+                 cols=cols[lo:lo + TWIN_CHUNK], outs=outs, lo=lo)
+            for lo in range(0, len(cols), TWIN_CHUNK)]
+    return TWINS.submit(what, jobs, f"{len(cols)} columns in "
+                        f"{cols[0]}-{cols[-1]}")
 
 
 def timed_cuts(fn, ops, ms: float, kw, what: str, b: int) -> dict:
@@ -1082,6 +1265,7 @@ def phase_ladder(idx, oracle, rng):
                           scorer_opts=dict(block_size=DOC_BLOCK, q_max=Q_MAX,
                                            device="cuda"))
     torch.cuda.synchronize()
+    SECONDS["ladder build"] = t_split + time.perf_counter() - t0
     print(f"[ladder] {N_SHARDS} shards of {shards[0].doc_lens.size} docs "
           f"(split {t_split:.1f}s); engine built and warmed in "
           f"{time.perf_counter() - t0:.1f}s, build {eng.last_build_stats}",
@@ -1366,7 +1550,6 @@ def phase_dense(dr, idx, oracle, rng) -> list:
     bitwise6 = twin_bitwise(k2.bm25_block_score, blk, (4,), raw,
                             dict(block_size=DOC_BLOCK), "K6",
                             cols=K6_TWIN_COLS)
-    check(bitwise6, "K6 bitwise equal to its CPU twin at full width")
     check(bits_equal(raw.permute(2, 0, 1).reshape(QUERY_BATCH, -1)
                      [:, :n_docs] + shift[:, None], dense),
           "bm25_score_blocked = K6 laid out, cut and shifted")
@@ -1420,12 +1603,12 @@ def phase_dense(dr, idx, oracle, rng) -> list:
         launches=launches[k2.LAUNCHES_DENSE.name], max_abs_err=err6,
         tolerance=f"atol {ATOL} + rtol {RTOL} vs the twin on the card "
                   "(atomics there)", twin_bitwise=bitwise6,
-        twin_bitwise_at=("full width, query columns 64c + 2j + c // 2 "
-                         "(c < 4, j < 32, j % 2 = c % 2: every lane at "
-                         "both its columns, every column-CTA), CPU twin; "
-                         "phase 2: all columns, "
-                         "20,011 docs, "
-                         "B 8, 64, 100 and 256, U up to 8,192"),
+        twin_bitwise_at=("full width, query columns 64c + 2j + c % 2 "
+                         "(c < 4, j < 32: every lane of every column-CTA, "
+                         "its first column in CTAs 0 and 2, its second in "
+                         "1 and 3), CPU twin; phase 2: all columns, "
+                         "20,011 docs, B 8, 64, 100 and 256, U up to "
+                         "8,192"),
         ms=ms6, plain_ms=plain6_ms, library_ms=lib6_ms,
         library="torch.sparse.mm (doc x token CSR by [V, B] weights)",
         bytes=nbytes6, ops=2.0 * hits * w.shape[1])
@@ -1552,7 +1735,40 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-def phase_sparse(seed: int, keep: dict | None = None) -> list:
+def sparse_graphs(seed: int) -> dict:
+    """Phase 7's two graphs (``random_graph`` of ``PRODUCTS`` and of
+    ``REDDIT``, host numpy from ``seed``) and their host seconds."""
+    from repro_torch.data.graphs import random_graph
+    t0 = time.perf_counter()
+    products = random_graph(**PRODUCTS, seed=seed)
+    t1 = time.perf_counter()
+    reddit = random_graph(**REDDIT, seed=seed)
+    return dict(products=products, reddit=reddit, t_products=t1 - t0,
+                t_reddit=time.perf_counter() - t1)
+
+
+def draw_graphs_ahead(seed: int):
+    """Start drawing phase 7's graphs (:func:`sparse_graphs`) on a thread
+    of the lowest CPU priority, behind the card work of phases 10 and 14;
+    returns the future."""
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(1, initializer=_lowest_priority)
+    future = pool.submit(sparse_graphs, seed)
+    pool.shutdown(wait=False)
+    return future
+
+
+def background(where: str, graphs) -> None:
+    """One line: the host work still running behind the card as ``where``
+    starts (the twin jobs and phase 7's graphs, the future ``graphs``), so
+    that a host-timed number of that phase says what it shared the CPU
+    with."""
+    print(f"[background] as {where} starts: {TWINS.pending()}; phase 7's "
+          f"graphs {'drawn' if graphs.done() else 'being drawn'}",
+          flush=True)
+
+
+def phase_sparse(seed: int, keep: dict, graphs) -> list:
     """Phase 7: the sparse substrate at full width, K7 and K8.
 
     K7 (``ops.segment_sum_blocked``) aggregates ``D_HIDDEN``-wide messages
@@ -1563,13 +1779,14 @@ def phase_sparse(seed: int, keep: dict | None = None) -> list:
     held bitwise against its CPU twin (K7 on the largest block and 7
     others, K8 on both bag sets), the whole output against the library
     call, and the kernel, its twin on the card and the library call are
-    timed. Returns the ``kernels`` entries of K7 and K8. With ``keep``,
+    timed. Returns the ``kernels`` entries of K7 and K8;
     ``keep["reddit"]`` gets phase 13's (15, 10) neighbour sample of the
-    same Reddit graph (``reddit_train_sample``)."""
+    same Reddit graph (``reddit_train_sample``). ``graphs``, a future of
+    :func:`sparse_graphs` (:func:`draw_graphs_ahead`), gives the two
+    graphs."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.data.graphs import random_graph
     from repro_torch.kernels import COUNTERS, ops
     from repro_torch.kernels import block_segment_sum as k7
     from repro_torch.kernels.embedding_bag import LAUNCHES as K8_LAUNCHES
@@ -1582,9 +1799,12 @@ def phase_sparse(seed: int, keep: dict | None = None) -> list:
 
     # -- operands: ogb_products blocked by destination, Reddit's bags ----
     t0 = time.perf_counter()
-    g = random_graph(**PRODUCTS, seed=seed)
+    drawn = graphs.result()
+    waited = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = drawn.pop("products")
     n_edges = g.edges.shape[0]
-    t_products = time.perf_counter() - t0
+    t_products = drawn["t_products"]
     dst = torch.as_tensor(np.ascontiguousarray(g.edges[:, 1]), device=dev)
     del g
     values, ids, counts = blocked_by_destination(dst, PRODUCTS["n_nodes"],
@@ -1596,21 +1816,22 @@ def phase_sparse(seed: int, keep: dict | None = None) -> list:
     real = n_edges * D_HIDDEN * 4
     print(f"[sparse] K7 operands: ogb_products graph of "
           f"{PRODUCTS['n_nodes']} nodes and {n_edges} edges in "
-          f"{t_products:.1f}s (host); {nb} blocks of {SEG_BLOCK} "
+          f"{t_products:.1f}s (host, drawn ahead on a worker thread; "
+          f"waited {waited:.1f}s); {nb} blocks of "
+          f"{SEG_BLOCK} "
           f"destinations, P = {p} (largest block {int(counts.max())} "
           f"edges, mean {n_edges / nb:.0f}, smallest {int(counts.min())}); "
           f"values [{nb}, {p}, {D_HIDDEN}] f32: {values.numel() * 4} bytes "
           f"against {real} of real messages ({values.numel() * 4 / real:.2f}"
           f"x padding); {t_k7_ops:.1f}s in all", flush=True)
     t0 = time.perf_counter()
-    gr = random_graph(**REDDIT, seed=seed)
-    t_reddit = time.perf_counter() - t0
+    gr = drawn.pop("reddit")
+    t_reddit = drawn["t_reddit"]
     hop1, hop2, csr_s, csr = sample_bags(gr, rng)
-    if keep is not None:
-        t1 = time.perf_counter()
-        keep["reddit"] = reddit_train_sample(gr, csr, seed)
-        print(f"[sparse] phase 13's (15, 10) sample of the Reddit graph in "
-              f"{time.perf_counter() - t1:.1f}s (host)", flush=True)
+    t1 = time.perf_counter()
+    keep["reddit"] = reddit_train_sample(gr, csr, seed)
+    print(f"[sparse] phase 13's (15, 10) sample of the Reddit graph in "
+          f"{time.perf_counter() - t1:.1f}s (host)", flush=True)
     del csr
     table_cpu = torch.as_tensor(gr.node_feat)
     n_reddit_edges = gr.edges.shape[0]
@@ -2037,9 +2258,8 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
     ops1 = (desc, w, di.csc_doc_ids, di.csc_scores)
     got1 = k1.bm25_resident_score_topk(*ops1, **kw)
     k1_ms = cuda_ms(lambda: k1.bm25_resident_score_topk(*ops1, **kw), reps=3)
-    ok1 = twin_bitwise(k1.bm25_resident_score_topk, ops1, (1,), got1, kw,
-                       f"K1 at {rows} rows, k={F3_K}", cols=F3_TWIN_COLS)
-    check(ok1, f"K1 bitwise equal to its twin at {rows} rows")
+    twin_bitwise(k1.bm25_resident_score_topk, ops1, (1,), got1, kw,
+                 f"K1 at {rows} rows, k={F3_K}", cols=F3_TWIN_COLS)
     # K3's bounds at 1,024 rows: the larger of each block's two 512-row
     # halves' bounds (still an upper bound of every document in it)
     bm = di.bmax
@@ -2053,10 +2273,8 @@ def phase_snapshot(dr, idx, oracle, rng, phase3, seed: int) -> dict:
     got3 = k1.bm25_resident_score_topk_pruned(*ops3, **kw)
     k3_ms = cuda_ms(lambda: k1.bm25_resident_score_topk_pruned(*ops3, **kw),
                     reps=3)
-    ok3 = twin_bitwise(k1.bm25_resident_score_topk_pruned, ops3, (1, 2),
-                       got3, kw, f"K3 at {rows} rows, k={F3_K}",
-                       cols=F3_TWIN_COLS)
-    check(ok3, f"K3 bitwise equal to its twin at {rows} rows")
+    twin_bitwise(k1.bm25_resident_score_topk_pruned, ops3, (1, 2), got3,
+                 kw, f"K3 at {rows} rows, k={F3_K}", cols=F3_TWIN_COLS)
     same = bits_equal(got3[0], got1[0]) and bits_equal(got3[1], got1[1])
     print(f"[f3] at {rows} rows, k={F3_K}, B={w.shape[1]}: K1 {k1_ms:.3f} "
           f"ms, K3 {k3_ms:.3f} ms ({int(got3[2])} fragments skipped, mean "
@@ -2292,7 +2510,7 @@ def boards_tie_equal(a_ids, a_vals, b_ids, b_vals) -> bool:
     return True
 
 
-def phase_sharded(idx, oracle, rng, phase3, phase14=None) -> dict:
+def phase_sharded(idx, oracle, rng, phase3, phase14, graphs) -> dict:
     """Phase 10: the sharded step on ``torch.distributed`` at world size 1.
 
     One card can run one NCCL rank, so this is the step's plumbing and its
@@ -2306,16 +2524,16 @@ def phase_sharded(idx, oracle, rng, phase3, phase14=None) -> dict:
     it; (d) ``sharded_retrieve_adaptive(gathered=True)`` from
     ``SHARD_P_FLOOR`` on the same batches, its bucket trail, ``p_used``
     and the device memory it took beside a ``[p_used, B]`` f32 buffer;
-    (e) CUDA-event times of both steps and of the all-gather + merge;
-    (f) ``python -m repro_torch.launch.serve`` on the card at its defaults
-    (then with ``--rescale 2``). Every board is exact against
-    ``ScipyBM25`` on sampled queries and tie-aware equal to phase 3's
-    gathered board of its batch. With ``phase14`` (an rng, phase 3's
-    blocked layout, its batch and board), :func:`phase_cells` runs
-    after (e) on the same mesh and uploaded arrays, before the group is
-    destroyed. Returns the launch counts of (c)-(d), the times of (e) and
-    phase 14's result (None where it did not run)."""
-    import os
+    (e) CUDA-event times of both steps and of the all-gather + merge.
+    Every board is exact against ``ScipyBM25`` on sampled queries and
+    tie-aware equal to phase 3's gathered board of its batch. With
+    ``phase14`` (an rng, phase 3's blocked layout, its batch and board;
+    None skips it), :func:`phase_cells` runs after (e) on the same mesh
+    and uploaded arrays, before the group is destroyed, after a
+    :func:`background` line (``graphs``: phase 7's graphs' future). The
+    launcher follows in :func:`phase_launcher`. Returns the launch counts
+    of (c)-(d), the times of (e) and phase 14's result (None where it did
+    not run)."""
     import shutil
     import tempfile
     from types import SimpleNamespace
@@ -2452,6 +2670,7 @@ def phase_sharded(idx, oracle, rng, phase3, phase14=None) -> dict:
         del steps, adaptive, ids, vals, over
         p14 = None
         if phase14 is not None:
+            background("phase 14", graphs)
             t14 = time.perf_counter()
             p14 = phase_cells(mesh, arrs, idx, oracle, *phase14)
             print(f"[cells] phase 14 done in "
@@ -2462,8 +2681,14 @@ def phase_sharded(idx, oracle, rng, phase3, phase14=None) -> dict:
         shutil.rmtree(rdv, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, phase14=p14)
 
-    # (f) the serving launcher on the card, at the reference's defaults
+
+def phase_launcher() -> None:
+    """The end of phase 10: ``python -m repro_torch.launch.serve`` on the
+    card at the reference's defaults (it must serve 100 queries, none
+    degraded), then with ``--rescale 2``, each exiting 0."""
+    import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     for extra in SERVE_RUNS:
         t0 = time.perf_counter()
@@ -2480,7 +2705,6 @@ def phase_sharded(idx, oracle, rng, phase3, phase14=None) -> dict:
         if "--rescale" not in extra:
             check(r.stdout.rstrip().endswith("degraded 0/100"),
                   "the launcher serves 100 queries, none degraded")
-    return dict(launches=launches, times=times, phase14=p14)
 
 
 def phase_cells(mesh, arrs, idx, oracle, rng, blk, qs, res3) -> dict:
@@ -3027,6 +3251,8 @@ BF16_SCORE_REL = 2.0 ** -6     # a bf16 board's id: its f32 score at least
                                # the f32 100th less this x the query's top
 BF16_TWIN_BLOCKS = 64          # K6-bf16 against its CPU twin: these blocks
 BF16_TWIN_ROWS = 2             # K5-bf16 against its CPU twin: these rows
+F4_EXTRA = 12_345              # F4's columns past retrieval_cand's 2^20
+F4_SPLITS = {"3-way": (3,), "4-way": (4,), "2 x 2": (2, 2)}
 
 
 def median_ms(fn) -> float:
@@ -3191,7 +3417,101 @@ def phase_partitioned(seed: int, mesh) -> dict:
           "the partitioned LM path launches no K1-K8 kernel")
     cells, res["launches"] = partitioned_cells(seed, mesh, compare)
     res.update(cells)
+    res["f4"] = f4_partitioned_topk(seed, mesh)
     return res
+
+
+def f4_partitioned_topk(seed: int, mesh) -> dict:
+    """The partitioned ``ops.topk`` on uneven splits, on the card.
+
+    One card holds one rank, so the ranks of a 3-way and a 4-way split of
+    the last dim and of a 2 x 2 mesh whose two dims both split it are
+    virtual: each runs the ranks' own stage, ``ops.rank_candidates`` (K5
+    on its piece), at the offset, length and width that
+    ``dist.sharding.shard_extent`` gives from DTensor's layout, and the
+    pieces go through the rank merge, ``core.retrieval._all_gather_merge``
+    over the one-rank group (the virtual ranks' lists side by side, as the
+    all-gather lays them out). Inputs: ``[256, n]`` scores with ``n``
+    ``retrieval_cand``'s 2^20 candidates plus ``F4_EXTRA`` (ragged
+    pieces), k = 100, f32 and bf16, normals rounded to 1/16 so equal
+    scores meet across the rank boundaries; then n = 250 (pieces shorter
+    than k) and n = 5 at k = 5 (an empty piece). Each board must be the
+    plain ``ops.topk`` of the whole tensor on the card bit for bit, ids
+    and values; and ``ops.topk`` of a ``DTensor`` on the one-rank mesh at
+    k = 0 gives the plain empty boards. Returns the verdicts and K5's
+    launches in the ranks' stages."""
+    import itertools
+    import math
+
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.core.retrieval import _all_gather_merge
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import blockwise_topk as k5
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    (cand,) = [c for c in configs.get_cells("sasrec")
+               if c.shape == "retrieval_cand"]
+    wide = cand.build(None)[1][2].shape[0] + F4_EXTRA
+    group = mesh.get_group(0)
+    gen = torch.Generator(device=dev).manual_seed(seed * 100 + 4)
+    counters = (k5.LAUNCHES, k5.LAUNCHES_BF16)
+    launches = {c.name: 0 for c in counters}
+    verdicts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        full = (torch.randn((QUERY_BATCH, wide), generator=gen,
+                            device=dev) * 16).round() / 16
+        for n, k in ((wide, TOP_K), (250, TOP_K), (5, 5)):
+            x = full[:, :n].to(dtype).contiguous()
+            want = ops.topk(x, k, block=TOPK_BLOCK)
+            for name, shape in F4_SPLITS.items():
+                split = [Shard(1)] * len(shape)
+                width = ops.candidate_width(n, math.prod(shape), k,
+                                            TOPK_BLOCK)
+                before = {c.name: c.n for c in counters}
+                vals, ids, lens = [], [], []
+                for coord in itertools.product(*map(range, shape)):
+                    off, m = sharding.shard_extent(shape, split, x.shape, 1,
+                                                   coord)
+                    v, i = ops.rank_candidates(x[:, off:off + m], off, n, k,
+                                               TOPK_BLOCK, width)
+                    vals.append(v)
+                    ids.append(i)
+                    lens.append(m)
+                for c in counters:
+                    launches[c.name] += c.n - before[c.name]
+                got_i, got_v, _ = _all_gather_merge(
+                    torch.cat(ids, 1), torch.cat(vals, 1), None, group, 1, k)
+                ok = (got_v.dtype == dtype and bits_equal(got_v, want[0])
+                      and bits_equal(got_i, want[1]))
+                key = f"{str(dtype)[6:]} n={n} k={k} {name}"
+                verdicts[key] = ok
+                print(f"[partitioned] F4 {key}: pieces {lens}, width "
+                      f"{width}: board bitwise the plain ops.topk's {ok}",
+                      flush=True)
+                check(ok, f"F4 {key}: the partitioned stage and merge give "
+                      "the plain board")
+        d = distribute_tensor(full[:, :F4_EXTRA].to(dtype).contiguous(),
+                              mesh, [Shard(1)] * mesh.ndim)
+        with sharding.partitioned(mesh):
+            got = ops.topk(d, 0)
+        want = ops.topk(d.to_local(), 0)
+        ok = (got[0].shape == want[0].shape == (QUERY_BATCH, 0)
+              and got[0].dtype == dtype and got[1].dtype == torch.int32
+              and bits_equal(got[0], want[0]) and bits_equal(got[1],
+                                                              want[1]))
+        verdicts[f"{str(dtype)[6:]} k=0"] = ok
+        print(f"[partitioned] F4 {str(dtype)[6:]} k=0 on the one-rank mesh: "
+              f"the plain empty boards {ok}", flush=True)
+        check(ok, "F4: ops.topk of a DTensor at k = 0")
+        del full, x, d
+    print(f"[partitioned] F4: K5 launches in the ranks' stages {launches} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    return dict(bitwise=verdicts, launches=launches)
 
 
 def one_rank_dtensors(tree, specs, mesh):
@@ -4358,8 +4678,8 @@ def train_card_vs_cpu(seed: int) -> dict:
 
 def train_cell_run(key: str, step, make_state, batch, *, flops: float,
                    peak: float, peak_name: str, units: int, unit: str,
-                   alt_step=None, compress_step=None, grad_tol=None
-                   ) -> dict:
+                   alt_step=None, compress_step=None, grad_tol=None,
+                   resume_cut=None) -> dict:
     """One train cell at full width on the card.
 
     ``make_state(compress=False)`` draws the cell's params afresh from a
@@ -4379,7 +4699,11 @@ def train_cell_run(key: str, step, make_state, batch, *, flops: float,
     of the leaf's largest; default the f32 ``TRAIN_GRAD_RTOL``,
     ``TRAIN_GRAD_ATOL_REL``) and its params by ``params_within``;
     ``compress_step`` (int8 with error feedback) from a fresh state: its
-    loss is run A's first loss and its params finite."""
+    loss is run A's first loss and its params finite.
+
+    ``resume_cut`` (``(step, make_state, what)`` of the cell at a cut
+    depth) moves the checkpoint round trip there: run B saves nothing,
+    and the cut cell runs B, A and C instead, held as above."""
     import itertools
     import os
     import shutil
@@ -4405,12 +4729,11 @@ def train_cell_run(key: str, step, make_state, batch, *, flops: float,
         batches = itertools.repeat(batch)
         t0 = time.perf_counter()
         got_half = run_training(step, make_state(), batches, LoopConfig(
-            total_steps=half_steps, ckpt_dir=tmp, ckpt_every=half_steps,
-            log_every=TRAIN_STEPS))
+            total_steps=half_steps,
+            ckpt_dir=tmp if resume_cut is None else None,
+            ckpt_every=half_steps, log_every=TRAIN_STEPS))
         t_b = time.perf_counter() - t0
         peak_mem = torch.cuda.max_memory_allocated() - before
-        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
-                         for r, _, fs in os.walk(tmp) for f in fs)
 
         params, state = make_state()
         losses, times, first, repeat = [], [], None, None
@@ -4427,6 +4750,24 @@ def train_cell_run(key: str, step, make_state, batch, *, flops: float,
                 del got_half
         final = (params, state)
         del params, state, out
+        ckpt_step, ckpt_state, cut = step, make_state, ""
+        if resume_cut is not None:
+            # the round trip at the cut depth: its own runs B and A
+            ckpt_step, ckpt_state, cut = resume_cut
+            cut = f" at {cut}"
+            del final
+            t0 = time.perf_counter()
+            run_training(ckpt_step, ckpt_state(), batches, LoopConfig(
+                total_steps=half_steps, ckpt_dir=tmp, ckpt_every=half_steps,
+                log_every=TRAIN_STEPS))
+            t_b = time.perf_counter() - t0
+            final = ckpt_state()
+            for _ in range(TRAIN_STEPS):
+                p_, s_, _m = ckpt_step(*final, batch)
+                final = (p_, s_)
+                del p_, s_, _m
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(tmp) for f in fs)
 
         # run C: the loop's resume (``latest_complete_step``, then
         # ``load_checkpoint`` into a fresh state), then the rest of the
@@ -4436,10 +4777,10 @@ def train_cell_run(key: str, step, make_state, batch, *, flops: float,
         latest = latest_complete_step(tmp)
         check(latest == half_steps, f"{key}: the newest complete step is "
               f"{latest}")
-        got = load_checkpoint(tmp, latest, make_state())
+        got = load_checkpoint(tmp, latest, ckpt_state())
         t_load = time.perf_counter() - t0
         for _ in range(TRAIN_STEPS - latest):
-            p_, s_, _m = step(*got, batch)
+            p_, s_, _m = ckpt_step(*got, batch)
             got = (p_, s_)
             del p_, s_, _m
         t_c = time.perf_counter() - t0
@@ -4454,7 +4795,7 @@ def train_cell_run(key: str, step, make_state, batch, *, flops: float,
           f"({losses})")
     check(repeat, f"{key}: two runs from one seed bitwise equal")
     check(resumed, f"{key}: resumed from step {half_steps} bitwise equal "
-          f"to {TRAIN_STEPS} straight steps")
+          f"to {TRAIN_STEPS} straight steps{cut}")
     res = dict(ms=ms, times=times, losses=losses, peak=peak_mem,
                share=share, rate=units / (ms * 1e-3), repeat=repeat,
                resumed=resumed, ckpt_bytes=ckpt_bytes,
@@ -4501,10 +4842,12 @@ def train_cell_run(key: str, step, make_state, batch, *, flops: float,
     print(f"[train] {key}: step {ms:.3f} ms (median of steps 2-"
           f"{TRAIN_STEPS}; all {[round(t, 3) for t in times]}), "
           f"{res['rate']:,.1f} {unit}/s, peak {peak_mem / 1e9:.2f} GB "
-          f"(over {half_steps} steps and a save; {before / 1e9:.2f} GB "
-          f"held before), FLOP share {share:.4f} of {peak_name}; losses "
-          f"{[round(x, 6) for x in losses]}; two runs bitwise {repeat}; "
-          f"resumed bitwise {resumed} (checkpoint {ckpt_bytes:,} bytes; "
+          f"(over {half_steps} steps"
+          f"{' and a save' if resume_cut is None else ''}; "
+          f"{before / 1e9:.2f} GB held before), FLOP share {share:.4f} of "
+          f"{peak_name}; losses {[round(x, 6) for x in losses]}; two runs "
+          f"bitwise {repeat}; resumed bitwise {resumed}{cut} (checkpoint "
+          f"{ckpt_bytes:,} bytes; "
           f"the loop {t_b:.1f} s to step {half_steps} with its save; "
           f"resumed in {t_c:.1f} s, its load {t_load:.1f} s){extra}",
           flush=True)
@@ -4552,7 +4895,7 @@ def reddit_train_sample(graph, csr, seed: int) -> dict:
     return neighbor_sample(view, seeds, FANOUTS, rng=rng)
 
 
-def phase_train(seed: int, mesh, reddit=None) -> dict:
+def phase_train(seed: int, mesh, reddit: dict) -> dict:
     """Phase 13: training at full width on the card (one rank).
 
     First which sums repeat on the card (``train_probe``) and each
@@ -4563,7 +4906,7 @@ def phase_train(seed: int, mesh, reddit=None) -> dict:
     the config says; M = 1 beside it); the four recsys ``train_batch``
     cells at B = 65,536 (DLRM's table **cut** to ``DLRM_TRAIN_ROW_CAP``
     rows a field; M = 2 beside M = 1); EGNN on Cora, Reddit's (15, 10)
-    sample (``reddit``: phase 7's, else drawn here), ogb_products with
+    sample (``reddit``, drawn in phase 7), ogb_products with
     every node and its edges **cut** to ``PRODUCTS_TRAIN_EDGES``, and the
     128 molecules. Every cell also takes one compressed step. Returns the
     phase's launch counts (all 0: the training path reaches no kernel)
@@ -4577,7 +4920,7 @@ def phase_train(seed: int, mesh, reddit=None) -> dict:
     from repro_torch.configs import egnn as egnn_cfg
     from repro_torch.configs.common import (gnn_train_cell, lm_train_cell,
                                             recsys_cells)
-    from repro_torch.data.graphs import batched_molecules, random_graph
+    from repro_torch.data.graphs import batched_molecules
     from repro_torch.data.lm import lm_batches
     from repro_torch.kernels import COUNTERS
     from repro_torch.models import egnn, recsys, transformer
@@ -4633,6 +4976,15 @@ def phase_train(seed: int, mesh, reddit=None) -> dict:
               and batch[k].dtype == bspec[k].dtype for k in bspec),
           "the LM batch is made as its spec")
     opt = step_parts(step)["optimizer"]
+    # the checkpoint round trip at a cut depth: at full depth it saves and
+    # loads 12 GB (41.5 s of the cell), and the contract is the loop's
+    cut_cfg = replace(cfg, n_layers=LM_RESUME_LAYERS)
+    cut_step = lm_train_cell(LM_ARCH, cut_cfg, global_batch=TRAIN_LM_BATCH,
+                             seq_len=seq, n_microbatches=m).build(mesh)[0]
+    print(f"[train] CUT {full.key}: the checkpoint round trip runs at "
+          f"{LM_RESUME_LAYERS} of {cfg.n_layers} layers (every width "
+          f"kept); the step, its timing and the other checks at full "
+          f"depth", flush=True)
     res[full.key] = train_cell_run(
         full.key, step, state_maker(transformer.init_params, cfg, opt,
                                     seed * 100 + 41), batch,
@@ -4640,7 +4992,11 @@ def phase_train(seed: int, mesh, reddit=None) -> dict:
         peak_name="989 TFLOP/s (bf16)", units=TRAIN_LM_BATCH * seq,
         unit="tokens", alt_step=variant(step, n_microbatches=1),
         compress_step=variant(step, compress=True),
-        grad_tol=(0.0, TRAIN_BF16_GRAD_REL))
+        grad_tol=(0.0, TRAIN_BF16_GRAD_REL),
+        resume_cut=(cut_step, state_maker(
+            transformer.init_params, cut_cfg, step_parts(cut_step)[
+                "optimizer"], seed * 100 + 41),
+            f"{LM_RESUME_LAYERS} of {cfg.n_layers} layers"))
     del batch
     print(f"[train] lm done in {time.perf_counter() - t_fam:.1f} s",
           flush=True)
@@ -4720,10 +5076,6 @@ def phase_train(seed: int, mesh, reddit=None) -> dict:
                      for k, v in mb.items()}
             units, unit = d["n_graphs"], "graphs"
         elif shape == "minibatch_lg":
-            if reddit is None:
-                g = random_graph(**REDDIT, seed=seed)
-                reddit = reddit_train_sample(g, g.csr(), seed)
-                del g
             batch = {k: torch.as_tensor(v, device=dev)
                      for k, v in reddit.items()}
             batch["edges"] = torch.cat([batch["edges"], torch.full(
@@ -4760,12 +5112,13 @@ def phase_train(seed: int, mesh, reddit=None) -> dict:
     return dict(launches=launches, cells=res)
 
 
-def phase_bm25(args) -> tuple[list, dict]:
+def phase_bm25(args) -> tuple:
     """Phases 3-6, 8-10 and 14: the BM25 query paths at full width
     (retriever, front-end, snapshots, ladder, kernels, dense path, sharded
-    step, the bm25s cells). Returns the ``kernels`` entries of K1-K6 and
-    the launch counts of phases 10 and 14; every tensor of these phases is
-    freed on return."""
+    step, the bm25s cells, the launcher). Returns the ``kernels`` entries
+    of K1-K6, the launch counts of phases 10 and 14 and the future of
+    phase 7's graphs, started before phase 10 (:func:`draw_graphs_ahead`);
+    every tensor of these phases is freed on return."""
     import torch
 
     from repro_torch.core import BM25Params, ScipyBM25, build_index
@@ -4800,6 +5153,8 @@ def phase_bm25(args) -> tuple[list, dict]:
                          device="cuda")
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
+    SECONDS.update({"corpus": t_gen, "index": t_index, "device build": t_dev,
+                    "set-up": t_gen + t_index + t_dev})
     bm = dr.dindex.bmax
     print(f"[full] n_docs={n_docs} V={N_VOCAB} nnz={idx.nnz} "
           f"({idx.nnz / n_docs:.1f} unique tokens a doc); corpus "
@@ -4812,6 +5167,7 @@ def phase_bm25(args) -> tuple[list, dict]:
           f"{bm.build_s * 1e3:.1f} ms (host, upload included)", flush=True)
     check(dr.plan_mode == "device", 'cuda resolves to plan="device"')
     reset_transfer_stats()
+    t3 = time.perf_counter()
     dr.warmup(k=TOP_K)
     for c in COUNTERS:
         c.reset()
@@ -4868,13 +5224,15 @@ def phase_bm25(args) -> tuple[list, dict]:
           f"regimes) exact against ScipyBM25, max |score - oracle| "
           f"{worst:.3g} (atol {EXACT_ATOL}; "
           f"{time.perf_counter() - t0:.1f}s)", flush=True)
+    SECONDS["serve"] = time.perf_counter() - t3
 
     # -- phase 8: the micro-batching front-end ----------------------------
     t0 = time.perf_counter()
     fe_launches = phase_frontend(
         dr, oracle, np.random.default_rng(args.seed + 8),
         [(i, qs, res) for regime, i, qs, res in served if regime == "auto"])
-    print(f"[frontend] done in {time.perf_counter() - t0:.1f}s", flush=True)
+    SECONDS["frontend"] = time.perf_counter() - t0
+    print(f"[frontend] done in {SECONDS['frontend']:.1f}s", flush=True)
 
     # -- phase 9: K1/K3 past 512 rows, cold start, reordering --------------
     t0 = time.perf_counter()
@@ -4882,23 +5240,26 @@ def phase_bm25(args) -> tuple[list, dict]:
         dr, idx, oracle, np.random.default_rng(args.seed + 9),
         {regime: (qs, res) for regime, i, qs, res in served if i == 0},
         args.seed)
-    print(f"[snapshot] phase 9 done in {time.perf_counter() - t0:.1f}s",
+    SECONDS["snapshot"] = time.perf_counter() - t0
+    print(f"[snapshot] phase 9 done in {SECONDS['snapshot']:.1f}s",
           flush=True)
 
     # -- phase 4: the ladder through the engine ---------------------------
     t0 = time.perf_counter()
     ladder_launches, shards, shard_drs, host_qs = phase_ladder(idx, oracle,
                                                                rng)
-    print(f"[ladder] done in {time.perf_counter() - t0:.1f}s", flush=True)
+    SECONDS["ladder"] = time.perf_counter() - t0
+    print(f"[ladder] done in {SECONDS['ladder']:.1f}s", flush=True)
 
     # -- phase 5: the kernels at the main path's shapes -------------------
     t_k = time.perf_counter()
     dev = dr.device
     kernels = []
     tol = f"atol {ATOL} + rtol {RTOL} vs the twin on the card"
-    group_at = (f"full width, {len(GROUP_TWIN_COLS)} query columns of "
-                "0-63 (the first CTA column group, one a lane), CPU twin; "
-                "phase 2: all columns, 100,003 docs, B 8 and 64")
+    group_at = (f"full width, query columns 0-{len(GROUP_TWIN_COLS) - 1} "
+                "(the first CTA column group: every lane at both its "
+                "columns), CPU twin; phase 2: all columns, 100,003 docs, B "
+                "8 and 64")
     # every kernel on the last batch's operands (served under each regime)
     pk = dr.pack_batch(served[-1][2])
     n_u = pk.uniq_batch.size
@@ -4965,7 +5326,6 @@ def phase_bm25(args) -> tuple[list, dict]:
     del ops32
     bitwise = twin_bitwise(k1.bm25_resident_score_topk, ops1, (1,), got,
                            dict(kw1, frag=dr.dindex.frag), "K1")
-    check(bitwise, "K1 bitwise equal to its CPU twin at full width")
     ref = k1.bm25_resident_score_topk_plain(*ops1, **kw1)
     plain_ms = cuda_ms(lambda: k1.bm25_resident_score_topk_plain(*ops1,
                                                                  **kw1))
@@ -4996,7 +5356,6 @@ def phase_bm25(args) -> tuple[list, dict]:
                        w.shape[1])
     bitwise = twin_bitwise(k2.bm25_block_score_topk, ops2, (4,), got, kw2,
                            "K2")
-    check(bitwise, "K2 bitwise equal to its CPU twin at full width")
     ref = k2.bm25_block_score_topk_plain(*ops2, **kw2)
     plain_ms = cuda_ms(lambda: k2.bm25_block_score_topk_plain(*ops2, **kw2))
     err = float((got[0] - ref[0]).abs().max())
@@ -5046,7 +5405,6 @@ def phase_bm25(args) -> tuple[list, dict]:
                  reps=5)
     bitwise = twin_bitwise(k1.bm25_resident_score_topk_pruned, ops3,
                            (1, 2), got, kw3, "K3")
-    check(bitwise, "K3 bitwise equal to its CPU twin at full width")
     k1_got = k1.bm25_resident_score_topk(*ops3[:2], *ops3[3:], **kw3)
     same_k1 = bits_equal(got[0], k1_got[0]) and bits_equal(got[1],
                                                            k1_got[1])
@@ -5110,7 +5468,6 @@ def phase_bm25(args) -> tuple[list, dict]:
                        pk0.weights.shape[1])
     bitwise = twin_bitwise(k1.bm25_gather_score_topk, ops4, (4,), got, kw4,
                            "K4")
-    check(bitwise, "K4 bitwise equal to its CPU twin at full width")
     ref = k1.bm25_gather_score_topk_plain(*ops4, **kw4)
     plain_ms = cuda_ms(lambda: k1.bm25_gather_score_topk_plain(*ops4,
                                                                **kw4))
@@ -5136,17 +5493,18 @@ def phase_bm25(args) -> tuple[list, dict]:
         replaces="src/repro/kernels/bm25_gather_score.py:177",
         launches=ladder_launches["bm25_gather_score_topk"],
         max_abs_err=err, tolerance=tol, twin_bitwise=bitwise,
-        twin_bitwise_at=(f"shard 0's host-rung gather, "
-                         f"{len(GROUP_TWIN_COLS)} query columns of 0-63 "
-                         "(the first CTA column group, one a lane), CPU "
-                         "twin; phase 2: all columns, 100,003 docs, B 8 "
-                         "and 64"),
+        twin_bitwise_at=("shard 0's host-rung gather, query columns "
+                         f"0-{len(GROUP_TWIN_COLS) - 1} (the first CTA "
+                         "column group: every lane at both its columns), "
+                         "CPU twin; phase 2: all columns, 100,003 docs, B "
+                         "8 and 64"),
         n_chunks=gp.n_chunks, p_pad=gp.p_pad, sum_df=gp.sum_df,
         gather_ms=gather_ms, ms=ms, plain_ms=plain_ms, split_ms=cuts4,
         bytes=nbytes, ops=nops))
     for kd in kernels[:3]:
         kd["launches_ladder"] = ladder_launches[kd["name"]]
-    print(f"[kernels] done in {time.perf_counter() - t_k:.1f}s", flush=True)
+    SECONDS["kernels"] = time.perf_counter() - t_k
+    print(f"[kernels] done in {SECONDS['kernels']:.1f}s", flush=True)
 
     # -- phase 6: the dense path at full width ----------------------------
     del shards, shard_drs, sh0, dr0, got
@@ -5154,7 +5512,8 @@ def phase_bm25(args) -> tuple[list, dict]:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     kernels += phase_dense(dr, idx, oracle, rng)
-    print(f"[dense] done in {time.perf_counter() - t0:.1f}s", flush=True)
+    SECONDS["dense"] = time.perf_counter() - t0
+    print(f"[dense] done in {SECONDS['dense']:.1f}s", flush=True)
 
     # -- phase 10: the sharded step at world size 1, the launcher; phase 14:
     # the bm25s cells on its mesh, on phase 3's blocked layout --------------
@@ -5173,14 +5532,27 @@ def phase_bm25(args) -> tuple[list, dict]:
               flush=True)
         phase14 = None
 
+    graphs = draw_graphs_ahead(args.seed)
+    background("phase 10", graphs)
     t0 = time.perf_counter()
     p10 = phase_sharded(
         idx, oracle, np.random.default_rng(args.seed + 10),
         [(qs, res) for regime, i, qs, res in served if regime == "gathered"],
-        phase14=phase14)
+        phase14, graphs)
     del blk, phase14
     print(f"[sharded] phases 10 and 14 done in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    SECONDS["phases 10, 14"] = time.perf_counter() - t0
+    # the twins of phases 5, 6 and 9 ran behind phases 4-6, 10 and 14;
+    # joined before the launcher, whose QPS is timed on the host
+    SECONDS["twin join"] = TWINS.join()["waited"]
+    background("the launcher", graphs)
+    t0 = time.perf_counter()
+    phase_launcher()
+    SECONDS["launcher"] = time.perf_counter() - t0
+    for kd in kernels:
+        if isinstance(kd.get("twin_bitwise"), dict):
+            kd["twin_bitwise"] = kd["twin_bitwise"]["ok"]
     for kd in kernels:
         kd["launches_frontend"] = fe_launches[kd["name"]]
         kd["launches_phase9"] = p9["launches"][kd["name"]]
@@ -5192,7 +5564,7 @@ def phase_bm25(args) -> tuple[list, dict]:
     kernels[4]["phase10_ms"] = p10["times"]                 # K5's path
     p14 = p10["phase14"]
     if p14 is None:                                         # not run
-        return kernels, p10["launches"], None
+        return kernels, p10["launches"], None, graphs
     for kd in kernels[4:6]:                                 # K5, K6
         kd["phase14_ms"] = {key: p14[key]["ms"] for key in (
             "score_2m", "score_blocked_2m", "score_blocked_2m_partitioned")}
@@ -5208,7 +5580,7 @@ def phase_bm25(args) -> tuple[list, dict]:
             "topk2stage_bf16", "topk2stage_bf16_b1024")}
         kd["ms_b1024"] = p14["bf16"]["topk2stage_bf16_b1024"][
             "k5_ms" if kd["name"].startswith("blockwise") else "k6_ms"]
-    return kernels, p10["launches"], p14["launches"]
+    return kernels, p10["launches"], p14["launches"], graphs
 
 
 def main(argv=None) -> int:
@@ -5232,7 +5604,8 @@ def main(argv=None) -> int:
     # -- phase 1: build + card ------------------------------------------
     t0 = time.perf_counter()
     report = _build.build_all()
-    print(f"[build] {time.perf_counter() - t0:.1f}s for "
+    SECONDS["build"] = time.perf_counter() - t0
+    print(f"[build] {SECONDS['build']:.1f}s for "
           f"{len(report)} sources", flush=True)
     for name, r in report.items():
         info = [ln.strip() for ln in r["ptxas"].splitlines()
@@ -5251,18 +5624,20 @@ def main(argv=None) -> int:
     phase_topk_vs_twin(args.seed)
     phase_k6_k7_vs_twins(args.seed)
     phase_k2_k4_vs_twins(args.seed)
-    print(f"[kernel-vs-twin] done in {time.perf_counter() - t0:.1f}s",
+    SECONDS["kernel-vs-twin"] = time.perf_counter() - t0
+    print(f"[kernel-vs-twin] done in {SECONDS['kernel-vs-twin']:.1f}s",
           flush=True)
 
-    kernels, p10_launches, p14_launches = phase_bm25(args)
+    kernels, p10_launches, p14_launches, graphs = phase_bm25(args)
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- phase 7: the sparse substrate at full width -----------------------
     t0 = time.perf_counter()
     keep = {}
-    kernels += phase_sparse(args.seed, keep)
-    print(f"[sparse] done in {time.perf_counter() - t0:.1f}s", flush=True)
+    kernels += phase_sparse(args.seed, keep, graphs)
+    SECONDS["sparse"] = time.perf_counter() - t0
+    print(f"[sparse] done in {SECONDS['sparse']:.1f}s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5274,26 +5649,29 @@ def main(argv=None) -> int:
     try:
         t0 = time.perf_counter()
         p11 = phase_recsys(args.seed, mesh)
-        print(f"[recsys] phase 11 done in {time.perf_counter() - t0:.1f}s",
+        SECONDS["recsys"] = time.perf_counter() - t0
+        print(f"[recsys] phase 11 done in {SECONDS['recsys']:.1f}s",
               flush=True)
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         p12 = phase_lm(args.seed, mesh)
-        print(f"[lm] phase 12 done in {time.perf_counter() - t0:.1f}s",
-              flush=True)
+        SECONDS["lm"] = time.perf_counter() - t0
+        print(f"[lm] phase 12 done in {SECONDS['lm']:.1f}s", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        p13 = phase_train(args.seed, mesh, keep.pop("reddit", None))
-        print(f"[train] phase 13 done in {time.perf_counter() - t0:.1f}s",
+        p13 = phase_train(args.seed, mesh, keep.pop("reddit"))
+        SECONDS["train"] = time.perf_counter() - t0
+        print(f"[train] phase 13 done in {SECONDS['train']:.1f}s",
               flush=True)
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         p15 = phase_partitioned(args.seed, mesh)
+        SECONDS["partitioned"] = time.perf_counter() - t0
         print(f"[partitioned] phase 15 done in "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
+              f"{SECONDS['partitioned']:.1f}s", flush=True)
     finally:
         tdist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -5305,6 +5683,9 @@ def main(argv=None) -> int:
         kd["launches_phase12"] = p12["launches"][kd["name"]]
         kd["launches_phase13"] = p13["launches"][kd["name"]]
         kd["launches_phase15"] = p15["launches"][kd["name"]]
+        if kd["name"] in p15["f4"]["launches"]:         # K5, K5-bf16
+            kd["launches_phase15_f4"] = p15["f4"]["launches"][kd["name"]]
+            kd["f4_bitwise"] = all(p15["f4"]["bitwise"].values())
         kd["launches_phase14"] = (None if p14_launches is None
                                   else p14_launches[kd["name"]])
         t_bytes = kd.pop("bytes") / HBM_BYTES_PER_S * 1e3
@@ -5316,7 +5697,11 @@ def main(argv=None) -> int:
               f"{kd['bound_ms']:.4f} ms by {kd['bound_by']} ({t_bytes:.4f} "
               f"ms of bytes at 3.35 TB/s, {t_ops:.4f} ms of FP32 operations "
               f"at 67 TFLOP/s)", flush=True)
-    print(f"[done] {time.perf_counter() - t_all:.1f}s in all", flush=True)
+    SECONDS["all"] = time.perf_counter() - t_all
+    print("[seconds] " + json.dumps({key: round(v, 1)
+                                     for key, v in SECONDS.items()}),
+          flush=True)
+    print(f"[done] {SECONDS['all']:.1f}s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

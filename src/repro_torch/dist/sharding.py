@@ -31,8 +31,9 @@ tensors the step makes count as replicated. The model code keeps its
 plain-tensor path and takes the ``DTensor`` one where its operands are
 ``DTensor`` s inside such a block (:func:`is_partitioned`: outside every
 block, on the plain path, one look at the mesh stack); :func:`split_index`,
-:func:`as_dtensor`, :func:`replicated_local`, :func:`reduced_grad` and
-:func:`gathered_over_data` serve its ``local_map`` programs, whose
+:func:`shard_extent`, :func:`as_dtensor`, :func:`replicated_local`,
+:func:`reduced_grad` and :func:`gathered_over_data` serve its
+``local_map`` programs, whose
 collectives are written out over :func:`axes_group`'s groups with
 :func:`gather_over`, :func:`scatter_sum`, :func:`sum_over` and
 :func:`copy_to`.
@@ -224,15 +225,47 @@ def replicated_local(x):
 
 
 def split_index(mesh, placements, dim: int) -> tuple[int, int]:
-    """``(i, n)``: this rank holds the ``i``-th of ``n`` equal pieces of
+    """``(i, n)``: this rank holds the ``i``-th of the ``n`` pieces of
     tensor dim ``dim`` under ``placements`` (mesh dims that shard it,
-    major first in the mesh's order)."""
+    major first in the mesh's order). Where ``n`` divides the dim the
+    pieces are equal and piece ``i`` starts at ``i`` times their length.
+    Otherwise DTensor's pieces differ in length and nest over the mesh
+    dims, so ``i`` alone does not give the rank's offset: take
+    :func:`shard_extent`'s."""
     i, n = 0, 1
     for m, p in enumerate(placements):
         if p.is_shard(dim):
             i = i * mesh.size(m) + mesh.get_local_rank(m)
             n *= mesh.size(m)
     return i, n
+
+
+def shard_extent(mesh, placements, shape, dim: int,
+                 coordinate=None) -> tuple[int, int]:
+    """``(offset, length)`` of this rank's piece of tensor dim ``dim`` of a
+    tensor of global ``shape`` under ``placements``, as DTensor lays it
+    out (``torch.distributed.tensor._utils``): each mesh dim that shards
+    it cuts the piece before it into chunks of ``ceil(size / ranks)``, so
+    the last chunks may be shorter or empty, and a split over two mesh
+    dims nests (10 over 2 x 2: lengths 3, 2, 3, 2 at offsets 0, 3, 5, 8).
+    An empty piece has length 0 (its offset says nothing). ``coordinate``
+    asks for the piece of the rank at that mesh coordinate instead; then
+    ``mesh`` may be the mesh's shape alone. A rank outside the mesh holds
+    ``(0, 0)``."""
+    from torch.distributed.tensor import _utils
+
+    shape = tuple(int(s) for s in shape)
+    if coordinate is None:
+        local, off = _utils.compute_local_shape_and_global_offset(
+            shape, mesh, list(placements))
+    else:
+        mesh_shape = tuple(getattr(mesh, "shape", mesh))
+        local, off = _utils._compute_local_shape_and_global_offset(
+            shape, mesh_shape, [int(c) for c in coordinate],
+            list(placements))
+    if not off:
+        return 0, 0
+    return int(off[dim]), int(local[dim])
 
 
 def gathered_over_data(w):

@@ -111,40 +111,93 @@ def _merge(vals, ids, k: int):
     return torch.gather(vals, 1, sel), torch.gather(ids, 1, sel)
 
 
+def candidate_width(n: int, shards: int, k: int, block: int) -> int:
+    """The candidates each rank sends in the partitioned :func:`topk` of
+    ``n`` entries over ``shards`` pieces: ``kb = min(k, block)`` for every
+    segment of the longest piece, so that every rank's list has one width
+    (the all-gather takes equal shapes). The longest piece is the first,
+    ``ceil(n / shards)`` long: DTensor cuts ``ceil`` chunks, and nested
+    cuts compose (``ceil(ceil(n / a) / b) == ceil(n / (a b))``)."""
+    return -(-(-(-n // shards)) // block) * min(k, block)
+
+
+def rank_candidates(local, first: int, n: int, k: int, block: int,
+                    width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1 of the partitioned :func:`topk` on one rank: K5 over the
+    segments of the rank's piece ``local`` ``[B, m]`` (entries ``first``
+    .. ``first + m - 1`` of ``n``), ``kb = min(k, block)`` winners each,
+    as ``[B, width]`` values and global ids. A segment shorter than
+    ``kb``, and an empty piece, leave ``(-inf, n)`` slots, and the list is
+    padded with them up to ``width``: :func:`~repro_torch.core.retrieval.
+    rank_order` puts such a slot after every real entry, ``-inf`` ones
+    included, since its id is larger. A plain function of its arguments,
+    so a rank's stage runs the same for a virtual rank."""
+    bsz, m = local.shape
+    if m:
+        vals, ids = _segment_winners(local, k, block, first=first, n=n)
+    else:
+        vals = local.new_empty((bsz, 0))
+        ids = torch.empty((bsz, 0), dtype=torch.int32, device=local.device)
+    pad = width - vals.shape[1]
+    if pad < 0:
+        raise ValueError(f"{vals.shape[1]} candidates exceed the width "
+                         f"{width}")
+    if pad:
+        vals = torch.cat([vals, vals.new_full((bsz, pad), float("-inf"))],
+                         dim=1)
+        ids = torch.cat([ids, ids.new_full((bsz, pad), n)], dim=1)
+    return vals, ids
+
+
 def _partitioned_topk(x, k: int, block: int):
     """:func:`topk` of a ``DTensor`` ``x`` (``[n]`` or ``[B, n]``) whose
-    last dim is split evenly over mesh dims (the others replicated): stage
-    1, K5 over the segments of each rank's own ``n / shards`` entries (a
-    segment may then hold part of a global one: still lossless, since
+    last dim is split over mesh dims (the others replicated), evenly or
+    not: stage 1 on each rank's own piece (:func:`rank_candidates`, at the
+    offset and length of DTensor's layout, ``dist.sharding.shard_extent``;
+    a segment may then hold part of a global one: still lossless, since
     every global winner wins its own piece, and ties go by index), then
-    one all-gather of the ``[B, nb·kb]`` candidates over the splitting
+    one all-gather of the ``[B, width]`` candidates over the splitting
     dims and the rank merge (``core.retrieval._all_gather_merge``, the
-    sharded steps' own). Returns plain tensors, the same on every rank;
-    on one rank, :func:`topk`'s own board."""
+    sharded steps' own). ``k = 0`` gives empty boards on every rank with
+    no collective; ``k > n`` raises as :func:`topk` does. Returns plain
+    tensors, the same on every rank; on one rank, :func:`topk`'s own
+    board."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+
     mesh = x.device_mesh
     last = x.ndim - 1
-    if any(p.is_partial() or (p.is_shard() and not p.is_shard(last))
+    if any(p.is_partial() or isinstance(p, _StridedShard)
+           or (p.is_shard() and not p.is_shard(last))
            for p in x.placements):
-        raise ValueError(f"topk takes a tensor split on its last dim, got "
-                         f"{list(x.placements)}")
+        raise ValueError(f"topk takes a tensor split on its last dim in "
+                         f"the mesh's order, got {list(x.placements)}")
+    n = x.shape[-1]
+    if not 0 <= k <= n:
+        raise ValueError(f"need 0 <= k <= n, got k={k}, n={n}")
     local = x.to_local()
     squeeze = local.dim() == 1
     if squeeze:
         local = local[None]
-    n = x.shape[-1]
-    part, shards = sharding.split_index(mesh, x.placements, last)
-    if n % shards or not 0 < k <= n:
-        raise ValueError(f"need an even split and 0 < k <= n, got n={n} "
-                         f"over {shards} shards, k={k}")
-    vals, gidx = _segment_winners(local, k, block,
-                                  first=part * local.shape[1], n=n)
-    group = sharding.axes_group(mesh, tuple(
-        name for name, p in zip(mesh.mesh_dim_names, x.placements)
-        if p.is_shard()))
-    if group is not None:
-        idx, vals, _ = _all_gather_merge(gidx, vals, None, group, shards, k)
-    else:                                         # one rank holds them all
-        vals, idx = _merge(vals, gidx, k)
+    if k == 0:
+        vals = local.new_empty((local.shape[0], 0))
+        idx = torch.empty((local.shape[0], 0), dtype=torch.int32,
+                          device=local.device)
+    else:
+        first, m = sharding.shard_extent(mesh, x.placements, x.shape, last)
+        if m != local.shape[1]:
+            raise ValueError(f"the local piece holds {local.shape[1]} "
+                             f"entries where the layout gives {m}")
+        shards = sharding.split_index(mesh, x.placements, last)[1]
+        vals, gidx = rank_candidates(local, first, n, k, block,
+                                     candidate_width(n, shards, k, block))
+        group = sharding.axes_group(mesh, tuple(
+            name for name, p in zip(mesh.mesh_dim_names, x.placements)
+            if p.is_shard()))
+        if group is not None:
+            idx, vals, _ = _all_gather_merge(gidx, vals, None, group, shards,
+                                             k)
+        else:                                     # one rank holds them all
+            vals, idx = _merge(vals, gidx, k)
     if squeeze:
         return vals[0], idx[0]
     return vals, idx
